@@ -1,0 +1,72 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution and the
+reduced smoke variants (``repro.configs.registry`` with the transformer
+family's reduction recipe, ``repro.api.families._transformer_smoke``)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# the architectures whose configs the port carries so far
+_MODULES = {
+    "llama3-8b": "llama3_8b",
+    "gemma2-2b": "gemma2_2b",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced variant of the same family for CPU smoke tests:
+    ≤2 pattern repeats, d_model ≤ 256, head_dim 32, ≤4 experts, small
+    vocab — the reference's recipe, value for value."""
+    unit = cfg.block_pattern
+    # keep the heterogeneity of the unit but only 1-2 repeats
+    repeats = 1 if len(unit) > 2 else 2
+    d_model = min(cfg.d_model, 256)
+    head_dim = 32
+    heads = max(2, min(4, cfg.num_heads))
+    kv = max(1, min(heads, cfg.num_kv_heads))
+    while heads % kv:
+        kv -= 1
+    # rescale M-RoPE sections to the reduced head_dim (keep 1/4:3/8:3/8)
+    mrope_sections = cfg.mrope_sections
+    if cfg.mrope:
+        half = head_dim // 2
+        a = half // 4
+        b = (half - a) // 2
+        mrope_sections = (a, b, half - a - b)
+    return cfg.replace(
+        num_layers=repeats * len(unit),
+        pattern_repeats=repeats,
+        mrope_sections=mrope_sections,
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        num_experts=min(cfg.num_experts, 4) if cfg.num_experts else 0,
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2)
+        if cfg.num_experts else 0,
+        moe_capacity_factor=(min(cfg.num_experts, 4)
+                             / max(1, min(cfg.num_experts_per_tok, 2))
+                             if cfg.num_experts else 1.25),
+        moe_d_ff=min(cfg.moe_d_ff, 128) if cfg.moe_d_ff else 0,
+        num_shared_experts=min(cfg.num_shared_experts, 1),
+        shared_expert_d_ff=min(cfg.shared_expert_d_ff, 128),
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_heads=min(cfg.ssm_heads, 8) if cfg.ssm_heads else 0,
+        sliding_window=min(cfg.sliding_window, 64),
+        long_context_window=64,
+        vision_tokens=16,
+        remat="none",
+        fsdp=False,
+    )

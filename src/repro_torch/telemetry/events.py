@@ -1,0 +1,32 @@
+"""The no-op recorder of ``repro.telemetry.events``: library code threads
+``recorder.span(...)`` / ``recorder.event(...)`` unconditionally and pays
+one attribute lookup when nothing records.  A caller that wants the spans
+passes any object with the same two methods."""
+from __future__ import annotations
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class NullRecorder:
+    """The do-nothing recorder."""
+    __slots__ = ()
+
+    def span(self, kind: str, **attrs):
+        return _NULL_SPAN
+
+    def event(self, kind: str, **attrs) -> None:
+        pass
+
+
+NULL_RECORDER = NullRecorder()
