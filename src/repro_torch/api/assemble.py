@@ -1,13 +1,86 @@
-"""``compile_serve``: ServeSpec -> live Server (``repro.api.assemble``)."""
+"""``compile_run``: RunSpec -> Run, ``compile_serve``: ServeSpec -> Server
+(``repro.api.assemble``).  The one place run and deployment assembly
+happens.
+
+Training resolves, in the reference's order: arch id -> config (optionally
+its smoke variant) -> family adapter -> params on the device -> optimizer
+and LR schedule -> train step.  Only ``parallel="serial"`` is ported; the
+other modes raise.
+"""
 from __future__ import annotations
 
+from repro_torch.api.families import FamilyAdapter, adapter_for
+from repro_torch.api.run import Run
 from repro_torch.api.serve import Server
-from repro_torch.api.spec import ServeSpec
+from repro_torch.api.spec import RunSpec, ServeSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.transformer import ATTN_KINDS
+from repro_torch.optim import (
+    AdamW,
+    MomentumSGD,
+    constant,
+    linear_scale_warmup,
+    warmup_cosine,
+)
+from repro_torch.train import make_train_step
+
+
+def _resolve_config(spec):
+    cfg = get_config(spec.arch) if isinstance(spec.arch, str) else spec.arch
+    return smoke_variant(cfg) if spec.smoke else cfg
+
+
+def _make_optimizer(spec: RunSpec, family: FamilyAdapter):
+    name = spec.optimizer or family.default_optimizer
+    wd = spec.weight_decay
+    if name == "adamw":
+        return AdamW(weight_decay=0.01 if wd is None else wd)
+    return MomentumSGD(momentum=spec.momentum,
+                       weight_decay=0.0 if wd is None else wd)
+
+
+def _make_schedule(spec: RunSpec, data_ways: int = 1):
+    if spec.schedule == "constant":
+        return constant(spec.lr)
+    warmup = spec.warmup_steps if spec.warmup_steps is not None \
+        else max(spec.steps // 20, 1)
+    if spec.schedule == "linear-scale-warmup":
+        # Goyal et al.: the peak LR scales with the data-parallel ways
+        return linear_scale_warmup(spec.lr, data_ways, warmup, spec.steps)
+    return warmup_cosine(spec.lr, warmup, spec.steps)
+
+
+def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
+    """Assemble a ready-to-train :class:`Run` from ``spec``.
+
+    ``device`` defaults to the GPU and raises when none is visible; pass
+    ``device="cpu"`` to run on the CPU.  ``recorder`` receives the
+    trainer's spans and counts (None: no-op).
+    """
+    if spec.parallel != "serial":
+        raise NotImplementedError(
+            f"parallel={spec.parallel!r} is not ported yet: the port trains "
+            "serially")
+    if spec.comm is not None:
+        raise NotImplementedError(
+            "comm is not ported yet: the port trains serially")
+    dev = resolve_device(device)
+    cfg = _resolve_config(spec)
+    family = adapter_for(cfg)
+    loss_fn = family.make_loss(cfg)
+    params = family.init(cfg, spec.seed, dev)
+    optimizer = _make_optimizer(spec, family)
+    lr_schedule = _make_schedule(spec)
+    opt_state = optimizer.init(params)
+    train_step = make_train_step(loss_fn, optimizer, lr_schedule,
+                                 grad_clip=spec.grad_clip)
+    return Run(spec=spec, cfg=cfg, family=family, device=dev,
+               loss_fn=loss_fn, optimizer=optimizer, lr_schedule=lr_schedule,
+               train_step=train_step, params=params, opt_state=opt_state,
+               telemetry=recorder)
 
 
 def compile_serve(spec: ServeSpec, params=None, device=None,

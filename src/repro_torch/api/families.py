@@ -1,0 +1,65 @@
+"""Family-adapter registry of the port (``repro.api.families``): each
+model family declares its training glue once, keyed by its config class,
+and ``adapter_for(cfg)`` resolves it by MRO.
+
+Only the ``cnn`` family (VGG-A, OverFeat-FAST) is ported; the DNN and
+transformer training families come with later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, Type
+
+from repro_torch.configs.base import CNNConfig
+from repro_torch.data.pipeline import image_stream
+from repro_torch.models import cnn
+
+
+@dataclass(frozen=True)
+class FamilyAdapter:
+    """Everything ``compile_run`` needs to assemble a family's training run.
+
+    init:         (cfg, seed, device) -> param tree
+    make_loss:    cfg -> loss_fn(params, batch) -> scalar
+    stream:       (cfg, batch, seq, seed) -> iterator of host batches
+    default_optimizer: "sgd" (the paper's CNN/DNN optimizer) or "adamw"
+
+    The reference's ``param_specs`` (for sharding) and ``smoke`` fields come
+    with the slices that need them; the port's smoke variants dispatch by
+    config class in ``configs.registry.smoke_variant``.
+    """
+    family: str
+    config_cls: Type
+    init: Callable[..., Any]
+    make_loss: Callable[[Any], Callable]
+    stream: Callable[[Any, int, int, int], Iterator]
+    default_optimizer: str = "adamw"
+
+
+_REGISTRY: Dict[Type, FamilyAdapter] = {}
+
+
+def register_family(adapter: FamilyAdapter) -> FamilyAdapter:
+    """Register ``adapter`` for its config class (last registration wins)."""
+    _REGISTRY[adapter.config_cls] = adapter
+    return adapter
+
+
+def adapter_for(cfg) -> FamilyAdapter:
+    """Resolve the family adapter for a config instance by MRO."""
+    for cls in type(cfg).__mro__:
+        if cls in _REGISTRY:
+            return _REGISTRY[cls]
+    raise TypeError(
+        f"no family adapter registered for {type(cfg).__name__}; "
+        f"known families: {sorted(a.family for a in _REGISTRY.values())}")
+
+
+CNN_FAMILY = register_family(FamilyAdapter(
+    family="cnn", config_cls=CNNConfig,
+    init=cnn.init_params,
+    make_loss=lambda cfg: lambda p, b: cnn.loss_fn(p, cfg, b),
+    stream=lambda cfg, batch, seq, seed: image_stream(
+        cfg.image_size, cfg.num_classes, batch, seed),
+    default_optimizer="sgd",
+))

@@ -1,8 +1,88 @@
-"""Declarative serving description of the port (``repro.api.spec.ServeSpec``)."""
+"""Declarative run and serving descriptions of the port
+(``repro.api.spec``): ``RunSpec`` is WHAT to train, ``ServeSpec`` WHAT to
+serve.
+
+``RunSpec`` accepts every parallel mode name of the reference, validated as
+the reference validates it, but ``compile_run`` assembles only ``serial`` so
+far; the distributed modes and their ``comm`` knobs (``CommConfig``) come
+with the §3.4 ring slice.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Union
+from typing import Any, Optional, Union
+
+PARALLEL_MODES = ("serial", "dp", "zero1", "zero1-gspmd", "stale-sync",
+                  "gossip")
+# the modes that take the explicit bucketed ``comm`` knobs
+COMM_MODES = ("zero1", "stale-sync", "gossip")
+OPTIMIZERS = ("adamw", "sgd")
+SCHEDULES = ("warmup_cosine", "constant", "linear-scale-warmup")
+
+
+@dataclass(frozen=True)
+class RunSpec:
+    """Declarative description of one training run.
+
+    arch:       registry id or a concrete config object of a ported family.
+    smoke:      reduce the config to the family's CPU-sized smoke variant.
+    parallel:   one of ``PARALLEL_MODES``; only ``"serial"`` is ported.
+    comm:       the explicit bucketed modes' communication knobs: ``None``,
+                or ``"auto"`` on a comm mode (``COMM_MODES``).  A
+                ``CommConfig`` is not ported yet.
+    optimizer:  ``"adamw"`` / ``"sgd"``; ``None`` = family default (momentum
+                SGD for the paper's CNNs).
+    """
+    arch: Union[str, Any]
+    smoke: bool = False
+    parallel: str = "serial"
+    comm: Optional[str] = None
+    # optimizer + schedule
+    optimizer: Optional[str] = None
+    lr: float = 1e-3
+    weight_decay: Optional[float] = None   # None = optimizer default
+    momentum: float = 0.9
+    schedule: str = "warmup_cosine"
+    warmup_steps: Optional[int] = None     # None = steps // 20 (min 1)
+    grad_clip: float = 1.0
+    # trainer / data
+    steps: int = 50
+    batch: int = 8
+    seq: int = 128
+    seed: int = 0
+    log_every: int = 5
+    ckpt_every: int = 0                    # 0 = disabled
+    ckpt_dir: Optional[str] = None
+
+    def __post_init__(self):
+        if self.parallel not in PARALLEL_MODES:
+            raise ValueError(f"parallel must be one of {PARALLEL_MODES}, "
+                             f"got {self.parallel!r}")
+        if self.optimizer is not None and self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer must be one of {OPTIMIZERS}, "
+                             f"got {self.optimizer!r}")
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, "
+                             f"got {self.schedule!r}")
+        if self.steps < 1:
+            raise ValueError(f"steps must be >= 1, got {self.steps}")
+        if isinstance(self.comm, str):
+            if self.comm != "auto":
+                raise ValueError(
+                    f"comm accepts a CommConfig, None, or the string "
+                    f"'auto', got {self.comm!r}")
+            if self.parallel not in COMM_MODES:
+                raise ValueError(
+                    "comm='auto' measures the explicit bucketed collectives "
+                    f"— only the comm-capable modes {COMM_MODES} run them; "
+                    f"parallel={self.parallel!r} does not")
+        elif self.comm is not None:
+            raise NotImplementedError(
+                "CommConfig is not ported yet: comm takes None or 'auto'")
+
+    def replace(self, **kw) -> "RunSpec":
+        return replace(self, **kw)
+
 
 SCHEDULER_POLICIES = ("static", "continuous")
 # "kernel" is the port's name for the reference's "pallas"

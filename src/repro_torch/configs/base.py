@@ -1,7 +1,7 @@
-"""Model configs: the port's own copy of ``repro.configs.base.ModelConfig``
-and the block-kind constants, field for field (the two packages share no
-code, so a config object of one is rebuilt in the other with
-``ModelConfig(**dataclasses.asdict(cfg))``)."""
+"""Model configs: the port's own copy of ``repro.configs.base.ModelConfig``,
+``ConvLayerSpec``, ``CNNConfig`` and the block-kind constants, field for
+field (the two packages share no code, so a config object of one is rebuilt
+in the other from ``dataclasses.asdict``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -108,3 +108,31 @@ class ModelConfig:
         if "block_pattern" in kw or "num_layers" in kw:
             kw.setdefault("pattern_repeats", 0)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ConvLayerSpec:
+    """One layer of a paper CNN (VGG-A / OverFeat-FAST), for models/cnn.py."""
+    kind: str          # conv | pool | fc
+    ifm: int = 0
+    ofm: int = 0
+    kernel: int = 0
+    stride: int = 1
+    pad: int = 0
+    out_hw: int = 0    # output feature-map spatial size (square)
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    name: str
+    source: str
+    layers: Tuple[ConvLayerSpec, ...]
+    image_size: int
+    num_classes: int = 1000
+    family: str = "cnn"
+
+    def conv_layers(self):
+        return [lyr for lyr in self.layers if lyr.kind == "conv"]
+
+    def fc_layers(self):
+        return [lyr for lyr in self.layers if lyr.kind == "fc"]

@@ -1,32 +1,62 @@
 """Architecture registry of the port: ``--arch <id>`` resolution and the
-reduced smoke variants (``repro.configs.registry`` with the transformer
-family's reduction recipe, ``repro.api.families._transformer_smoke``)."""
+reduced smoke variants (``repro.configs.registry`` with the families'
+reduction recipes, ``repro.api.families._cnn_smoke`` and
+``_transformer_smoke``)."""
 from __future__ import annotations
 
 import importlib
+from typing import Union
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import CNNConfig, ConvLayerSpec, ModelConfig
 
 # the architectures whose configs the port carries so far
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "gemma2-2b": "gemma2_2b",
+    "vgg-a": "vgg_a",
+    "overfeat-fast": "overfeat_fast",
 }
 
 ARCHS = tuple(_MODULES)
 
+AnyConfig = Union[ModelConfig, CNNConfig]
 
-def get_config(name: str) -> ModelConfig:
+
+def get_config(name: str) -> AnyConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 
 
-def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """Reduced variant of the same family for CPU smoke tests:
-    ≤2 pattern repeats, d_model ≤ 256, head_dim 32, ≤4 experts, small
-    vocab — the reference's recipe, value for value."""
+def smoke_variant(cfg: AnyConfig) -> AnyConfig:
+    """Reduced variant of the same family for CPU smoke tests, by config
+    class — the reference's recipes, value for value."""
+    if isinstance(cfg, CNNConfig):
+        return _cnn_smoke(cfg)
+    return _transformer_smoke(cfg)
+
+
+def _cnn_smoke(cfg: CNNConfig) -> CNNConfig:
+    # keep first two convs + last fc, shrink maps
+    L = ConvLayerSpec
+    return CNNConfig(
+        name=cfg.name + "-smoke", source=cfg.source, image_size=32,
+        num_classes=16,
+        layers=(
+            L("conv", ifm=3, ofm=16, kernel=3, stride=1, pad=1, out_hw=32),
+            L("pool", out_hw=16),
+            L("conv", ifm=16, ofm=32, kernel=3, stride=1, pad=1, out_hw=16),
+            L("pool", out_hw=8),
+            L("fc", ifm=32 * 8 * 8, ofm=64, out_hw=1),
+            L("fc", ifm=64, ofm=16, out_hw=1),
+        ),
+    )
+
+
+def _transformer_smoke(cfg: ModelConfig) -> ModelConfig:
+    """≤2 pattern repeats, d_model ≤ 256, head_dim 32, ≤4 experts, small
+    vocab."""
     unit = cfg.block_pattern
     # keep the heterogeneity of the unit but only 1-2 repeats
     repeats = 1 if len(unit) > 2 else 2

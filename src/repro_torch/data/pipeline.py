@@ -1,0 +1,117 @@
+"""Data pipeline of the port (``repro.data.pipeline``): the paper's §4 data
+handling module.
+
+A background thread fills a bounded queue with host-side numpy batches
+(double buffering); the consumer places each batch on the run's device as
+it takes it.  The synthetic streams are the reference's, draw for draw from
+``np.random.default_rng(seed)``, so both packages see bitwise the same
+batches.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+
+import torch
+
+
+def image_stream(image_size: int, num_classes: int, batch: int,
+                 seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Images whose class determines a planted frequency pattern."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:image_size, 0:image_size].astype(np.float32)
+    while True:
+        labels = rng.integers(0, num_classes, size=(batch,))
+        freq = (labels[:, None, None] + 1).astype(np.float32)
+        base = np.sin(freq * xx[None] / image_size * 6.28) \
+            + np.cos(freq * yy[None] / image_size * 6.28)
+        img = base[..., None] + 0.3 * rng.standard_normal(
+            (batch, image_size, image_size, 3)).astype(np.float32)
+        yield {"images": img.astype(np.float32),
+               "labels": labels.astype(np.int32)}
+
+
+_SENTINEL = object()    # queued when the source is exhausted: a finite
+#                         source must end the consumer's iteration, not
+#                         leave it blocked on an empty queue forever
+
+
+def _to_tensors(batch) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+class Prefetcher:
+    """Background-thread prefetch with a bounded queue (double buffering).
+
+    Finite sources terminate cleanly: exhaustion enqueues a sentinel that
+    ``__next__`` turns into ``StopIteration``.  A source that raises is not
+    exhaustion: ``__next__`` re-raises its exception.  ``close()`` stops the
+    worker, drains the queue and joins the thread (bounded), so no worker is
+    left blocked on a full queue after the consumer goes away."""
+
+    def __init__(self, source: Iterator, depth: int = 2,
+                 place: Optional[Callable] = None):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._place = place or _to_tensors
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+
+        def _put(item) -> bool:
+            # bounded put that gives up when close() intervenes, so the
+            # worker can never deadlock against a full queue
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in source:
+                    if not _put(item):
+                        return
+            except BaseException as e:     # noqa: BLE001 — must cross threads
+                # a crashed pipeline is NOT exhaustion: record the exception
+                # so the consumer re-raises it instead of quietly stopping
+                self._error = e
+            finally:
+                _put(_SENTINEL)
+
+        self._t = threading.Thread(target=worker, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is _SENTINEL:
+            try:                      # keep raising on subsequent calls
+                self._q.put_nowait(_SENTINEL)
+            except queue.Full:
+                pass
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        return self._place(item)
+
+    def close(self):
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._t.join(timeout=5.0)
+
+
+def make_placer(device) -> Callable:
+    """numpy batch -> dict of tensors on ``device`` (one device: the port's
+    serial slice has no mesh)."""
+    dev = torch.device(device)
+    return lambda b: {k: t.to(dev) for k, t in _to_tensors(b).items()}

@@ -1,0 +1,59 @@
+"""The paper's own workload: VGG-A training with momentum SGD (reduced size),
+assembled through ``repro_torch.api`` — the family
+adapter picks the CNN loss and stream and the paper's optimizer;
+``--use-kernel`` swaps the forward convs onto the Hopper direct-conv kernel
+(on the CPU, onto its plain version).
+
+    PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --use-kernel
+    PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.api import Run, RunSpec, compile_run
+from repro_torch.models import cnn
+from repro_torch.train import make_train_step
+
+
+def kernel_loss(cfg):
+    """The CNN loss with every forward conv on the direct-conv kernel
+    (``cnn.forward(use_kernel=True)``); the backward is the reference's."""
+    return lambda p, b: cnn.loss_fn(p, cfg, b, use_kernel=True)
+
+
+def use_kernel(run: Run) -> Run:
+    """Swap ``run``'s loss for :func:`kernel_loss`; the rest of the
+    assembly (optimizer, schedule, data, trainer) is untouched."""
+    run.loss_fn = kernel_loss(run.cfg)
+    run.train_step = make_train_step(run.loss_fn, run.optimizer,
+                                     run.lr_schedule)
+    return run
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="route forward convs through the direct-conv kernel")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+
+    spec = RunSpec(arch="vgg-a", smoke=True, steps=args.steps,
+                   batch=args.batch, lr=5e-3, schedule="constant",
+                   log_every=10)
+    run = compile_run(spec, device=args.device)  # default optimizer: SGD
+    if args.use_kernel:
+        use_kernel(run)
+    with run:
+        hist = run.fit()
+    print(f"{run.cfg.name} loss {hist[0]['loss']:.3f} -> "
+          f"{hist[-1]['loss']:.3f} (kernel={args.use_kernel}, "
+          f"device={run.device})")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

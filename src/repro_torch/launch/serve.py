@@ -16,12 +16,14 @@ import numpy as np
 
 from repro_torch.api import ServeSpec, compile_serve
 from repro_torch.api.spec import PAGED_ATTN_IMPLS, SCHEDULER_POLICIES
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, ModelConfig, get_config
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=[a for a in ARCHS
+                             if isinstance(get_config(a), ModelConfig)])
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--requests", type=int, default=8)

@@ -1,7 +1,8 @@
 """The no-op recorder of ``repro.telemetry.events``: library code threads
-``recorder.span(...)`` / ``recorder.event(...)`` unconditionally and pays
-one attribute lookup when nothing records.  A caller that wants the spans
-passes any object with the same two methods."""
+``recorder.span(...)`` / ``recorder.event(...)`` / ``recorder.count(...)``
+unconditionally and pays one attribute lookup when nothing records.  A
+caller that wants them passes any object with the same methods (the serving
+engine calls ``span`` and ``event``, the trainer ``span`` and ``count``)."""
 from __future__ import annotations
 
 
@@ -26,6 +27,9 @@ class NullRecorder:
         return _NULL_SPAN
 
     def event(self, kind: str, **attrs) -> None:
+        pass
+
+    def count(self, name: str, n: int = 1) -> None:
         pass
 
 

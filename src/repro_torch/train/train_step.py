@@ -1,0 +1,55 @@
+"""train_step assembly (``repro.train.train_step``): loss -> grads ->
+synchronous-SGD update, for the serial mode.
+
+PyTorch runs eagerly, so there is no jit and no buffer donation: the step
+computes the gradients with ``torch.autograd.grad`` and the optimizer
+updates the params and its state in place.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.params import map_tree
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, leaves in sorted-key
+    order (the reference's ``jax.tree`` order), in f32."""
+    leaves = []
+    map_tree(leaves.append, tree)
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in leaves))
+
+
+def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
+                    grad_clip: float = 1.0,
+                    dist_update: Optional[Callable] = None):
+    """loss_fn(params, batch) -> scalar loss.  Returns
+    step(params, opt_state, step_idx, batch) -> (params, opt_state, metrics),
+    which advances ``params`` and ``opt_state`` in place and returns them.
+    ``dist_update`` (the reference's explicit ZeRO-1 update) is not ported
+    yet and must be None."""
+    if dist_update is not None:
+        raise NotImplementedError(
+            "dist_update is not ported yet: the port's train step runs the "
+            "serial optimizer update only")
+
+    def train_step(params, opt_state, step_idx, batch):
+        keys = sorted(params)
+        leaves = [params[k].requires_grad_() for k in keys]
+        loss = loss_fn(params, batch)
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        gnorm = global_norm(grads)
+        if grad_clip > 0:
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+            for g in grads.values():
+                g.mul_(scale)
+        lr = lr_schedule(step_idx)
+        params, opt_state = optimizer.update(grads, opt_state, params, lr)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    return train_step

@@ -230,6 +230,10 @@ def test_compile_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert srv.device.type == "cpu"
     assert srv.params["embed"].device.type == "cpu"
     with pytest.raises(KeyError, match="unknown arch"):
+        compile_serve(ServeSpec(arch="cd-dnn", smoke=True), device="cpu")
+    # a CNN config is known (the training slice) but not servable, as in
+    # the reference
+    with pytest.raises(ValueError, match="token LM ModelConfig"):
         compile_serve(ServeSpec(arch="vgg-a", smoke=True), device="cpu")
 
 
