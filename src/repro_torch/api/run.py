@@ -6,7 +6,9 @@ its device: the ``train_step``, the ``params`` and ``opt_state``, a lazily
 started prefetching ``data`` iterator, and ``fit()``.  The reference's
 ``jit_step`` (one jit cache, buffers donated) becomes the eager
 ``train_step``, which updates ``params`` and ``opt_state`` in place.
-Checkpoint restore and meshes are not ported yet.
+Under ``parallel="zero1"`` the run carries its member ``mesh``, its
+``comm`` and the ``dist_update`` its train step calls, and ``opt_state``
+is the strip state.  Checkpoint restore is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 @dataclass
 class Run:
-    """An assembled serial training run.  ``fit`` and ``step`` advance
+    """An assembled training run.  ``fit`` and ``step`` advance
     ``params`` and ``opt_state`` in place."""
     spec: Any                       # the RunSpec this run was compiled from
     cfg: Any                        # resolved (possibly smoke) family config
@@ -33,6 +35,9 @@ class Run:
     train_step: Callable            # (params, opt_state, step, batch) -> ...
     params: Any
     opt_state: Any
+    mesh: Optional[Any] = None      # launch.mesh.LocalMesh; None for serial
+    comm: Optional[Any] = None      # the CommConfig of the zero1 update
+    dist_update: Optional[Callable] = None  # optim.dist update_fn (zero1)
     telemetry: Optional[Any] = None  # recorder of the trainer's spans and
     #                                  counts; None = no-op
     _data: Optional[Prefetcher] = field(default=None, repr=False)

@@ -2,22 +2,82 @@
 (``repro.api.spec``): ``RunSpec`` is WHAT to train, ``ServeSpec`` WHAT to
 serve.
 
-``RunSpec`` accepts every parallel mode name of the reference, validated as
-the reference validates it, but ``compile_run`` assembles only ``serial`` so
-far; the distributed modes and their ``comm`` knobs (``CommConfig``) come
-with the §3.4 ring slice.
+``RunSpec`` accepts every parallel mode name of the reference and validates
+it, its ``MeshSpec`` and its ``CommConfig`` as the reference does
+(``MODE_CAPS``); ``compile_run`` assembles ``serial`` and ``zero1`` and
+raises "not ported yet" for the rest.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import Any, Optional, Union
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional, Tuple, Union
 
-PARALLEL_MODES = ("serial", "dp", "zero1", "zero1-gspmd", "stale-sync",
-                  "gossip")
+from repro_torch.comm.bucketer import CommConfig
+
+
+@dataclass(frozen=True)
+class ModeCaps:
+    """What one parallel mode supports (the reference's table): does it
+    take the ``comm`` knobs, does it run the overlapped step, which
+    collective backends and wire formats its reduce phase accepts."""
+    comm: bool = False
+    overlap: bool = False
+    backends: Optional[Tuple[str, ...]] = None
+    default_backend: Optional[str] = None
+    wire_formats: Optional[Tuple[str, ...]] = None
+
+
+MODE_CAPS = {
+    "serial": ModeCaps(),
+    "dp": ModeCaps(),
+    "zero1": ModeCaps(comm=True, overlap=True,
+                      backends=("lax", "pallas-ring"),
+                      wire_formats=("fp32", "bf16", "int8", "topk")),
+    "zero1-gspmd": ModeCaps(),
+    "stale-sync": ModeCaps(comm=True, backends=("lax", "pallas-ring"),
+                           wire_formats=("fp32", "bf16", "int8")),
+    "gossip": ModeCaps(comm=True, backends=("gossip",),
+                       default_backend="gossip",
+                       wire_formats=("fp32", "bf16")),
+}
+
+PARALLEL_MODES = tuple(MODE_CAPS)
 # the modes that take the explicit bucketed ``comm`` knobs
-COMM_MODES = ("zero1", "stale-sync", "gossip")
+COMM_MODES = tuple(m for m, c in MODE_CAPS.items() if c.comm)
 OPTIMIZERS = ("adamw", "sgd")
 SCHEDULES = ("warmup_cosine", "constant", "linear-scale-warmup")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Member topology of the data-parallel modes: axes ``("pod", "data")``
+    when ``pods > 1``, ``("data",)`` otherwise.
+
+    members_per_device: the G data-parallel members, all on the run's one
+                        device along a leading member dimension
+                        (``launch.mesh.LocalMesh``); the data extent is
+                        ``members_per_device / pods``.  The reference takes
+                        its G from the visible (forced host) devices instead;
+                        a card cannot be split by a flag.
+    pods:               pods of the hierarchical schedule.
+    model_ways:         model-parallel ways (not ported yet: > 1 raises in
+                        ``compile_run``).
+    cluster:            one member per process of a ``torch.distributed``
+                        group (not ported yet in ``compile_run``).
+    """
+    pods: int = 1
+    model_ways: int = 1
+    cluster: bool = False
+    members_per_device: int = 1
+
+    def __post_init__(self):
+        if self.pods < 1 or self.model_ways < 1:
+            raise ValueError(f"pods/model_ways must be >= 1, got "
+                             f"{self.pods}/{self.model_ways}")
+        if self.members_per_device < 1 or self.members_per_device % self.pods:
+            raise ValueError(
+                f"members_per_device={self.members_per_device} must be a "
+                f"positive multiple of pods={self.pods}")
 
 
 @dataclass(frozen=True)
@@ -26,17 +86,22 @@ class RunSpec:
 
     arch:       registry id or a concrete config object of a ported family.
     smoke:      reduce the config to the family's CPU-sized smoke variant.
-    parallel:   one of ``PARALLEL_MODES``; only ``"serial"`` is ported.
-    comm:       the explicit bucketed modes' communication knobs: ``None``,
-                or ``"auto"`` on a comm mode (``COMM_MODES``).  A
-                ``CommConfig`` is not ported yet.
+    parallel:   one of ``PARALLEL_MODES``; ``"serial"`` and ``"zero1"`` are
+                ported.
+    mesh:       member topology of the non-serial modes (ignored for
+                ``serial``).
+    comm:       the explicit bucketed modes' communication knobs: a
+                ``CommConfig``, ``None`` (the mode's default: hierarchical
+                iff the mesh has a pod axis), or ``"auto"`` (not ported
+                yet).
     optimizer:  ``"adamw"`` / ``"sgd"``; ``None`` = family default (momentum
                 SGD for the paper's CNNs).
     """
     arch: Union[str, Any]
     smoke: bool = False
     parallel: str = "serial"
-    comm: Optional[str] = None
+    mesh: MeshSpec = field(default_factory=MeshSpec)
+    comm: Union[CommConfig, str, None] = None
     # optimizer + schedule
     optimizer: Optional[str] = None
     lr: float = 1e-3
@@ -66,19 +131,58 @@ class RunSpec:
                              f"got {self.schedule!r}")
         if self.steps < 1:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
+        caps = MODE_CAPS[self.parallel]
         if isinstance(self.comm, str):
             if self.comm != "auto":
                 raise ValueError(
                     f"comm accepts a CommConfig, None, or the string "
                     f"'auto', got {self.comm!r}")
-            if self.parallel not in COMM_MODES:
+            if not caps.comm:
                 raise ValueError(
                     "comm='auto' measures the explicit bucketed collectives "
                     f"— only the comm-capable modes {COMM_MODES} run them; "
                     f"parallel={self.parallel!r} does not")
         elif self.comm is not None:
-            raise NotImplementedError(
-                "CommConfig is not ported yet: comm takes None or 'auto'")
+            if not isinstance(self.comm, CommConfig):
+                raise ValueError(
+                    f"comm accepts a CommConfig, None, or the string "
+                    f"'auto', got {type(self.comm).__name__}")
+            if not caps.comm:
+                raise ValueError(
+                    "comm (bucket size / wire dtype / hierarchical) only "
+                    "applies to the explicit bucketed modes "
+                    f"{COMM_MODES} — parallel={self.parallel!r} does not take "
+                    "it")
+            if self.comm.overlap and not caps.overlap:
+                overlappy = tuple(m for m, c in MODE_CAPS.items()
+                                  if c.overlap)
+                raise ValueError(
+                    "comm.overlap (the §3.1 backward-pass reduce schedule) "
+                    f"is only supported by {overlappy} — "
+                    f"parallel={self.parallel!r} does not run the "
+                    "overlapped train step")
+            name = self.comm.backend
+            if caps.backends is not None and name not in caps.backends:
+                raise ValueError(
+                    f"collective backend {name!r} is not valid under "
+                    f"parallel={self.parallel!r}; this mode supports "
+                    f"{caps.backends}. The gossip backend changes the "
+                    "consistency model, so it is selected by "
+                    "parallel='gossip', not as a zero1 backend swap")
+            fmt = self.comm.wire_format
+            if caps.wire_formats is not None and fmt not in caps.wire_formats:
+                raise ValueError(
+                    f"wire_format {fmt!r} is not valid under "
+                    f"parallel={self.parallel!r}; this mode supports "
+                    f"{caps.wire_formats}. The topk format carries an "
+                    "error-feedback residual whose semantics are defined "
+                    "only for the synchronous zero1 pipeline")
+            if fmt == "topk" and self.comm.overlap:
+                raise ValueError(
+                    "wire_format='topk' cannot run under comm.overlap: the "
+                    "backward-pass reduce taps are stateless, so the "
+                    "error-feedback residual has nowhere to live (int8 and "
+                    "the dense formats overlap fine)")
 
     def replace(self, **kw) -> "RunSpec":
         return replace(self, **kw)

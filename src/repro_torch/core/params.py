@@ -35,9 +35,24 @@ def map_tree(fn, tree):
     the generator draws leaves in the reference's order."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(map_tree(fn, t) for t in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(map_tree(fn, t) for t in tree)
     return fn(tree)
+
+
+def top_keys(tree):
+    """The keys of a dict in sorted order, or the indices of a list: how
+    the optimizers walk a flat param tree or a list of fusion strips."""
+    return sorted(tree) if isinstance(tree, dict) else range(len(tree))
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in :func:`map_tree`'s order (``jax.tree.leaves``)."""
+    leaves = []
+    map_tree(leaves.append, tree)
+    return leaves
 
 
 def _init_leaf(s: Spec, gen: torch.Generator, device: torch.device,

@@ -21,3 +21,19 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                    w.float().permute(3, 2, 0, 1), stride=stride,
                    padding=padding)
     return out.permute(0, 2, 3, 1)
+
+
+def ring_reduce_scatter_ref(stacked: torch.Tensor) -> torch.Tensor:
+    """Oracle of ``kernels.ring.ring_reduce_scatter``: row p is the sum over
+    members of chunk p, accumulated in f32 and cast back (the ring adds hop
+    by hop in the input dtype, so bf16 compares to a tolerance)."""
+    G, N = stacked.shape
+    full = stacked.float().sum(0)
+    return full.reshape(G, N // G).to(stacked.dtype)
+
+
+def ring_all_gather_ref(strips: torch.Tensor) -> torch.Tensor:
+    """Oracle of ``kernels.ring.ring_all_gather``: every member holds the
+    full buffer, strips concatenated in owner order."""
+    G, n = strips.shape
+    return strips.reshape(1, G * n).expand(G, G * n)

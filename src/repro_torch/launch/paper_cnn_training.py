@@ -27,7 +27,9 @@ def use_kernel(run: Run) -> Run:
     assembly (optimizer, schedule, data, trainer) is untouched."""
     run.loss_fn = kernel_loss(run.cfg)
     run.train_step = make_train_step(run.loss_fn, run.optimizer,
-                                     run.lr_schedule)
+                                     run.lr_schedule,
+                                     grad_clip=run.spec.grad_clip,
+                                     dist_update=run.dist_update)
     return run
 
 

@@ -12,7 +12,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.params import map_tree
+from repro_torch.core.params import map_tree, top_keys
 
 
 class SgdState(NamedTuple):
@@ -32,7 +32,7 @@ class MomentumSGD:
                ) -> Tuple[Any, SgdState]:
         """v = momentum * v + g + weight_decay * p, then p = p - lr * v,
         leaf by leaf, in place."""
-        for k in sorted(params):
+        for k in top_keys(params):
             v, p = state.velocity[k], params[k]
             v.mul_(self.momentum).add_(grads[k])
             if self.weight_decay:

@@ -1,5 +1,6 @@
 """train_step assembly (``repro.train.train_step``): loss -> grads ->
-synchronous-SGD update, for the serial mode.
+synchronous-SGD update: the serial optimizer, or the explicit zero1
+update of ``optim.dist``.
 
 PyTorch runs eagerly, so there is no jit and no buffer donation: the step
 computes the gradients with ``torch.autograd.grad`` and the optimizer
@@ -11,16 +12,14 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.params import map_tree
+from repro_torch.core.params import tree_leaves
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, leaves in sorted-key
     order (the reference's ``jax.tree`` order), in f32."""
-    leaves = []
-    map_tree(leaves.append, tree)
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+                          for x in tree_leaves(tree)))
 
 
 def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
@@ -29,12 +28,12 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
     """loss_fn(params, batch) -> scalar loss.  Returns
     step(params, opt_state, step_idx, batch) -> (params, opt_state, metrics),
     which advances ``params`` and ``opt_state`` in place and returns them.
-    ``dist_update`` (the reference's explicit ZeRO-1 update) is not ported
-    yet and must be None."""
-    if dist_update is not None:
-        raise NotImplementedError(
-            "dist_update is not ported yet: the port's train step runs the "
-            "serial optimizer update only")
+    ``dist_update`` (optional): the explicit distributed update
+    ``(params, grads, opt_state, lr, step) -> (params, opt_state)`` built by
+    ``optim.dist.make_distributed_update``, in place of the serial
+    ``optimizer.update``: the clipped gradients go through the bucketed
+    part-reduce, the strip optimizer and the part-broadcast.  The matching
+    ``opt_state`` comes from the ``init_fn`` of the same call."""
 
     def train_step(params, opt_state, step_idx, batch):
         keys = sorted(params)
@@ -48,7 +47,12 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
             for g in grads.values():
                 g.mul_(scale)
         lr = lr_schedule(step_idx)
-        params, opt_state = optimizer.update(grads, opt_state, params, lr)
+        if dist_update is not None:
+            params, opt_state = dist_update(params, grads, opt_state, lr,
+                                            step_idx)
+        else:
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 lr)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 

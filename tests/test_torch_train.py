@@ -20,10 +20,11 @@ import jax  # noqa: E402
 from repro.api import RunSpec as JRunSpec  # noqa: E402
 from repro.api import compile_run as jcompile_run  # noqa: E402
 from repro_torch.api import PARALLEL_MODES, RunSpec, compile_run  # noqa: E402
+from repro_torch.comm import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import Prefetcher, make_placer  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch import paper_cnn_training  # noqa: E402
-from repro_torch.train import Trainer, TrainerConfig, make_train_step  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -162,16 +163,19 @@ def test_runspec_takes_every_reference_mode():
 
 @pytest.mark.parametrize("mode", [m for m in PARALLEL_MODES if m != "serial"])
 def test_compile_run_rejects_unported_modes(mode):
+    # zero1 itself is ported; its autotuned comm is not
+    kw = dict(comm="auto") if mode == "zero1" else {}
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        compile_run(RunSpec(arch="vgg-a", smoke=True, parallel=mode),
+        compile_run(RunSpec(arch="vgg-a", smoke=True, parallel=mode, **kw),
                     device="cpu")
 
 
 def test_unported_pieces_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="CommConfig"):
         RunSpec(arch="vgg-a", parallel="zero1", comm=object())
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_train_step(lambda p, b: 0, None, None, dist_update=lambda: 0)
+        compile_run(RunSpec(arch="vgg-a", smoke=True, parallel="zero1",
+                            comm=CommConfig(overlap=True)), device="cpu")
     with pytest.raises(TypeError, match="no family adapter"):
         compile_run(RunSpec(arch="llama3-8b", smoke=True), device="cpu")
 
