@@ -45,11 +45,32 @@ Phase 6  the zero1 path: full-width VGG-A through ``compile_run`` with
          strip state's layout, the replication invariant (every member's
          gathered buffer bitwise the same), one step split into reduce, apply
          and broadcast, and two parity gates against the serial update.
+Phase 8  the three wire-format kernels (``int8_quantize``, ``ring_hop_int8``,
+         ``ring_hop_topk``) against their plain versions, bitwise: whole
+         member-batched int8 and top-k rings at G in {2, 3, 4, 8} over chunks
+         of 1 to 2^20 + 3 elements, aligned, unaligned, wide-stride, stride-0,
+         all-zero and subnormal stacks, the per-member forms with host and on-card
+         chunk indices, and both rings at VGG-A's 14 bucket shapes at G = 4;
+         then CUDA-event times of each kernel and its plain version (top-k
+         also ``index_add``) beside the bound.
+Phase 9  the zero1 path under ``wire_format="int8"`` and ``"topk"`` (ratio
+         0.05, error feedback; then again at 0.25, ``BENCH_fig5.json``'s):
+         full-width VGG-A, G = 4 members on the card, 3 steps of batch 64
+         each.  Launch counts are zeroed just before
+         ``fit`` and read just after (int8: 14 quantize + 42 hops a step;
+         top-k: 42 hops; both 14 gathers, 8 convs).  Then the replication
+         invariant, the update split into reduce, apply and broadcast; for
+         int8 the strips against the fp32 ring's within the largest scale of
+         each bucket's messages, for top-k kept + residual == buffer bitwise;
+         and one whole update through the kernels bitwise the same update
+         through their plain versions on the card.
 Phase 7  the process path on the same card: two processes over gloo, one
-         member each, run the zero1 update of full-width VGG-A through
-         ``make_distributed_update`` on a ``ProcessMesh``; each hop's combine
-         is ``ring_hop_accum`` (counts zeroed just before, read just after: one
-         hop per bucket), and the params must equal a local mesh's bitwise.
+         member each, run the zero1 update of full-width VGG-A on a
+         ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
+         ``ring_hop_accum``, ``ring_hop_int8`` or ``ring_hop_topk`` (counts
+         zeroed just before, read just after: one hop per bucket, and one
+         quantize per bucket under int8), and the params (and the top-k
+         residual) must equal a local mesh's bitwise.  It runs last.
 
 The line before the last is a JSON object of per-kernel findings, the last
 line ``{"ok": true, "device": {...}}``.
@@ -66,6 +87,7 @@ import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
@@ -1031,14 +1053,426 @@ def phase6(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the wire-format kernels, kernel vs plain, and their times
+# ---------------------------------------------------------------------------
+WIRE_GS = (2, 3, 4, 8)
+TOPK_RATIO = 0.05               # the reference's CommConfig default
+
+
+def wire_ring_pairs(st, k):
+    """(kernel, got, want) of one member-batched int8 ring and one top-k
+    ring over the stack ``st``, each call against its plain version on the
+    same inputs (the kernel's own output feeds the next hop)."""
+    from repro_torch.comm.backends.ring import _topk_select
+    from repro_torch.kernels import ring as kring
+    G = st.shape[0]
+    q, s = kring.int8_quantize_members(st)
+    pairs = [("int8_quantize", (q, s), kring.int8_quantize_members_plain(st))]
+    vals, idx = _topk_select(kring.member_chunks(st, -1), k)
+    scales = [s]
+    for step in range(G - 1):
+        want = kring.ring_hop_int8_members_plain(st, q, s, step)
+        q, s = kring.ring_hop_int8_members(st, q, s, step)
+        pairs.append(("ring_hop_int8", (q, s), want))
+        scales.append(s)
+        want = kring.ring_hop_topk_members_plain(st, vals, idx, step)
+        dense = kring.ring_hop_topk_members(st, vals, idx, step)
+        pairs.append(("ring_hop_topk", (dense,), (want,)))
+        vals, idx = _topk_select(dense, k)
+    return pairs, scales
+
+
+def int8_ring_scale(st):
+    """The largest scale of the messages of one member-batched int8 ring
+    over the stack ``st`` (the kernels, outside any counted run)."""
+    from repro_torch.kernels import ring as kring
+    q, s = kring.int8_quantize_members(st)
+    best = s.max().item()
+    for step in range(st.shape[0] - 1):
+        q, s = kring.ring_hop_int8_members(st, q, s, step)
+        best = max(best, s.max().item())
+    return best
+
+
+def check_pairs(pairs, tag, worst):
+    torch.cuda.synchronize()
+    for kname, got, want in pairs:
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and torch.equal(g, w),
+                  f"{kname} {tag}: kernel disagrees with the plain version")
+            worst[kname] = max(worst[kname],
+                               (g.float() - w.float()).abs().max().item())
+    return len(pairs)
+
+
+def phase8(dev, card):
+    from repro_torch.comm.backends.ring import _topk_select, topk_chunk_k
+    from repro_torch.kernels import ring as kring
+    print("phase 8: wire-format kernels vs plain, bitwise (no tolerance); "
+          f"member-batched rings at G in {WIRE_GS}, chunks of {RING_NS} "
+          "elements, contiguous, unaligned, wide-stride, stride-0, all-zero "
+          "and subnormal stacks; per-member calls with host and on-card "
+          "chunk indices")
+    worst = dict.fromkeys(("int8_quantize", "ring_hop_int8",
+                           "ring_hop_topk"), 0.0)
+    cases = 0
+    for G in WIRE_GS:
+        for n in RING_NS:
+            lay = ring_layouts(dev, G, G * n, torch.float32, seed=G * 37 + n)
+            lay["zeros"] = torch.zeros(G, G * n, device=dev)
+            # below 2^-126: an atomic add would flush these to zero
+            lay["subnormal"] = lay["contiguous"] * 2.0 ** -130
+            for name, st in lay.items():
+                pairs, scales = wire_ring_pairs(st, topk_chunk_k(n, TOPK_RATIO))
+                cases += check_pairs(pairs, f"G={G} n={n} {name}", worst)
+                if name == "zeros":
+                    check(all(bool((s == 1).all()) for s in scales),
+                          "an all-zero message's scale is not 1")
+    for n in RING_NS:
+        for name, chunks in ring_layouts(dev, 4, n, torch.float32,
+                                         seed=n + 3).items():
+            x = chunks[1]
+            q, s = kring.int8_quantize(x)
+            pairs = [("int8_quantize", (q, s), kring.int8_quantize_plain(x))]
+            vals, idx = _topk_select(x, topk_chunk_k(n, TOPK_RATIO))
+            for c in range(4):
+                cd = torch.tensor([c], dtype=torch.int32, device=dev)
+                want = kring.ring_hop_int8_plain(chunks, q, s, c)
+                pairs += [("ring_hop_int8", kring.ring_hop_int8(
+                    chunks, q, s, c), want), ("ring_hop_int8",
+                    kring.ring_hop_int8(chunks, q, s, cd), want)]
+                want = (kring.ring_hop_topk_plain(chunks, vals, idx, c),)
+                pairs += [("ring_hop_topk", (kring.ring_hop_topk(
+                    chunks, vals, idx, c),), want), ("ring_hop_topk", (
+                        kring.ring_hop_topk(chunks, vals, idx, cd),), want)]
+            cases += check_pairs(pairs, f"per member n={n} {name}", worst)
+    print(f"  {cases} kernel calls bitwise equal to their plain versions")
+
+    G = 4
+    plan = vgg_buckets(G)
+    at_buckets = 0
+    t = dict.fromkeys(("q", "q_plain", "h", "h_plain", "k", "k_plain"), 0.0)
+    per_bucket = {"q": [], "h": [], "k": []}
+    nbytes = dict.fromkeys(("q", "h", "k"), 0)
+    for bi, b in enumerate(plan.buckets):
+        N = b.padded_size
+        n = N // G
+        k = topk_chunk_k(n, TOPK_RATIO)
+        g = torch.randn(N, device=dev)
+        for name, st in (("stride0", g.expand(G, N)),
+                         ("distinct", torch.randn(G, N, device=dev))):
+            pairs, _ = wire_ring_pairs(st, k)
+            at_buckets += check_pairs(
+                pairs, f"VGG-A bucket {bi} (N={N}) {name}", worst)
+            del pairs
+        st = g.expand(G, N)           # the int8 zero1 path's member partials
+        kept = torch.randn(G, N, device=dev)    # the top-k path's: distinct
+        q, s = kring.int8_quantize_members(st)
+        vals, idx = _topk_select(kring.member_chunks(kept, -1), k)
+        for key, fn in (
+                ("q", lambda: kring.int8_quantize_members(st)),
+                ("q_plain", lambda: kring.int8_quantize_members_plain(st)),
+                ("h", lambda: kring.ring_hop_int8_members(st, q, s, 0)),
+                ("h_plain",
+                 lambda: kring.ring_hop_int8_members_plain(st, q, s, 0)),
+                ("k", lambda: kring.ring_hop_topk_members(kept, vals, idx, 0)),
+                ("k_plain", lambda: kring.ring_hop_topk_members_plain(
+                    kept, vals, idx, 0))):
+            ms = cuda_ms(fn, 3, 10)
+            t[key] += ms
+            if key in per_bucket:
+                per_bucket[key].append(ms)
+        # bytes each call must move: inputs read once, outputs written once
+        nbytes["q"] += 4 * N + N + 4 * G
+        nbytes["h"] += 4 * N + N + 4 * G + N + 4 * G
+        nbytes["k"] += 4 * N + 8 * G * k + 4 * N
+        del g, st, kept, q, s, vals, idx
+    print(f"  at VGG-A's {plan.n_collectives} bucket shapes at G={G}: "
+          f"{at_buckets} member-batched calls (one int8 and one top-k ring "
+          "of a stride-0 stack and of G distinct partials per bucket) "
+          "bitwise equal to their plain versions")
+    print(f"  one member-batched call per bucket, summed over the "
+          f"{plan.n_collectives} buckets (CUDA-event medians of 10 after 3 "
+          f"warm-up): int8_quantize {t['q']} ms (plain {t['q_plain']} ms, "
+          f"bound {bytes_bound(nbytes['q'])} ms); ring_hop_int8 {t['h']} ms "
+          f"(plain {t['h_plain']} ms, bound {bytes_bound(nbytes['h'])} ms); "
+          f"ring_hop_topk at ratio {TOPK_RATIO} {t['k']} ms (plain "
+          f"{t['k_plain']} ms, bound {bytes_bound(nbytes['k'])} ms); per "
+          f"step the int8 ring makes 1 + {G - 1} such passes, top-k "
+          f"{G - 1} [{card}]")
+    print(f"  per bucket (chunk sizes {[b.padded_size // G for b in plan.buckets]}"
+          f"): int8_quantize {per_bucket['q']} ms; ring_hop_int8 "
+          f"{per_bucket['h']} ms; ring_hop_topk {per_bucket['k']} ms [{card}]")
+
+    # one member's call at the largest chunk (fc13_w, n = 25,690,112)
+    n = max(b.padded_size for b in plan.buckets) // G
+    k = topk_chunk_k(n, TOPK_RATIO)
+    chunks = torch.randn(G, n, device=dev)
+    x = chunks[3].clone()
+    q, s = kring.int8_quantize(x)
+    vals, idx = _topk_select(torch.randn(n, device=dev), k)
+    cd = torch.tensor([1], dtype=torch.int32, device=dev)
+    pairs = [("int8_quantize", (q, s), kring.int8_quantize_plain(x)),
+             ("ring_hop_int8", kring.ring_hop_int8(chunks, q, s, cd),
+              kring.ring_hop_int8_plain(chunks, q, s, 1)),
+             ("ring_hop_topk", (kring.ring_hop_topk(chunks, vals, idx, cd),),
+              (kring.ring_hop_topk_plain(chunks, vals, idx, 1),))]
+    check_pairs(pairs, f"one member at the largest chunk (n={n})", worst)
+    del pairs
+    idx64 = idx.long()
+    one = {
+        "int8_quantize": (lambda: kring.int8_quantize(x),
+                          lambda: kring.int8_quantize_plain(x), None,
+                          4 * n + n + 4),
+        "ring_hop_int8": (lambda: kring.ring_hop_int8(chunks, q, s, cd),
+                          lambda: kring.ring_hop_int8_plain(chunks, q, s, cd),
+                          None, 4 * n + n + 4 + n + 4),
+        "ring_hop_topk": (lambda: kring.ring_hop_topk(chunks, vals, idx, cd),
+                          lambda: kring.ring_hop_topk_plain(
+                              chunks, vals, idx, cd),
+                          lambda: chunks[1].index_add(0, idx64, vals),
+                          4 * n + 8 * k + 4 * n)}
+    rows = {}
+    for name, (fn, plain, lib, nb) in one.items():
+        rows[name] = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+                      "library_ms": None if lib is None else cuda_ms(lib),
+                      "bound_ms": bytes_bound(nb), "bound_by": "bytes"}
+        print(f"  {name}, one member at n={n}" + (f", k={k}" if lib else "")
+              + f": kernel {rows[name]['ms']} ms, plain "
+              f"{rows[name]['plain_ms']} ms, "
+              + (f"index_add {rows[name]['library_ms']} ms, " if lib else
+                 "no single PyTorch call computes it, ")
+              + f"bound {rows[name]['bound_ms']} ms (bytes) [{card}]")
+    del chunks, x, q, s, vals, idx, idx64
+    src = "src/repro_torch/kernels/csrc/ring_wire.cu"
+    lines = {"int8_quantize": 221, "ring_hop_int8": 258, "ring_hop_topk": 294}
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": f"src/repro/kernels/ring.py:{lines[name]}",
+             "max_abs_err": worst[name], **rows[name]} for name in lines]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the zero1 path under the int8 and top-k wire formats
+# ---------------------------------------------------------------------------
+@contextmanager
+def plain_ring():
+    """Route the ring backends through the kernels' plain versions (on the
+    card), for the whole-update check of phase 9."""
+    from repro_torch.kernels import ring as kring
+    names = ("ring_reduce_scatter", "ring_all_gather",
+             "int8_quantize_members", "ring_hop_int8_members",
+             "ring_hop_topk_members")
+    saved = {n: getattr(kring, n) for n in names}
+    try:
+        for n in names:
+            setattr(kring, n, getattr(kring, n + "_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kring, n, fn)
+
+
+def phase9(card, fmt, ratio=TOPK_RATIO):
+    from repro_torch.api import MeshSpec, RunSpec, compile_run
+    from repro_torch.comm import CommConfig, pack_bucket
+    from repro_torch.comm.backends.ring import topk_chunk_k
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import ring as kring
+    from repro_torch.kernels.ref import topk_mask_ref
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.optim.dist import (UpdatePlan, make_distributed_update,
+                                        make_topk_ef_update, topk_ef_reduce)
+    from repro_torch.train.train_step import global_norm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    G = 4
+    comm = CommConfig(backend="pallas-ring", wire_format=fmt,
+                      topk_ratio=ratio)
+    spec = RunSpec(arch="vgg-a", batch=64, lr=5e-3, schedule="constant",
+                   seed=0, log_every=1, steps=3, parallel="zero1", comm=comm,
+                   mesh=MeshSpec(members_per_device=G))
+    spans = SyncedSpans()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    n_conv = len(run.cfg.conv_layers())
+    n_params = sum(p.numel() for p in run.params.values())
+    ef = fmt == "topk"
+    check(isinstance(run.opt_state, dict) == ef, f"{fmt} state "
+          f"{type(run.opt_state).__name__}")
+    n_buckets = len(run.opt_state["residual"]) if ef \
+        else len(run.opt_state.velocity)
+    print(f"phase 9 ({fmt}): {run.cfg.name} zero1, {n_params} f32 params, "
+          f"{G} members on {run.device}, backend {run.comm.backend}, "
+          f"wire_format {fmt}" + (f" at ratio {ratio}, residual "
+                                  f"{[tuple(r.shape) for r in run.opt_state['residual']]}"
+                                  if ef else "")
+          + f"; {spec.steps} steps of batch {spec.batch}, every forward conv "
+          "on the kernel")
+    torch.cuda.reset_peak_memory_stats()
+    kring.reset_launches()
+    kconv.launches = 0
+    paged_attn.launches = 0
+    t0 = time.perf_counter()
+    hist = run.fit(log_fn=lambda line: print(f"  {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kring.launches)
+    conv, paged = kconv.launches, paged_attn.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"{fmt} zero1 history {hist}")
+    want = dict.fromkeys(kring.launches, 0)
+    want["ring_all_gather"] = spec.steps * n_buckets
+    if ef:
+        want["ring_hop_topk"] = spec.steps * n_buckets * (G - 1)
+    else:
+        want["int8_quantize"] = spec.steps * n_buckets
+        want["ring_hop_int8"] = spec.steps * n_buckets * (G - 1)
+    check(counts == want, f"{fmt} launches {counts}, want {want}")
+    check(conv == spec.steps * n_conv and paged == 0,
+          f"conv launches {conv}, paged {paged}")
+    steps = spans.samples["step"]
+    waits = spans.samples["data_wait"]
+    n_later = spec.batch * (spec.steps - 1)
+    print(f"  {spec.steps} steps in {wall} s; launches {counts}, as "
+          f"required for {spec.steps} steps x {n_buckets} buckets; conv "
+          f"{conv} = {spec.steps} x {n_conv}")
+    print(f"  steps 2-{spec.steps}: "
+          f"{n_later / (sum(steps[1:]) + sum(waits[1:]))} images/s with the "
+          f"data waits ({n_later / sum(steps[1:])} images/s of step time "
+          f"alone); step median {np.median(steps[1:]) * 1e3} ms; first step "
+          f"{steps[0] * 1e3} ms; peak memory {peak_gb} GB [{card}]")
+
+    batch = next(run.data)
+    up = UpdatePlan.build(run.optimizer, run.mesh, run.mesh.axis_names,
+                          run.comm)
+    plan, sched = up.buckets(run.params), up.schedule()
+    keys = sorted(run.params)
+    lr = run.lr_schedule(0)
+
+    def clipped_grads():
+        leaves = [run.params[k].requires_grad_() for k in keys]
+        loss = run.loss_fn(run.params, batch)
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        scale = torch.clamp(spec.grad_clip / torch.clamp(
+            global_norm(grads), min=1e-9), max=1.0)
+        for g in grads.values():
+            g.mul_(scale)
+        return grads
+
+    # one update split into its phases; the replication invariant
+    split = SyncedSpans()
+    inner = run.opt_state["zero1"] if ef else run.opt_state
+    for rep in range(4):
+        grads = clipped_grads()
+        with torch.no_grad():
+            with split.span("reduce"):
+                if ef:
+                    g_strips = topk_ef_reduce(up, sched, plan, grads,
+                                              run.opt_state["residual"])
+                else:
+                    g_strips = up.reduce(sched, plan, grads)
+            with split.span("apply"):
+                new_p, inner = up.apply(sched, plan, run.params, g_strips,
+                                        inner, lr)
+            if rep == 0:
+                for ps in new_p:
+                    full = sched.broadcast(ps)
+                    check(all(torch.equal(full[0], full[i])
+                              for i in range(1, G)),
+                          f"{fmt}: members' gathered buffers differ")
+                del full
+            with split.span("broadcast"):
+                up.broadcast(sched, plan, run.params, new_p)
+    med = {k: float(np.median(v[1:])) * 1e3 for k, v in split.samples.items()}
+    print(f"  replication invariant: all {G} rows of each of the {n_buckets} "
+          f"gathered buffers bitwise equal")
+    print(f"  one update by phases (spans ending in a device sync, median of "
+          f"3 after one warm-up): reduce {med['reduce']} ms, apply "
+          f"{med['apply']} ms, broadcast {med['broadcast']} ms; total "
+          f"{sum(med.values())} ms [{card}]")
+
+    grads = clipped_grads()
+    with torch.no_grad():
+        flat = tree_leaves(grads)
+        if ef:
+            # kept + residual == buffer, bucket by bucket, from a residual
+            # carried by the run
+            res = [r.clone() for r in run.opt_state["residual"]]
+            bufs = [r + run.mesh.replicated(pack_bucket(flat, b))
+                    for r, b in zip(res, plan.buckets)]
+            topk_ef_reduce(up, sched, plan, grads, res)
+            for b, buf, r in zip(plan.buckets, bufs, res):
+                kept = topk_mask_ref(buf, topk_chunk_k(
+                    b.padded_size, ratio, floor=G))
+                check(torch.equal(kept + r, buf), "kept + residual != buffer")
+            print(f"  kept + residual == buffer bitwise in all {n_buckets} "
+                  "buckets")
+            del res, bufs, kept
+        else:
+            # against the fp32 ring: every mean-gradient strip entry within
+            # the largest scale of its bucket's int8 messages
+            fp32 = UpdatePlan.build(run.optimizer, run.mesh,
+                                    run.mesh.axis_names,
+                                    CommConfig(backend="pallas-ring"))
+            exact = fp32.reduce(fp32.schedule(), plan, grads)
+            got = up.reduce(sched, plan, grads)
+            ratios = []
+            for b, e, g8 in zip(plan.buckets, exact, got):
+                s_max = int8_ring_scale(run.mesh.replicated(
+                    pack_bucket(flat, b)))
+                ratios.append((g8 - e).abs().max().item() / s_max)
+            print(f"  int8 vs fp32 mean-gradient strips, one update of the "
+                  f"same clipped gradients: worst |difference| / largest "
+                  f"scale of the bucket's messages {max(ratios)} (required "
+                  f"<= 1; per bucket {ratios})")
+            check(max(ratios) <= 1.0, "int8 strips outside the quantum bound")
+            del exact, got
+        # the whole update through the kernels and through their plain
+        # versions on the card, from the same params and fresh state
+        make = make_topk_ef_update if ef else make_distributed_update
+        init_fn, update_fn = make(run.optimizer, run.mesh,
+                                  run.mesh.axis_names, run.comm)
+        p0 = {k: v.detach().clone() for k, v in run.params.items()}
+        outs = []
+        for route in ("kernel", "plain"):
+            p = {k: v.clone() for k, v in p0.items()}
+            s0 = init_fn(p)
+            with (plain_ring() if route == "plain" else nullcontext()):
+                p, s1 = update_fn(p, grads, s0, lr, 0)
+            outs.append([p[k] for k in keys]
+                        + (list(s1["residual"]) if ef else []))
+            del s0, s1
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"  one whole {fmt} update through the kernels and through their "
+          f"plain versions on the card: params{' and residuals' if ef else ''}"
+          f" bitwise equal: {same}")
+    if not same:
+        print(f"  differing (tensor, elements, max |difference|): "
+              f"{[(i, int((a != b).sum()), (a - b).abs().max().item()) for i, (a, b) in enumerate(zip(*outs)) if not torch.equal(a, b)]}")
+    check(same, f"{fmt} update: kernels and plain versions differ")
+    run.close()
+    del run, p0, outs, grads, g_strips, new_p, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
+PROCESS_FORMATS = ("fp32", "int8", "topk")
 
 
 def _process_member(rank, world, init_file, results):
     """One member of phase 7: the zero1 update of full-width VGG-A over a
-    ProcessMesh, against the same update over a LocalMesh in this process."""
+    ProcessMesh, under each wire format, against the same update over a
+    LocalMesh in this process."""
     import torch.distributed as dist
     try:
         dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -1049,33 +1483,46 @@ def _process_member(rank, world, init_file, results):
         from repro_torch.launch.mesh import make_local_mesh, make_process_mesh
         from repro_torch.models import cnn
         from repro_torch.optim import MomentumSGD
-        from repro_torch.optim.dist import make_distributed_update
+        from repro_torch.optim.dist import (make_distributed_update,
+                                            make_topk_ef_update)
         dev = torch.device("cuda", 0)
-        comm = CommConfig(backend="pallas-ring")
         opt = MomentumSGD(momentum=0.9)
-        params = cnn.init_params(get_config("vgg-a"), 0, dev)
+        p0 = cnn.init_params(get_config("vgg-a"), 0, dev)
         gen = torch.Generator(device=dev).manual_seed(1)
         # every member's gradient is the same global one
         grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
-                 for k, p in params.items()}
-        local = {k: v.clone() for k, v in params.items()}
-        init_l, update_l = make_distributed_update(
-            opt, make_local_mesh(world, device=dev), ("data",), comm)
-        update_l(local, grads, init_l(local), 5e-3, 0)
-        init_p, update_p = make_distributed_update(
-            opt, make_process_mesh(device=dev), ("data",), comm)
-        state = init_p(params)
-        torch.cuda.synchronize()
-        kring.reset_launches()
-        t0 = time.perf_counter()
-        update_p(params, grads, state, 5e-3, 0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(kring.launches)
-        same = all(torch.equal(params[k], local[k]) for k in params)
-        results.put((rank, counts, same, dt, None))
+                 for k, p in p0.items()}
+        local_mesh = make_local_mesh(world, device=dev)
+        proc_mesh = make_process_mesh(device=dev)
+        out = {}
+        for fmt in PROCESS_FORMATS:
+            comm = CommConfig(backend="pallas-ring", wire_format=fmt,
+                              topk_ratio=TOPK_RATIO)
+            make = make_topk_ef_update if fmt == "topk" \
+                else make_distributed_update
+            local = {k: v.clone() for k, v in p0.items()}
+            init_l, update_l = make(opt, local_mesh, ("data",), comm)
+            _, s_l = update_l(local, grads, init_l(local), 5e-3, 0)
+            params = {k: v.clone() for k, v in p0.items()}
+            init_p, update_p = make(opt, proc_mesh, ("data",), comm)
+            state = init_p(params)
+            torch.cuda.synchronize()
+            kring.reset_launches()
+            t0 = time.perf_counter()
+            _, s_p = update_p(params, grads, state, 5e-3, 0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(kring.launches)
+            same = all(torch.equal(params[k], local[k]) for k in params)
+            if fmt == "topk":
+                same = same and all(
+                    torch.equal(a, b[rank])
+                    for a, b in zip(s_p["residual"], s_l["residual"]))
+            out[fmt] = (counts, same, dt)
+            del local, params, state, s_l, s_p
+        results.put((rank, out, None))
     except Exception:
-        results.put((rank, None, False, 0.0, traceback.format_exc()))
+        results.put((rank, None, traceback.format_exc()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1092,28 +1539,37 @@ def phase7(card):
     for p in procs:
         p.start()
     try:
-        got = sorted(results.get(timeout=600) for _ in procs)
+        got = sorted(results.get(timeout=900) for _ in procs)
     finally:
         for p in procs:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 p.join()
-    for rank, counts, same, dt, err in got:
+    # the kernel each format's hop runs, and how often a member launches it
+    hop = {"fp32": {"ring_hop_accum": n_buckets * (G - 1)},
+           "int8": {"int8_quantize": n_buckets,
+                    "ring_hop_int8": n_buckets * (G - 1)},
+           "topk": {"ring_hop_topk": n_buckets * (G - 1)}}
+    for rank, out, err in got:
         check(err is None, f"process member {rank} failed:\n{err}")
-        check(counts["ring_hop_accum"] == n_buckets * (G - 1)
-              and counts["ring_reduce_scatter"] == 0
-              and counts["ring_all_gather"] == 0,
-              f"process member {rank} launches {counts}")
-        check(same, f"process member {rank}: params differ from the local "
-              "mesh's")
-    print(f"phase 7: zero1 update of full-width VGG-A by {G} processes on "
-          f"one card over gloo (messages staged through host memory), "
-          f"{n_buckets} buckets: each member launched "
-          f"{got[0][1]['ring_hop_accum']} ring_hop_accum = {n_buckets} x "
-          f"{G - 1}; params bitwise equal to a local mesh's on every member; "
-          f"update {[r[3] for r in got]} s per member (host-bound) [{card}]")
-    return got[0][1]["ring_hop_accum"]
+        for fmt, (counts, same, dt) in out.items():
+            want = {k: hop[fmt].get(k, 0) for k in counts}
+            check(counts == want, f"process member {rank} {fmt} launches "
+                  f"{counts}, want {want}")
+            check(same, f"process member {rank} {fmt}: params"
+                  f"{' or residual' if fmt == 'topk' else ''} differ from "
+                  "the local mesh's")
+    for fmt in PROCESS_FORMATS:
+        print(f"phase 7 ({fmt}): zero1 update of full-width VGG-A by {G} "
+              f"processes on one card over gloo (messages staged through "
+              f"host memory), {n_buckets} buckets: each member launched "
+              f"{ {k: v for k, v in got[0][1][fmt][0].items() if v} }; "
+              f"params{' and residual' if fmt == 'topk' else ''} bitwise "
+              f"equal to a local mesh's on every member; update "
+              f"{[r[1][fmt][2] for r in got]} s per member (host-bound) "
+              f"[{card}]")
+    return got[0][1]["fp32"][0]["ring_hop_accum"]
 
 
 def _leaves(tree):
@@ -1133,8 +1589,9 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
-    names = ("paged_attn", "conv2d", "ring")
+    names = ("paged_attn", "conv2d", "ring", "ring_wire")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -1153,24 +1610,36 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    paged = phase1(dev)
-    paged["launches"] = phase2(card)
-    # free the serving model before training
-    gc.collect()
-    torch.cuda.empty_cache()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    paged = timed("1", phase1, dev)
+    paged["launches"] = timed("2", phase2, card)
     torch.cuda.reset_peak_memory_stats()
-    conv = phase3(dev, card)
-    conv["launches"] = phase4(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    hop, rs, ag = phase5(dev, card)
-    counts = phase6(card)
+    conv = timed("3", phase3, dev, card)
+    conv["launches"] = timed("4", phase4, card)
+    hop, rs, ag = timed("5", phase5, dev, card)
+    counts = timed("6", phase6, card)
     rs["launches"] = counts["ring_reduce_scatter"]
     ag["launches"] = counts["ring_all_gather"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    hop["launches"] = phase7(card)
-    print(json.dumps({"kernels": [paged, conv, hop, rs, ag]}))
+    wire = timed("8", phase8, dev, card)
+    int8 = timed("9 int8", phase9, card, "int8")
+    topk = timed("9 topk", phase9, card, "topk")
+    timed("9 topk 0.25", phase9, card, "topk", 0.25)   # BENCH_fig5's ratio
+    for w in wire:
+        w["launches"] = (topk if w["name"] == "ring_hop_topk"
+                         else int8)[w["name"]]
+    hop["launches"] = timed("7", phase7, card)
+    print(f"wall seconds per phase {walls}; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ The update path is the serial ``optimizer.update`` or, for
 ``parallel="zero1"``, the explicit bucketed §3.4 pipeline of ``repro_torch.comm``
 and ``optim.dist.make_distributed_update`` over the G members of a local
 mesh (``MeshSpec.members_per_device``) on the run's device.  What is not
-ported yet raises before anything is allocated.
+ported yet raises before anything is allocated.  ``wire_format="topk"``
+takes the error-feedback update (``optim.dist.make_topk_ef_update``); int8
+rides the plain zero1 pipeline through the bound backend.
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ from repro_torch.optim import (
     linear_scale_warmup,
     warmup_cosine,
 )
-from repro_torch.optim.dist import make_distributed_update
+from repro_torch.optim.dist import (
+    make_distributed_update,
+    make_topk_ef_update,
+)
 from repro_torch.train import make_train_step
 
 #: the parallel modes compile_run assembles
@@ -76,8 +81,6 @@ def _check_ported(spec: RunSpec) -> None:
         missing("comm='auto' (the collective autotuner)")
     if spec.comm is not None and spec.comm.overlap:
         missing("comm.overlap (the backprop-overlapped update)")
-    if spec.comm is not None and spec.comm.compressed:
-        missing(f"wire_format={spec.comm.wire_format!r}")
     if spec.mesh.model_ways > 1:
         missing(f"model_ways={spec.mesh.model_ways}")
     if spec.mesh.cluster:
@@ -108,8 +111,12 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
         axes = mesh.axis_names
         comm = spec.comm if spec.comm is not None \
             else CommConfig(hierarchical=len(axes) == 2)
-        init_fn, dist_update = make_distributed_update(
-            optimizer, mesh, data_axes=axes, comm=comm)
+        # the error-feedback residual of topk needs the state carry of the
+        # EF composition (spec validation pinned topk to monolithic zero1)
+        make_update = make_topk_ef_update if comm.wire_format == "topk" \
+            else make_distributed_update
+        init_fn, dist_update = make_update(optimizer, mesh, data_axes=axes,
+                                           comm=comm)
         opt_state = init_fn(params)
     else:
         opt_state = optimizer.init(params)

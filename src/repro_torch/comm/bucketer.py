@@ -21,9 +21,9 @@ import torch.nn.functional as F
 from repro_torch.core.collectives import padded_size
 from repro_torch.core.params import tree_leaves
 
-#: gradient wire formats (``CommConfig.wire_format``), as in the reference;
-#: the port moves ``fp32`` and ``bf16``, and ``int8`` / ``topk`` raise "not
-#: ported yet" when a backend is asked to reduce with them
+#: gradient wire formats (``CommConfig.wire_format``), as in the reference:
+#: ``fp32`` and ``bf16`` are the schedule's wire-dtype cast, ``int8`` and
+#: ``topk`` the backends' compressed rings (``comm.backends``)
 WIRE_FORMATS = ("fp32", "bf16", "int8", "topk")
 
 #: wire_format implied by each reduce_dtype when ``wire_format`` is unset

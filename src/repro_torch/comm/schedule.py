@@ -127,10 +127,11 @@ def bind_step(backend: CollectiveBackend, step) -> CollectiveBackend:
 
 def bind_wire_format(backend: CollectiveBackend, wire_format: Optional[str],
                      topk_ratio: float = 0.05) -> CollectiveBackend:
-    """Bind ``CommConfig.wire_format`` into a backend that takes one.  The
-    port's backends move ``fp32`` and ``bf16`` (the schedule's wire-dtype
-    cast); bound to ``int8`` or ``topk`` their ``part_reduce`` raises "not
-    ported yet"."""
+    """Bind ``CommConfig.wire_format`` into a backend that takes one: bound
+    to ``int8`` or ``topk``, ``part_reduce`` runs the compressed ring
+    (``fp32`` and ``bf16`` are the schedule's wire-dtype cast).  Both levels
+    of the hierarchical schedule are bound, so its cross-pod hop (the lax
+    backend by default) runs the compressed ring on the oracles."""
     if wire_format is None:
         return backend
     binder = getattr(backend, "bind_wire_format", None)

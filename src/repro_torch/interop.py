@@ -5,7 +5,9 @@ The reference's trees come over as numpy (``jax.tree.map(np.asarray,
 tree)``): the same keys, the same shapes, blocks still stacked on their
 leading repeat axis and weights still laid out (in, out), so nothing is
 transposed.  A zero1 strip state is the same list of (G, n/G) bucket
-strips, in owner order, in both packages.
+strips, in owner order, in both packages, and the top-k error-feedback state
+the same ``{"residual", "zero1"}`` dict of (G, padded_size) residuals around
+it.
 """
 from __future__ import annotations
 
@@ -30,7 +32,13 @@ def opt_state_from_numpy(state, device=None):
     ``AdamWState``, over the param tree or, under zero1, over the list of
     (G, n/G) strips) -> the port's, on ``device`` (default: the GPU).
     Together with :func:`params_from_numpy` it carries a run across
-    mid-training."""
+    mid-training.  The top-k error-feedback dict ``{"residual": per-bucket
+    (G, padded_size), "zero1": inner state}`` comes across as the same dict,
+    its residuals a list."""
+    if isinstance(state, dict) and set(state) == {"residual", "zero1"}:
+        return {"residual": [params_from_numpy(r, device)
+                             for r in state["residual"]],
+                "zero1": opt_state_from_numpy(state["zero1"], device)}
     fields = getattr(state, "_fields", None)
     if fields == ("velocity",):
         return SgdState(params_from_numpy(state.velocity, device))

@@ -26,8 +26,11 @@ holds its ``(n/G,)`` strip of the state and computes the same global
 gradient.  The mesh decides the layout (``per_member``, ``replicated``,
 ``own``, ``one``); the phases are written once for both.
 
-Backprop overlap, stale-sync, gossip and top-k error feedback are not
-ported yet.
+:func:`make_topk_ef_update` wraps the same pipeline for
+``wire_format="topk"``: top-k sparsification with error feedback.  The int8
+wire format needs no update of its own: it rides
+:func:`make_distributed_update` through the bound backend.  Backprop
+overlap, stale-sync and gossip are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.comm.backends.ring import topk_chunk_k
 from repro_torch.comm.bucketer import (
     BucketPlan,
     CommConfig,
@@ -52,6 +56,7 @@ from repro_torch.comm.schedule import (
     reduce_mean,
 )
 from repro_torch.core.params import tree_leaves
+from repro_torch.kernels.ref import topk_mask_ref
 
 DEFAULT_COMM = CommConfig()
 
@@ -181,3 +186,71 @@ def make_distributed_update(optimizer, mesh, data_axes=("data",),
         return up.broadcast(sched, plan, params, new_p_strips), new_state
 
     return up.init_fn, update_fn
+
+
+def topk_ef_reduce(up: UpdatePlan, sched: Schedule, plan: BucketPlan, grads,
+                   residual: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The reduce phase of the top-k error-feedback update: per bucket, the
+    carried residual plus the packed gradient, its largest-|x| entries kept
+    (``topk_chunk_k`` of the bucket, at least G) and part-reduced through
+    the topk-bound schedule; ``residual`` becomes ``buffer - kept`` in
+    place.  Returns each member's mean-gradient strip per bucket."""
+    flat_grads = tree_leaves(grads)
+    g_strips = []
+    for b, buf in zip(plan.buckets, residual):
+        buf.add_(up.mesh.replicated(pack_bucket(flat_grads, b).float()))
+        k = topk_chunk_k(b.padded_size, up.comm.topk_ratio, floor=up.G)
+        kept = topk_mask_ref(buf, k)
+        g_strips.append(reduce_mean(sched, kept, up.comm.wire_dtype, up.G))
+        buf.sub_(kept)
+    return g_strips
+
+
+def make_topk_ef_update(optimizer, mesh, data_axes=("data",),
+                        comm: Optional[CommConfig] = None):
+    """The ``wire_format="topk"`` composition: top-k sparsified reduce with
+    local error feedback (``repro.optim.dist.make_topk_ef_update``).  Each
+    step every member adds its carried residual to the packed bucket
+    gradient, keeps the ``topk_ratio`` largest-|g| entries (at least G, so
+    that every wire chunk gets one), and carries ``buffer - kept`` forward:
+    what sparsification drops this step is offered again the next.  The
+    kept buckets then ride the reduce phase, whose topk-bound backend moves
+    (values, indices) messages with per-hop re-selection.
+
+    opt_state wraps the zero1 strip state::
+
+        {"residual": per bucket, each member's unsent gradient mass, f32:
+                     (G, padded_size) on a local mesh (the reference's
+                     layout), this rank's (padded_size,) on a process mesh,
+         "zero1":    the inner strip state}
+
+    update_fn(params, grads, opt_state, lr, step=0)
+        -> (params, opt_state), both advanced in place
+    """
+    comm = DEFAULT_COMM if comm is None else comm
+    if comm.wire_format != "topk":
+        raise ValueError(
+            "make_topk_ef_update requires CommConfig(wire_format='topk'); "
+            f"got {comm.wire_format!r}")
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+
+    @torch.no_grad()
+    def init_fn(params):
+        dev = tree_leaves(params)[0].device
+        residual = [mesh.replicated(torch.zeros(
+            b.padded_size, dtype=torch.float32, device=dev)).contiguous()
+            for b in up.buckets(params).buckets]
+        return {"residual": residual, "zero1": up.init_fn(params)}
+
+    @torch.no_grad()
+    def update_fn(params, grads, opt_state, lr, step=0):
+        plan = up.buckets(params)
+        sched = up.schedule(step)
+        g_strips = topk_ef_reduce(up, sched, plan, grads,
+                                  opt_state["residual"])
+        new_p_strips, inner = up.apply(sched, plan, params, g_strips,
+                                       opt_state["zero1"], lr)
+        return (up.broadcast(sched, plan, params, new_p_strips),
+                {"residual": opt_state["residual"], "zero1": inner})
+
+    return init_fn, update_fn

@@ -275,12 +275,10 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
     dict(parallel="stale-sync"), dict(parallel="gossip"),
     dict(parallel="zero1", comm="auto"),
     dict(parallel="zero1", comm=CommConfig(overlap=True)),
-    dict(parallel="zero1", comm=CommConfig(wire_format="int8")),
-    dict(parallel="zero1", comm=CommConfig(wire_format="topk")),
     dict(parallel="zero1", mesh=MeshSpec(model_ways=2)),
     dict(parallel="zero1", mesh=MeshSpec(cluster=True))],
     ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "overlap",
-         "int8", "topk", "model_ways", "cluster"])
+         "model_ways", "cluster"])
 def test_unported_modes_raise_before_allocating(kw, monkeypatch):
     def no_device(*a, **k):
         raise AssertionError("compile_run reached the device")
