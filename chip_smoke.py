@@ -64,6 +64,23 @@ Phase 9  the zero1 path under ``wire_format="int8"`` and ``"topk"`` (ratio
          each bucket's messages, for top-k kept + residual == buffer bitwise;
          and one whole update through the kernels bitwise the same update
          through their plain versions on the card.
+Phase 10 the blocked-GEMM kernel against its plain version, f32 with TF32
+         off, at CD-DNN's three layer shapes at batch 1024 and at ragged and
+         small shapes (M = 1, K = 1, N a multiple of no tile) and the
+         reference's test shapes, f32 and bf16 inputs, at the solver's tile
+         and every compiled tile; CUDA-event times of the kernel, the plain
+         version and ``torch.matmul`` (the library call) per CD-DNN shape
+         and summed over one forward's 8 layers, beside the bound.
+Phase 11 the CD-DNN path: full-width CD-DNN through ``compile_run`` and
+         ``Run.fit``, every forward product on the kernel, 6 steps of batch
+         1024 serially and then with ``parallel="zero1"``, G = 4 members on
+         the card and the ``pallas-ring`` backend.  Launch counts are zeroed
+         just before each ``fit`` and read just after (GEMM: steps x 8 in
+         both; zero1 also steps x buckets x 3 hops and steps x buckets
+         gathers; nothing else).  Then the kernel route against the plain
+         route from the same params and batch, the zero1 params and losses
+         bitwise the serial run's, and one zero1 update split into reduce,
+         apply and broadcast.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -96,8 +113,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# the card's data-sheet figures that every bound below divides by: device
+# memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s
+from repro_torch.configs.base import H100_SXM  # noqa: E402
+
 REL_L2_TOL = 0.025             # kernel vs gather decode logits, phase 2
 # phase 3: max |kernel - plain| over max |plain| of a conv layer.  Each
 # output is an f32 sum of up to K*K*IFM = 9216 products, which the kernel
@@ -240,7 +259,7 @@ def paged_bound(q, pk, pt, lengths, window):
     nbytes = (2 * positions * Hkv * D * el + 2 * q.numel() * el
               + pages * 4 + B * 4)
     ops = 4 * Hq * D * positions
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, ops / H100_SXM.peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -443,7 +462,7 @@ def conv_bound(N, H, C, F, K, s, p):
     OH = (H + 2 * p - K) // s + 1
     nbytes = 4 * (N * H * H * C + K * K * C * F + N * OH * OH * F)
     ops = 2 * N * OH * OH * F * K * K * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, ops / H100_SXM.peak_flops
     return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
 
 
@@ -719,7 +738,7 @@ def vgg_buckets(G):
 
 
 def bytes_bound(nbytes):
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / H100_SXM.mem_bw * 1e3
 
 
 def phase5(dev, card):
@@ -1463,6 +1482,355 @@ def phase9(card, fmt, ratio=TOPK_RATIO):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the blocked GEMM, kernel vs plain, at CD-DNN's layer shapes
+# ---------------------------------------------------------------------------
+# max |kernel - plain| over max |plain| of a product.  Each output is an f32
+# sum of up to K = 2048 products (2048 of the ragged shapes), which the
+# kernel and cuBLAS take in different orders; with unit-scale inputs their
+# rounding differs by a few 1e-6 of the output's scale (the conv's 4.2e-6 at
+# K = 9216).  bf16 inputs are widened exactly on both sides.
+GEMM_REL_TOL = 2e-5
+DNN_BATCH = 1024                # frames a minibatch (fig7_cddnn_scaling.py)
+GEMM_TILES = (None, (64, 64), (64, 128), (128, 64), (128, 128))
+# (M, N, K): M = 1, K = 1, N a multiple of no tile, N % 4 != 0, and the
+# reference's test shapes (tests/test_kernels.py)
+GEMM_RAGGED = ((1, 9304, 2048), (1024, 2048, 1), (1, 1, 1), (3, 7, 5),
+               (130, 70, 200), (1000, 1001, 999), (8, 128, 128),
+               (128, 128, 128), (256, 512, 384), (64, 256, 1024))
+
+
+def dnn_layer_shapes(cfg, batch):
+    """(M, N, K) of each layer's forward product ``h @ W``, in order."""
+    dims = [cfg.input_dim] + [cfg.hidden_dim] * cfg.num_hidden \
+        + [cfg.output_dim]
+    return [(batch, n, k) for k, n in zip(dims[:-1], dims[1:])]
+
+
+def gemm_bound(M, N, K, itemsize=4):
+    """Least time of one call on an H100 SXM: A and B read once, C written
+    once (f32), or 2 M N K operations at the f32 peak, whichever is longer.
+    Returns (ms, t_bytes ms, t_ops ms)."""
+    nbytes = itemsize * (M * K + K * N) + 4 * M * N
+    ops = 2 * M * N * K
+    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, ops / H100_SXM.peak_flops
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+
+
+def phase10(dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.blocking import (GemmBlocking,
+                                           solve_h100_gemm_blocking)
+    from repro_torch.kernels import blocked_matmul as kmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers = dnn_layer_shapes(get_config("cd-dnn"), DNN_BATCH)
+    cd_dnn = sorted(set(layers), key=layers.index)
+    print(f"phase 10: blocked_matmul kernel vs plain, allow_tf32=False for "
+          f"matmul; tolerance max|kernel - plain| <= {GEMM_REL_TOL} x "
+          f"max|plain| per product; CD-DNN's {len(cd_dnn)} layer shapes at "
+          f"batch {DNN_BATCH} and {len(GEMM_RAGGED)} ragged and test shapes, "
+          f"f32 and bf16 inputs, the solver's tile and every compiled tile")
+    worst_abs = worst_rel = 0.0
+    calls = 0
+    for j, (M, N, K) in enumerate(cd_dnn + list(GEMM_RAGGED)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(200 + j)
+            a = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+            b = torch.randn(K, N, generator=gen, device=dev).to(dtype)
+            want = kmm.blocked_matmul_plain(a, b)
+            scale = want.abs().max().item()
+            for tile in GEMM_TILES:
+                blk = None if tile is None else GemmBlocking(*tile, 8, 0, 0.)
+                got = kmm.blocked_matmul(a, b, blocking=blk)
+                torch.cuda.synchronize()
+                check(got.shape == (M, N) and bool(torch.isfinite(got).all()),
+                      f"({M}, {N}, {K}) {dtype} tile {tile}: shape or "
+                      "non-finite")
+                err = (got - want).abs().max().item()
+                check(err <= GEMM_REL_TOL * scale,
+                      f"({M}, {N}, {K}) {dtype} tile {tile}: kernel "
+                      f"disagrees with the plain version ({err} > "
+                      f"{GEMM_REL_TOL} x {scale})")
+                worst_abs = max(worst_abs, err)
+                worst_rel = max(worst_rel, err / scale)
+                calls += 1
+            del a, b, want, got
+    print(f"  {calls} products within tolerance; worst max|kernel - plain| "
+          f"{worst_abs}, worst relative to max|plain| {worst_rel}")
+
+    times = {}
+    for M, N, K in cd_dnn:
+        gen = torch.Generator(device=dev).manual_seed(K + N)
+        a = torch.randn(M, K, generator=gen, device=dev)
+        b = torch.randn(K, N, generator=gen, device=dev)
+        blk = solve_h100_gemm_blocking(M, N, K)
+        t = {"ms": cuda_ms(lambda: kmm.blocked_matmul(a, b), 3, 20),
+             "plain_ms": cuda_ms(lambda: kmm.blocked_matmul_plain(a, b), 3,
+                                 20),
+             "library_ms": cuda_ms(lambda: torch.matmul(a, b), 3, 20)}
+        t["bound_ms"], t_bytes, t_ops = gemm_bound(M, N, K)
+        t["t_bytes"], t["t_ops"] = t_bytes, t_ops
+        times[(M, N, K)] = t
+        print(f"  ({M} x {K}) @ ({K} x {N}), f32: solver tile bm={blk.bm} "
+              f"bn={blk.bn} bk={blk.bk} (B/F {blk.bf_ratio}); kernel "
+              f"{t['ms']} ms, plain {t['plain_ms']} ms, torch.matmul "
+              f"{t['library_ms']} ms; bound {t['bound_ms']} ms ("
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}; bytes "
+              f"{t_bytes} ms, operations {t_ops} ms); kernel / bound "
+              f"{t['ms'] / t['bound_ms']}, kernel / torch.matmul "
+              f"{t['ms'] / t['library_ms']} [{card}]")
+        del a, b
+    total = {k: sum(times[s][k] for s in layers)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes",
+                       "t_ops")}
+    print(f"  CD-DNN's {len(layers)} forward products at batch {DNN_BATCH}, "
+          f"one forward pass: kernel {total['ms']} ms, plain "
+          f"{total['plain_ms']} ms, torch.matmul {total['library_ms']} ms, "
+          f"bound {total['bound_ms']} ms [{card}]")
+    return {"name": "blocked_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/blocked_matmul.cu",
+            "replaces": "src/repro/kernels/blocked_matmul.py:60",
+            "max_abs_err": worst_abs, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": ("operations" if total["t_ops"] >= total["t_bytes"]
+                         else "bytes"),
+            "library_ms": total["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: CD-DNN at full width through compile_run -> Run.fit
+# ---------------------------------------------------------------------------
+# Kernel route vs plain route from the same params and batch: the forward
+# products differ by rounding (phase 10) in each of 8 layers, carried
+# through smooth sigmoids: the loss to a relative 1e-5 and every leaf's
+# gradient to a relative L2 of 1e-4.  A weight gradient sums 1024 frames'
+# terms of both signs, which can magnify an f32-level change of the forward
+# some 30-fold; with no ReLU, pool or other tie for a change to tip, that
+# stays far under 1e-4.  The network's own one-ulp sensitivity is printed
+# beside it (every weight scaled by 1 + 2^-23).
+DNN_STEPS = 6
+DNN_LR = 0.1
+DNN_LOSS_REL_TOL = 1e-5
+DNN_GRAD_REL_L2_TOL = 1e-4
+
+
+def _counts_zeroed():
+    from repro_torch.kernels import blocked_matmul as kmm
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import ring as kring
+    kring.reset_launches()
+    kmm.launches = kconv.launches = paged_attn.launches = 0
+
+
+def _counts():
+    from repro_torch.kernels import blocked_matmul as kmm
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import ring as kring
+    return {"blocked_matmul": kmm.launches, "conv2d_nhwc": kconv.launches,
+            "paged_decode_attention": paged_attn.launches,
+            **kring.launches}
+
+
+def _fit_dnn(spec, tag, card):
+    """Compile ``spec`` on the kernel route, fit it with every count zeroed
+    just before and read just after; print the run's numbers and return
+    (run, history, counts)."""
+    from repro_torch.api import compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in run.params.values())
+    print(f"  {tag}: {run.cfg.name}, {n_params} f32 params on {run.device}"
+          + (f" ({run.mesh}, backend {run.comm.backend}, "
+             f"{len(run.opt_state.velocity)} buckets)" if run.mesh else "")
+          + f", compiled in {time.perf_counter() - t0:.2f} s; {spec.steps} "
+          f"steps of batch {spec.batch}, every forward product on the kernel")
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    hist = run.fit(log_fn=lambda line: print(f"    {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"{tag} history {hist}")
+    steps = spans.samples["step"]
+    waits = spans.samples["data_wait"]
+    n_later = spec.batch * (spec.steps - 1)
+    print(f"    {spec.steps} steps in {wall} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"    steps 2-{spec.steps}: "
+          f"{n_later / (sum(steps[1:]) + sum(waits[1:]))} frames/s with the "
+          f"data waits ({n_later / sum(steps[1:])} frames/s of step time "
+          f"alone); step median {np.median(steps[1:]) * 1e3} ms; first step "
+          f"{steps[0] * 1e3} ms; data_wait median "
+          f"{np.median(waits[1:]) * 1e3} ms; peak memory {peak_gb} GB "
+          f"[{card}]")
+    return run, hist, counts
+
+
+def phase11(card):
+    from repro_torch.api import MeshSpec, RunSpec
+    from repro_torch.comm import CommConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import dnn
+    from repro_torch.optim.dist import UpdatePlan
+    from repro_torch.train.train_step import global_norm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    G = 4
+    spec = RunSpec(arch="cd-dnn", batch=DNN_BATCH, steps=DNN_STEPS,
+                   lr=DNN_LR, schedule="constant", seed=0, log_every=1)
+    print(f"phase 11: CD-DNN at full width through compile_run -> Run.fit, "
+          f"momentum SGD, serial and zero1 (G = {G} members on the card, "
+          f"pallas-ring, fp32 wire)")
+
+    # serial
+    run, hist, counts = _fit_dnn(spec, "serial", card)
+    n_layers = run.cfg.num_hidden + 1
+    check(counts["blocked_matmul"] == spec.steps * n_layers,
+          f"serial: GEMM launched {counts['blocked_matmul']} times in "
+          f"{spec.steps} steps x {n_layers} layers")
+    check(sum(counts.values()) == counts["blocked_matmul"],
+          f"serial: other kernels launched: {counts}")
+    gemm_launches = counts["blocked_matmul"]
+    serial_params = {k: p.detach().clone() for k, p in run.params.items()}
+    serial_losses = [h["loss"] for h in hist]
+    batch = next(run.data)
+    keys = sorted(run.params)
+    leaves = [run.params[k] for k in keys]
+
+    # where one serial step's time goes (CUDA events, 3 reps, median)
+    split = {"forward": [], "backward": [], "step": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = run.loss_fn(run.params, batch)
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        run.step(batch, step_idx=spec.steps)
+        ev[3].record()
+        ev[3].synchronize()
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+        split["step"].append(ev[2].elapsed_time(ev[3]))
+    fwd, bwd, step = (float(np.median(split[k]))
+                      for k in ("forward", "backward", "step"))
+    print(f"    one step by CUDA events: whole train_step {step} ms; its "
+          f"forward alone {fwd} ms ({n_layers} kernel products, bias adds, "
+          f"sigmoids, loss), backward alone {bwd} ms (torch.matmul), so "
+          f"gradient norm, clipping and the SGD update about "
+          f"{step - fwd - bwd} ms [{card}]")
+    run.close()
+    del run, leaves, loss
+
+    # the kernel route against the plain route, on the params as
+    # initialised (the seed's, drawn again) and the run's next batch
+    cfg = get_config("cd-dnn")
+    ps = {k: p.requires_grad_()
+          for k, p in dnn.init_params(cfg, seed=spec.seed).items()}
+
+    def loss_and_grads(params, uk):
+        loss = dnn.loss_fn(params, cfg, batch, use_kernel=uk)
+        return loss.item(), torch.autograd.grad(
+            loss, [params[k] for k in keys])
+
+    def rel_l2(ga, gb):
+        return {k: ((a - b).norm() / b.norm()).item()
+                for k, a, b in zip(keys, ga, gb)}
+
+    def worst(rel):
+        k = max(rel, key=rel.get)
+        return f"{rel[k]} at {k}"
+
+    lk, gk = loss_and_grads(ps, True)
+    lp, gp = loss_and_grads(ps, False)
+    ulp = {k: (p.detach() * (1 + 2.0 ** -23) if k.endswith("_w")
+               else p.detach()).requires_grad_() for k, p in ps.items()}
+    floor = rel_l2(loss_and_grads(ulp, False)[1], gp)
+    check(np.isfinite(lk) and np.isfinite(lp), "non-finite parity loss")
+    loss_rel = abs(lk - lp) / abs(lp)
+    rel = rel_l2(gk, gp)
+    print(f"    kernel vs plain route, one forward and backward on the "
+          f"params as initialised and one batch: loss {lk} vs {lp} "
+          f"(relative {loss_rel}, tolerance {DNN_LOSS_REL_TOL}); worst "
+          f"leaf's gradient relative L2 {worst(rel)} (tolerance "
+          f"{DNN_GRAD_REL_L2_TOL}); the plain route with every weight "
+          f"scaled by 1 + 2^-23 (the network's sensitivity): {worst(floor)}")
+    print(f"    per leaf, kernel vs plain: {rel}")
+    check(loss_rel <= DNN_LOSS_REL_TOL, "kernel and plain route losses "
+          "differ")
+    check(max(rel.values()) <= DNN_GRAD_REL_L2_TOL,
+          "kernel and plain route gradients differ")
+    del ps, gk, gp, ulp
+
+    # zero1: G members on the card, the §3.4 update on the ring kernels
+    zspec = spec.replace(parallel="zero1",
+                         comm=CommConfig(backend="pallas-ring"),
+                         mesh=MeshSpec(members_per_device=G))
+    run, hist, counts = _fit_dnn(zspec, f"zero1, G = {G}", card)
+    n_buckets = len(run.opt_state.velocity)
+    want = dict.fromkeys(counts, 0)
+    want["blocked_matmul"] = zspec.steps * n_layers
+    want["ring_reduce_scatter"] = zspec.steps * n_buckets * (G - 1)
+    want["ring_all_gather"] = zspec.steps * n_buckets
+    check(counts == want, f"zero1 launches {counts}, want {want}")
+    rs_launches = counts["ring_reduce_scatter"]
+    ag_launches = counts["ring_all_gather"]
+    # bitwise by phase 6 (a)'s argument: the ring's mean of G equal rows is
+    # the gradient, the strip update the serial optimizer's arithmetic, and
+    # nothing on this path (the kernel, cuBLAS on one stream, PyTorch's
+    # reductions) varies from run to run
+    z_losses = [h["loss"] for h in hist]
+    differ = [k for k in keys
+              if not torch.equal(run.params[k], serial_params[k])]
+    print(f"    zero1 vs serial after {spec.steps} steps from seed "
+          f"{spec.seed}: losses {z_losses} vs {serial_losses}; "
+          f"{len(keys) - len(differ)} of {len(keys)} leaves bitwise equal "
+          f"(required: all, and every loss)")
+    check(z_losses == serial_losses and not differ,
+          f"zero1 and serial runs differ (leaves {differ})")
+    del serial_params
+
+    # one zero1 update split into its phases
+    up = UpdatePlan.build(run.optimizer, run.mesh, run.mesh.axis_names,
+                          run.comm)
+    plan, sched = up.buckets(run.params), up.schedule()
+    lr = run.lr_schedule(0)
+    timer = SyncedSpans()
+    for _ in range(4):
+        leaves = [run.params[k].requires_grad_() for k in keys]
+        loss = run.loss_fn(run.params, batch)
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        scale = torch.clamp(spec.grad_clip / torch.clamp(
+            global_norm(grads), min=1e-9), max=1.0)
+        with torch.no_grad():
+            for g in grads.values():
+                g.mul_(scale)
+            with timer.span("reduce"):
+                g_strips = up.reduce(sched, plan, grads)
+            with timer.span("apply"):
+                new_p, run.opt_state = up.apply(sched, plan, run.params,
+                                                g_strips, run.opt_state, lr)
+            with timer.span("broadcast"):
+                up.broadcast(sched, plan, run.params, new_p)
+    med = {k: float(np.median(v[1:])) * 1e3 for k, v in timer.samples.items()}
+    print(f"    one zero1 update by phases (spans ending in a device sync, "
+          f"median of 3 after one warm-up): reduce {med['reduce']} ms "
+          f"({n_buckets} reduce-scatters), apply {med['apply']} ms, "
+          f"broadcast {med['broadcast']} ms ({n_buckets} all-gathers); "
+          f"total {sum(med.values())} ms [{card}]")
+    run.close()
+    del run, leaves, loss, grads, g_strips, new_p, batch
+    return gemm_launches, rs_launches, ag_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -1591,7 +1959,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    names = ("paged_attn", "conv2d", "ring", "ring_wire")
+    names = ("paged_attn", "conv2d", "ring", "ring_wire", "blocked_matmul")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -1636,10 +2004,14 @@ def main() -> int:
     for w in wire:
         w["launches"] = (topk if w["name"] == "ring_hop_topk"
                          else int8)[w["name"]]
+    gemm = timed("10", phase10, dev, card)
+    gemm["launches"], dnn_rs, dnn_ag = timed("11", phase11, card)
+    print(f"CD-DNN zero1 path (phase 11): ring_reduce_scatter {dnn_rs}, "
+          f"ring_all_gather {dnn_ag} launches")
     hop["launches"] = timed("7", phase7, card)
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire]}))
+    print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,17 +2,17 @@
 model family declares its training glue once, keyed by its config class,
 and ``adapter_for(cfg)`` resolves it by MRO.
 
-Only the ``cnn`` family (VGG-A, OverFeat-FAST) is ported; the DNN and
-transformer training families come with later slices.
+The ``cnn`` family (VGG-A, OverFeat-FAST) and the ``dnn`` family (CD-DNN)
+are ported; the transformer training family comes with a later slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Type
 
-from repro_torch.configs.base import CNNConfig
-from repro_torch.data.pipeline import image_stream
-from repro_torch.models import cnn
+from repro_torch.configs.base import CNNConfig, DNNConfig
+from repro_torch.data.pipeline import asr_frame_stream, image_stream
+from repro_torch.models import cnn, dnn
 
 
 @dataclass(frozen=True)
@@ -61,5 +61,14 @@ CNN_FAMILY = register_family(FamilyAdapter(
     make_loss=lambda cfg: lambda p, b: cnn.loss_fn(p, cfg, b),
     stream=lambda cfg, batch, seq, seed: image_stream(
         cfg.image_size, cfg.num_classes, batch, seed),
+    default_optimizer="sgd",
+))
+
+DNN_FAMILY = register_family(FamilyAdapter(
+    family="dnn", config_cls=DNNConfig,
+    init=dnn.init_params,
+    make_loss=lambda cfg: lambda p, b: dnn.loss_fn(p, cfg, b),
+    stream=lambda cfg, batch, seq, seed: asr_frame_stream(
+        cfg.input_dim, cfg.output_dim, batch, seed),
     default_optimizer="sgd",
 ))

@@ -1,7 +1,9 @@
-"""Model configs: the port's own copy of ``repro.configs.base.ModelConfig``,
-``ConvLayerSpec``, ``CNNConfig`` and the block-kind constants, field for
-field (the two packages share no code, so a config object of one is rebuilt
-in the other from ``dataclasses.asdict``)."""
+"""Model and hardware configs: the port's own copy of
+``repro.configs.base.ModelConfig``, ``ConvLayerSpec``, ``CNNConfig``,
+``DNNConfig``, ``HardwareConfig`` (with the reference's four platforms) and
+the block-kind constants, field for field (the two packages share no code,
+so a config object of one is rebuilt in the other from
+``dataclasses.asdict``), plus the port's own ``H100_SXM`` entry."""
 from __future__ import annotations
 
 import dataclasses
@@ -136,3 +138,80 @@ class CNNConfig:
 
     def fc_layers(self):
         return [lyr for lyr in self.layers if lyr.kind == "fc"]
+
+
+@dataclass(frozen=True)
+class DNNConfig:
+    """Fully-connected ASR net (paper §5.4 CD-DNN)."""
+    name: str
+    source: str
+    input_dim: int
+    hidden_dim: int
+    num_hidden: int
+    output_dim: int
+    family: str = "dnn"
+
+
+# ---------------------------------------------------------------------------
+# Hardware models (the paper's platforms, the reference's TPU target, and
+# the port's card)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HardwareConfig:
+    name: str
+    peak_flops: float          # per chip/node, FLOP/s
+    mem_bw: float              # bytes/s HBM or DRAM
+    link_bw: float             # bytes/s network/ICI per direction
+    sw_latency: float = 5e-6   # per-message software overhead (paper's SWlat)
+    cache_bytes: int = 0       # on-chip capacity used by the blocking solver
+
+
+TPU_V5E = HardwareConfig(
+    name="tpu-v5e",
+    peak_flops=197e12,         # bf16
+    mem_bw=819e9,
+    link_bw=50e9,              # per ICI link
+    cache_bytes=16 * 2**20,    # ~16 MiB VMEM usable half for double buffering
+)
+
+# Paper platforms (Table 1 / §5):
+XEON_E5_2698V3_FDR = HardwareConfig(
+    # 2s16c HSW 2.3GHz: 2 sockets * 16 cores * 32 flops/cycle(FMA AVX2 SP) * 2.3e9
+    name="2s16c-E5-2698v3+FDR",
+    peak_flops=2 * 16 * 32 * 2.3e9,   # ~2.36 TF SP
+    mem_bw=136e9,
+    # 56 Gbps FDR = 7 GB/s: 2355 GF / 7 GB/s = 336, the paper's Table-1
+    # comp-to-comms ratio
+    link_bw=56e9 / 8,
+    cache_bytes=128 * 1024,           # per-thread budget used in the paper
+)
+XEON_E5_2666V3_10GBE = HardwareConfig(
+    name="2s9c-E5-2666v3+10GbE",
+    peak_flops=2 * 9 * 32 * 2.9e9,    # ~1.67 TF SP
+    mem_bw=136e9,
+    # 10 GbE = 1.25 GB/s: 1670 GF / 1.25 GB/s = 1336, the paper's Table-1 value
+    link_bw=10e9 / 8,
+    cache_bytes=128 * 1024,
+)
+XEON_E5_2697V3 = HardwareConfig(
+    name="2s14c-E5-2697v3",
+    peak_flops=1.7e12,                # paper: 1.7 TFLOPS/s SP peak
+    mem_bw=136e9,
+    link_bw=56e9 / 8 * 0.9,
+    cache_bytes=128 * 1024,
+)
+
+#: One NVIDIA H100 SXM, the port's card.  Data-sheet figures (NVIDIA's H100
+#: data sheet and Hopper white paper), not measurements: ``peak_flops`` is
+#: f32 outside the tensor cores, the precision the port's FFMA kernels
+#: compute in; ``link_bw`` is NVLink's 450 GB/s each way; ``cache_bytes``
+#: is the shared memory one block can use, the budget of the §2.2 GEMM
+#: blocking preset (``core.blocking.solve_h100_gemm_blocking``).  The
+#: bounds ``chip_smoke.py`` prints are computed from these.
+H100_SXM = HardwareConfig(
+    name="h100-sxm",
+    peak_flops=67e12,
+    mem_bw=3.35e12,
+    link_bw=450e9,
+    cache_bytes=232_448,
+)

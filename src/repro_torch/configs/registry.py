@@ -1,13 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` resolution and the
 reduced smoke variants (``repro.configs.registry`` with the families'
-reduction recipes, ``repro.api.families._cnn_smoke`` and
+reduction recipes, ``repro.api.families._cnn_smoke``, ``_dnn_smoke`` and
 ``_transformer_smoke``)."""
 from __future__ import annotations
 
 import importlib
 from typing import Union
 
-from repro_torch.configs.base import CNNConfig, ConvLayerSpec, ModelConfig
+from repro_torch.configs.base import (
+    CNNConfig,
+    ConvLayerSpec,
+    DNNConfig,
+    ModelConfig,
+)
 
 # the architectures whose configs the port carries so far
 _MODULES = {
@@ -15,11 +20,12 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "vgg-a": "vgg_a",
     "overfeat-fast": "overfeat_fast",
+    "cd-dnn": "cd_dnn",
 }
 
 ARCHS = tuple(_MODULES)
 
-AnyConfig = Union[ModelConfig, CNNConfig]
+AnyConfig = Union[ModelConfig, CNNConfig, DNNConfig]
 
 
 def get_config(name: str) -> AnyConfig:
@@ -34,6 +40,8 @@ def smoke_variant(cfg: AnyConfig) -> AnyConfig:
     class — the reference's recipes, value for value."""
     if isinstance(cfg, CNNConfig):
         return _cnn_smoke(cfg)
+    if isinstance(cfg, DNNConfig):
+        return _dnn_smoke(cfg)
     return _transformer_smoke(cfg)
 
 
@@ -52,6 +60,12 @@ def _cnn_smoke(cfg: CNNConfig) -> CNNConfig:
             L("fc", ifm=64, ofm=16, out_hw=1),
         ),
     )
+
+
+def _dnn_smoke(cfg: DNNConfig) -> DNNConfig:
+    return DNNConfig(name=cfg.name + "-smoke", source=cfg.source,
+                     input_dim=40, hidden_dim=64, num_hidden=3,
+                     output_dim=32)
 
 
 def _transformer_smoke(cfg: ModelConfig) -> ModelConfig:

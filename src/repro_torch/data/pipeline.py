@@ -34,6 +34,19 @@ def image_stream(image_size: int, num_classes: int, batch: int,
                "labels": labels.astype(np.int32)}
 
 
+def asr_frame_stream(input_dim: int, num_senones: int, batch: int,
+                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Acoustic frames: a fixed random prototype per senone plus noise."""
+    rng = np.random.default_rng(seed)
+    proto = rng.standard_normal((num_senones, input_dim)).astype(np.float32)
+    while True:
+        sen = rng.integers(0, num_senones, size=(batch,))
+        frames = proto[sen] + 0.5 * rng.standard_normal(
+            (batch, input_dim)).astype(np.float32)
+        yield {"frames": frames.astype(np.float32),
+               "senones": sen.astype(np.int32)}
+
+
 _SENTINEL = object()    # queued when the source is exhausted: a finite
 #                         source must end the consumer's iteration, not
 #                         leave it blocked on an empty queue forever

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles of the reference's ``repro.kernels.ref`` that the
 port's kernels and models are held against.
 
+:func:`matmul_ref` is the oracle of the blocked GEMM: one f32 product.
 :func:`conv2d_ref` is the reference's default conv route (``lax.conv`` on
 NHWC/HWIO).  It is not a port of a TPU kernel: here it is one
 ``torch.nn.functional.conv2d`` call on permuted views, the route
@@ -11,6 +12,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with f32 accumulation and an f32 result (the reference's
+    ``preferred_element_type=jnp.float32``): bf16 inputs are widened, which
+    is exact, and multiplied in f32."""
+    return torch.matmul(a.float(), b.float())
 
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

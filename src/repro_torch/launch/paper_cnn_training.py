@@ -2,7 +2,9 @@
 assembled through ``repro_torch.api`` — the family
 adapter picks the CNN loss and stream and the paper's optimizer;
 ``--use-kernel`` swaps the forward convs onto the Hopper direct-conv kernel
-(on the CPU, onto its plain version).
+(on the CPU, onto its plain version).  :func:`use_kernel` dispatches by the
+run's config class, so the same switch puts a CD-DNN run's forward products
+on the blocked-GEMM kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --use-kernel
     PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --device cpu
@@ -12,14 +14,17 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.api import Run, RunSpec, compile_run
-from repro_torch.models import cnn
+from repro_torch.configs.base import DNNConfig
+from repro_torch.models import cnn, dnn
 from repro_torch.train import make_train_step
 
 
 def kernel_loss(cfg):
-    """The CNN loss with every forward conv on the direct-conv kernel
-    (``cnn.forward(use_kernel=True)``); the backward is the reference's."""
-    return lambda p, b: cnn.loss_fn(p, cfg, b, use_kernel=True)
+    """The family's loss on its kernel: a CNN's forward convs on the
+    direct-conv kernel, a DNN's forward products on the blocked GEMM
+    (``forward(use_kernel=True)``); the backward is PyTorch's."""
+    model = dnn if isinstance(cfg, DNNConfig) else cnn
+    return lambda p, b: model.loss_fn(p, cfg, b, use_kernel=True)
 
 
 def use_kernel(run: Run) -> Run:

@@ -229,10 +229,10 @@ def test_compile_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     srv = compile_serve(ServeSpec(arch="llama3-8b", smoke=True), device="cpu")
     assert srv.device.type == "cpu"
     assert srv.params["embed"].device.type == "cpu"
-    with pytest.raises(KeyError, match="unknown arch"):
+    # CNN and DNN configs are known (the training slices) but not servable,
+    # as in the reference
+    with pytest.raises(ValueError, match="token LM ModelConfig"):
         compile_serve(ServeSpec(arch="cd-dnn", smoke=True), device="cpu")
-    # a CNN config is known (the training slice) but not servable, as in
-    # the reference
     with pytest.raises(ValueError, match="token LM ModelConfig"):
         compile_serve(ServeSpec(arch="vgg-a", smoke=True), device="cpu")
 
