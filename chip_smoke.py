@@ -5,8 +5,9 @@ It drives ``repro_torch`` only (never JAX or the JAX package), on the card,
 and fails (non-zero exit, no result line) when any phase fails:
 
 Phase 0  build every kernel of the ported paths from ``src/repro_torch``
-         (one nvcc per source, all at once); print the build times, what
-         ``-Xptxas -v`` reports, and the card's name and power limit.
+         (one nvcc per source, all at once, the flash-attention source
+         among them); print the build times, what ``-Xptxas -v`` reports,
+         and the card's name and power limit.
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
          card, at the serving path's shapes and a few variants; max |error|
          against a stated tolerance; CUDA-event times of both beside the
@@ -16,7 +17,7 @@ Phase 2  the serving path: llama3-8b at full width and depth with random
          2-512 prompt tokens and 32 new tokens each, drained.  Launch counts
          are zeroed just before the drain and read just after: every kernel
          of the path must have launched (paged decode: exactly decode steps
-         x 32 layers, conv: never).  Then one decode step with the plain
+         x 32 layers, conv and flash: never).  Then one decode step with the plain
          attention and one with the kernel on the same live state must agree.
 Phase 3  the direct-conv kernel against its plain version, f32 with TF32
          off, at every conv layer of VGG-A and OverFeat-FAST at batch 64;
@@ -25,7 +26,7 @@ Phase 3  the direct-conv kernel against its plain version, f32 with TF32
 Phase 4  the training path: full-width VGG-A through ``compile_run`` and
          ``Run.fit`` for 6 steps of batch 64 with every forward conv on the
          kernel.  Launch counts are zeroed just before ``fit`` and read just
-         after (conv: exactly 8 x 6, paged decode: never).  Then one forward
+         after (conv: exactly 8 x 6, paged decode and flash: never).  Then one forward
          and backward through the kernel and one through the plain route,
          from the same params and batch, must agree.
 
@@ -41,7 +42,7 @@ Phase 6  the zero1 path: full-width VGG-A through ``compile_run`` with
          every forward conv on the kernel, ``Run.fit`` for 4 steps of batch 64.
          Launch counts are zeroed just before ``fit`` and read just after:
          reduce-scatter hops = steps x 14 buckets x 3, all-gathers = steps x 14,
-         conv = steps x 8, paged decode and the process hop never.  Then the
+         conv = steps x 8, paged decode, flash and the process hop never.  Then the
          strip state's layout, the replication invariant (every member's
          gathered buffer bitwise the same), one step split into reduce, apply
          and broadcast, and two parity gates against the serial update.
@@ -58,7 +59,7 @@ Phase 9  the zero1 path under ``wire_format="int8"`` and ``"topk"`` (ratio
          full-width VGG-A, G = 4 members on the card, 3 steps of batch 64
          each.  Launch counts are zeroed just before
          ``fit`` and read just after (int8: 14 quantize + 42 hops a step;
-         top-k: 42 hops; both 14 gathers, 8 convs).  Then the replication
+         top-k: 42 hops; both 14 gathers, 8 convs; flash never).  Then the replication
          invariant, the update split into reduce, apply and broadcast; for
          int8 the strips against the fp32 ring's within the largest scale of
          each bucket's messages, for top-k kept + residual == buffer bitwise;
@@ -77,10 +78,30 @@ Phase 11 the CD-DNN path: full-width CD-DNN through ``compile_run`` and
          the card and the ``pallas-ring`` backend.  Launch counts are zeroed
          just before each ``fit`` and read just after (GEMM: steps x 8 in
          both; zero1 also steps x buckets x 3 hops and steps x buckets
-         gathers; nothing else).  Then the kernel route against the plain
+         gathers; nothing else, flash included).  Then the kernel route against the plain
          route from the same params and batch, the zero1 params and losses
          bitwise the serial run's, and one zero1 update split into reduce,
          apply and broadcast.
+Phase 12 the flash-attention kernel against its plain version: a feature
+         grid (B 2; Sq 1, 64, 200, 256; Skv = Sq and Sq + 64; (Hq, Hkv)
+         (4, 4), (8, 4), (32, 8); D 32, 64, 128, 256; causal and not;
+         window 0 and 48; softcap 0 and 50; bf16 and f32) and the training
+         path's shapes (gemma2-2b's global and local layers at B 2, S 1024,
+         its local layer at B 1, S 8192, llama3-8b's at B 1, S 2048);
+         bf16 within one ulp of each (batch, head) slice's largest
+         magnitude, f32 within 2e-5 of max |plain|; CUDA-event times of the
+         kernel and the plain version at the model shapes, and of
+         ``F.scaled_dot_product_attention`` (the library call) where it
+         computes the same function without the softcap, beside the bound.
+Phase 13 the LM training path: gemma2-2b at full width and depth
+         (2,614,222,080 f32 params) through ``compile_run`` and ``Run.fit``,
+         AdamW, 4 steps of batch 2 x 1024 tokens of the seeded
+         ``lm_token_stream``, every attention forward on the flash kernel.
+         Launch counts are zeroed just before ``fit`` and read just after
+         (flash: exactly 26 x 4; every other kernel: never).  Then the step
+         split into forward, backward and update, and, with the optimizer
+         state freed, the kernel route against the plain route from the same
+         params and batch, held to the network's own one-ulp sensitivity.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -320,6 +341,7 @@ def phase1(dev):
 def phase2(card):
     from repro_torch.api import ServeSpec, compile_serve
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     spec = ServeSpec(arch="llama3-8b", smoke=False, max_batch=4,
                      page_size=16, num_pages=160, max_prompt=512,
@@ -347,7 +369,7 @@ def phase2(card):
     steps0 = server.stats["steps"]
     torch.cuda.reset_peak_memory_stats()
     paged_attn.launches = 0
-    kconv.launches = 0
+    kconv.launches = kflash.launches = 0
     t0 = time.perf_counter()
     done = server.drain()
     torch.cuda.synchronize()
@@ -355,6 +377,8 @@ def phase2(card):
     launches = paged_attn.launches
     check(kconv.launches == 0, f"serving launched the conv kernel "
           f"{kconv.launches} times")
+    check(kflash.launches == 0, f"serving launched the flash kernel "
+          f"{kflash.launches} times")
     steps = server.stats["steps"] - steps0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -548,6 +572,7 @@ def phase4(card):
 
     from repro_torch.api import RunSpec, compile_run
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels.ref import conv2d_ref
     from repro_torch.launch.paper_cnn_training import use_kernel
@@ -572,12 +597,13 @@ def phase4(card):
 
     torch.cuda.reset_peak_memory_stats()
     kconv.launches = 0
-    paged_attn.launches = 0
+    paged_attn.launches = kflash.launches = 0
     t0 = time.perf_counter()
     hist = run.fit(log_fn=lambda line: print(f"  {line}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, paged = kconv.launches, paged_attn.launches
+    flash = kflash.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(len(hist) == spec.steps, f"{len(hist)} of {spec.steps} steps "
@@ -589,13 +615,15 @@ def phase4(card):
           f"{n_conv} conv layers")
     check(paged == 0, f"training launched the paged-decode kernel {paged} "
           "times")
+    check(flash == 0, f"VGG-A training launched the flash kernel {flash} "
+          "times")
     steps = spans.samples["step"]
     waits = spans.samples["data_wait"]
     later = sum(steps[1:]) + sum(waits[1:])
     n_later = spec.batch * (spec.steps - 1)
     print(f"  {spec.steps} steps in {wall} s; conv kernel launches "
           f"{launches} = {spec.steps} x {n_conv}; paged-decode launches "
-          f"{paged}")
+          f"{paged}; flash launches {flash}")
     print(f"  steps 2-{spec.steps}: {n_later / later} images/s with the "
           f"data waits ({n_later / sum(steps[1:])} images/s of step time "
           f"alone); step median {np.median(steps[1:]) * 1e3} ms; first step "
@@ -900,6 +928,7 @@ def phase6(card):
     from repro_torch.comm import CommConfig, pack_bucket
     from repro_torch.core.params import tree_leaves
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels import ring as kring
     from repro_torch.launch.paper_cnn_training import use_kernel
@@ -935,13 +964,14 @@ def phase6(card):
     torch.cuda.reset_peak_memory_stats()
     kring.reset_launches()
     kconv.launches = 0
-    paged_attn.launches = 0
+    paged_attn.launches = kflash.launches = 0
     t0 = time.perf_counter()
     hist = run.fit(log_fn=lambda line: print(f"  {line}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kring.launches)
     conv, paged = kconv.launches, paged_attn.launches
+    check(kflash.launches == 0, f"flash launches {kflash.launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(len(hist) == spec.steps and all(
         np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
@@ -1298,6 +1328,7 @@ def phase9(card, fmt, ratio=TOPK_RATIO):
     from repro_torch.comm.backends.ring import topk_chunk_k
     from repro_torch.core.params import tree_leaves
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels import ring as kring
     from repro_torch.kernels.ref import topk_mask_ref
@@ -1333,13 +1364,14 @@ def phase9(card, fmt, ratio=TOPK_RATIO):
     torch.cuda.reset_peak_memory_stats()
     kring.reset_launches()
     kconv.launches = 0
-    paged_attn.launches = 0
+    paged_attn.launches = kflash.launches = 0
     t0 = time.perf_counter()
     hist = run.fit(log_fn=lambda line: print(f"  {line}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kring.launches)
     conv, paged = kconv.launches, paged_attn.launches
+    check(kflash.launches == 0, f"flash launches {kflash.launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(len(hist) == spec.steps and all(
         np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
@@ -1616,20 +1648,24 @@ DNN_GRAD_REL_L2_TOL = 1e-4
 def _counts_zeroed():
     from repro_torch.kernels import blocked_matmul as kmm
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels import ring as kring
     kring.reset_launches()
     kmm.launches = kconv.launches = paged_attn.launches = 0
+    kflash.launches = 0
 
 
 def _counts():
+    """Every kernel's launches since :func:`_counts_zeroed`."""
     from repro_torch.kernels import blocked_matmul as kmm
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels import ring as kring
     return {"blocked_matmul": kmm.launches, "conv2d_nhwc": kconv.launches,
             "paged_decode_attention": paged_attn.launches,
-            **kring.launches}
+            "flash_attention": kflash.launches, **kring.launches}
 
 
 def _fit_dnn(spec, tag, card):
@@ -1831,6 +1867,315 @@ def phase11(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: flash attention, kernel vs plain, and its times
+# ---------------------------------------------------------------------------
+# bf16: one bf16 ulp at the largest |plain| of each (batch, head) slice; both
+# sides widen the same bf16 values exactly, compute in f32 and round once,
+# so they part only where the f32 values straddle a rounding boundary.
+# f32: 2e-5 of max |plain|; the two sum the same f32 products (at most D =
+# 256 a score, Skv a row) in different orders.
+FLASH_F32_TOL = 2e-5
+H100_BF16_TC_FLOPS = 989e12    # data sheet, dense bf16 tensor cores
+FLASH_GRID = dict(Sq=(1, 64, 200, 256), extra=(0, 64),
+                  heads=((4, 4), (8, 4), (32, 8)), D=(32, 64, 128, 256),
+                  causal=(True, False), window=(0, 48), softcap=(0.0, 50.0),
+                  dtype=(torch.bfloat16, torch.float32))
+# (name, B, S, Hq, Hkv, D, window, softcap): the training path's shapes
+FLASH_MODEL_SHAPES = (
+    ("gemma2-2b global, B 2 S 1024", 2, 1024, 8, 4, 256, 0, 50.0),
+    ("gemma2-2b local, B 2 S 1024", 2, 1024, 8, 4, 256, 4096, 50.0),
+    ("gemma2-2b local, B 1 S 8192", 1, 8192, 8, 4, 256, 4096, 50.0),
+    ("llama3-8b, B 1 S 2048", 1, 2048, 32, 8, 128, 0, 0.0),
+)
+
+
+def flash_live_pairs(Sq, Skv, causal, window):
+    """The (q, k) pairs one (batch, head) row block's mask keeps: the work
+    this call's masks leave."""
+    q_pos = np.arange(Sq) + (Skv - Sq)
+    hi = np.minimum(q_pos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(B, Sq, Skv, Hq, Hkv, D, causal, window, itemsize):
+    """Least time of one call on an H100 SXM, in ms: 4 D operations (two
+    products) per live (q, k) pair and head at the bf16 tensor-core peak,
+    or q, k, v read once and o written once, whichever is longer; and the
+    operations at the f32 peak outside the tensor cores, the ceiling of an
+    FFMA kernel.  Returns (bound ms, bound_by, f32 ms)."""
+    ops = 4 * B * Hq * D * flash_live_pairs(Sq, Skv, causal, window)
+    nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+    t_ops, t_bytes = ops / H100_BF16_TC_FLOPS, nbytes / H100_SXM.mem_bw
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            ops / H100_SXM.peak_flops * 1e3)
+
+
+def flash_ratio(got, want):
+    """Worst |kernel - plain| over its tolerance (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.float32:
+        return (err.max() / (FLASH_F32_TOL * w.abs().max())).item()
+    big = w.abs().amax(dim=(1, 3), keepdim=True)
+    return (err / torch.exp2(torch.floor(torch.log2(big)) - 7)).max().item()
+
+
+def flash_inputs(dev, dtype, B, Sq, Skv, Hq, Hkv, D, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+            for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+
+
+def phase12(dev, card):
+    import itertools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = FLASH_GRID
+    print(f"phase 12: flash_attention kernel vs plain; tolerance bf16 one "
+          f"ulp at the largest |plain| of each (batch, head), f32 "
+          f"{FLASH_F32_TOL} x max|plain|; feature grid B 2, Sq {g['Sq']}, "
+          f"Skv = Sq + {g['extra']}, (Hq, Hkv) {g['heads']}, D {g['D']}, "
+          f"causal and not, window {g['window']}, softcap {g['softcap']}, "
+          f"bf16 and f32")
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n = 0
+    for i, (Sq, extra, (Hq, Hkv), D, causal, window, softcap, dtype) in \
+            enumerate(itertools.product(*g.values())):
+        q, k, v = flash_inputs(dev, dtype, 2, Sq, Sq + extra, Hq, Hkv, D, i)
+        kw = dict(causal=causal, window=window, logit_softcap=softcap)
+        got = kflash.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        r = flash_ratio(got, kflash.flash_attention_plain(q, k, v, **kw))
+        check(np.isfinite(r) and r <= 1.0,
+              f"Sq {Sq} Skv {Sq + extra} Hq {Hq} Hkv {Hkv} D {D} {kw} "
+              f"{dtype}: kernel disagrees with the plain version "
+              f"(error / tolerance {r})")
+        worst[dtype] = max(worst[dtype], r)
+        n += 1
+    print(f"  {n} feature-grid calls within tolerance; worst error / "
+          f"tolerance bf16 {worst[torch.bfloat16]}, f32 "
+          f"{worst[torch.float32]}")
+
+    row = None
+    for name, B, S, Hq, Hkv, D, window, softcap in FLASH_MODEL_SHAPES:
+        q, k, v = flash_inputs(dev, torch.bfloat16, B, S, S, Hq, Hkv, D,
+                               S + D)
+        kw = dict(causal=True, window=window, logit_softcap=softcap)
+        got = kflash.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = kflash.flash_attention_plain(q, k, v, **kw)
+        r = flash_ratio(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        check(np.isfinite(r) and r <= 1.0, f"{name}: kernel disagrees with "
+              f"the plain version (error / tolerance {r})")
+        del got, want
+        ms = cuda_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
+        plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v,
+                                                                **kw), 1, 3)
+        bound_ms, bound_by, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True,
+                                                 window, 2)
+        line = (f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, window "
+                f"{window}, softcap {softcap}, bf16: max|kernel - plain| "
+                f"{err} (error / tolerance {r}); kernel {ms} ms, plain "
+                f"{plain_ms} ms; bound {bound_ms} ms ({bound_by}), at the "
+                f"f32 FFMA peak {f32_ms} ms; kernel / bound {ms / bound_ms}, "
+                f"kernel / f32 bound {ms / f32_ms}")
+        library_ms = None
+        if window == 0:
+            # SDPA has no softcap: time it, and the kernel, without one
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 3, 20)
+            bare_ms = cuda_ms(lambda: kflash.flash_attention(q, k, v), 3, 20)
+            sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            d_sdpa = (sdpa.float() - kflash.flash_attention(q, k, v).float()
+                      ).abs().max().item()
+            line += (f"; without the softcap: kernel {bare_ms} ms, "
+                     f"F.scaled_dot_product_attention {library_ms} ms "
+                     f"(max|kernel - SDPA| {d_sdpa}), kernel / SDPA "
+                     f"{bare_ms / library_ms}")
+            del sdpa
+        print(line + f" [{card}]")
+        if row is None:   # the training path's global layer: the JSON row
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:105",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        del q, k, v
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 13: gemma2-2b trains at full width and depth
+# ---------------------------------------------------------------------------
+# Kernel route vs plain route from the same params and batch.  The two
+# attention forwards differ by f32 sum order, so a bf16 output now and then
+# rounds one ulp apart (phase 12), in each of 26 layers, carried through
+# bf16 activations: the loss to a relative 1e-3 (the CPU tests' bound
+# against the reference, where such flips measured 1.2e-4).  The gradients
+# of a bf16 network move with any such flip: on the CPU a one-ulp change
+# of the embedding moves every leaf by ~1e-2 relative L2.  So, as phase 4
+# does, the run measures the network's sensitivity (the plain route with
+# every weight scaled by 1 + 2^-23 against the plain route) and holds every
+# leaf of the kernel route to SENSITIVITY_FACTOR times its largest value,
+# never tighter than LM_GRAD_REL_L2_TOL (the CPU tests' bound); a backward
+# wired to the wrong function differs by O(1).
+LM_STEPS = 4
+LM_BATCH, LM_SEQ = 2, 1024
+LM_PARAMS = 2_614_222_080
+LM_LOSS_REL_TOL = 1e-3
+LM_GRAD_REL_L2_TOL = 5e-2
+
+
+def phase13(card):
+    from repro_torch.api import RunSpec, compile_run
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = RunSpec(arch="gemma2-2b", steps=LM_STEPS, batch=LM_BATCH,
+                   seq=LM_SEQ, seed=0, log_every=1)
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    cfg = run.cfg
+    n_params = sum(p.numel() for p in tree_leaves(run.params))
+    check(n_params == LM_PARAMS, f"{n_params} params, want {LM_PARAMS}")
+    n_attn = cfg.num_layers
+    print(f"phase 13: {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} q / "
+          f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, window "
+          f"{cfg.sliding_window}, softcaps {cfg.attn_logit_softcap} / "
+          f"{cfg.final_logit_softcap}, vocab {cfg.vocab_size}), {n_params} "
+          f"f32 params and AdamW state on {run.device} in "
+          f"{time.perf_counter() - t0:.2f} s; {spec.steps} steps of batch "
+          f"{spec.batch} x {spec.seq} tokens, every attention forward on "
+          f"the kernel")
+
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    hist = run.fit(log_fn=lambda line: print(f"  {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"history {hist}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = spec.steps * n_attn
+    check(counts == want, f"launches {counts}, want {want}")
+    steps = spans.samples["step"]
+    waits = spans.samples["data_wait"]
+    tokens = spec.batch * spec.seq
+    n_later = tokens * (spec.steps - 1)
+    print(f"  {spec.steps} steps in {wall} s; launches: flash_attention "
+          f"{counts['flash_attention']} = {spec.steps} x {n_attn}, every "
+          f"other kernel 0")
+    print(f"  steps 2-{spec.steps}: "
+          f"{n_later / (sum(steps[1:]) + sum(waits[1:]))} tokens/s with the "
+          f"data waits ({n_later / sum(steps[1:])} tokens/s of step time "
+          f"alone); step median {np.median(steps[1:]) * 1e3} ms; first step "
+          f"{steps[0] * 1e3} ms; data_wait median "
+          f"{np.median(waits[1:]) * 1e3} ms; peak memory {peak_gb} GB "
+          f"[{card}]")
+
+    # where one step's time goes (CUDA events, 3 reps, median)
+    batch = next(run.data)
+    leaves = tree_leaves(run.params)
+    split = {"forward": [], "backward": [], "step": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = run.loss_fn(run.params, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        del loss, grads
+        run.step(batch, step_idx=spec.steps)
+        ev[3].record()
+        ev[3].synchronize()
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+        split["step"].append(ev[2].elapsed_time(ev[3]))
+    fwd, bwd, step = (float(np.median(split[k]))
+                      for k in ("forward", "backward", "step"))
+    print(f"  one step by CUDA events: whole train_step {step} ms; its "
+          f"forward alone {fwd} ms ({n_attn} kernel attentions), backward "
+          f"alone {bwd} ms (attention_ref's gradient recomputed per layer), "
+          f"so gradient norm, clipping and the AdamW update about "
+          f"{step - fwd - bwd} ms [{card}]")
+    run.close()
+    run.opt_state = None     # free AdamW's moments before the route check
+    del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel route against the plain route, on the run's params and its
+    # next batch; the plain route's gradients wait in host memory, so that
+    # at most one pass and one set of gradients share the card with the
+    # params
+    leaves = tree_leaves(run.params)
+    names = list(_leaf_names(run.params))
+
+    def loss_and_grads(uk):
+        torch.cuda.reset_peak_memory_stats()
+        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), grads, torch.cuda.max_memory_allocated() / 1e9
+
+    def rel_l2(ga, gb_host):
+        return [((a - b.to(a.device)).norm() / b.norm().to(a.device)).item()
+                for a, b in zip(ga, gb_host)]
+
+    lp, gp, peak_plain = loss_and_grads(False)
+    gp = [g.cpu() for g in gp]
+    lk, gk, peak_kernel = loss_and_grads(True)
+    rel = rel_l2(gk, gp)
+    del gk
+    with torch.no_grad():          # the params are not needed after this
+        for p in leaves:
+            p.mul_(1 + 2.0 ** -23)
+    _, gu, _ = loss_and_grads(False)
+    floor = rel_l2(gu, gp)
+    del gu, gp
+    check(np.isfinite(lk) and np.isfinite(lp), "non-finite parity loss")
+    loss_rel = abs(lk - lp) / abs(lp)
+    tol = max(LM_GRAD_REL_L2_TOL, SENSITIVITY_FACTOR * max(floor))
+    worst_k = int(np.argmax(rel))
+    print(f"  kernel vs plain route, one forward and backward on the "
+          f"params after the run and its next batch: loss {lk} vs {lp} "
+          f"(relative {loss_rel}, tolerance {LM_LOSS_REL_TOL}); worst "
+          f"leaf's gradient relative L2 {rel[worst_k]} at "
+          f"{names[worst_k]}; the plain route with every weight scaled by "
+          f"1 + 2^-23 (the network's sensitivity): worst {max(floor)} at "
+          f"{names[int(np.argmax(floor))]}; tolerance for every leaf "
+          f"max({LM_GRAD_REL_L2_TOL}, {SENSITIVITY_FACTOR} x "
+          f"sensitivity) = {tol}; peak memory of one pass with the optimizer "
+          f"state freed: kernel route {peak_kernel} GB, plain route "
+          f"{peak_plain} GB [{card}]")
+    print(f"  per leaf, kernel vs plain: {dict(zip(names, rel))}")
+    print(f"  per leaf, weights x (1 + 2^-23) vs plain: "
+          f"{dict(zip(names, floor))}")
+    check(loss_rel <= LM_LOSS_REL_TOL, "kernel and plain route losses "
+          "differ")
+    check(max(rel) <= tol, "kernel and plain route gradients differ")
+    del leaves, batch
+    run.params = None
+    return counts["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -1940,6 +2285,18 @@ def phase7(card):
     return got[0][1]["fp32"][0]["ring_hop_accum"]
 
 
+def _leaf_names(tree, prefix=""):
+    """Names of a tree's leaves, in ``_leaves``'s order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _leaf_names(t, f"{prefix}[{i}]")
+    else:
+        yield prefix
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -1959,7 +2316,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    names = ("paged_attn", "conv2d", "ring", "ring_wire", "blocked_matmul")
+    names = ("paged_attn", "conv2d", "ring", "ring_wire", "blocked_matmul",
+             "flash_attention")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -2008,10 +2366,13 @@ def main() -> int:
     gemm["launches"], dnn_rs, dnn_ag = timed("11", phase11, card)
     print(f"CD-DNN zero1 path (phase 11): ring_reduce_scatter {dnn_rs}, "
           f"ring_all_gather {dnn_ag} launches")
+    flash = timed("12", phase12, dev, card)
+    flash["launches"] = timed("13", phase13, card)
     hop["launches"] = timed("7", phase7, card)
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm]}))
+    print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,
+                                  flash]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,17 +2,23 @@
 model family declares its training glue once, keyed by its config class,
 and ``adapter_for(cfg)`` resolves it by MRO.
 
-The ``cnn`` family (VGG-A, OverFeat-FAST) and the ``dnn`` family (CD-DNN)
-are ported; the transformer training family comes with a later slice.
+The ``cnn`` family (VGG-A, OverFeat-FAST), the ``dnn`` family (CD-DNN)
+and the ``transformer`` family (the token LMs: next-token CE on the seeded
+``lm_token_stream``, AdamW) are ported; the vision and audio frontends of
+the transformer family are not, and their streams and losses raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Type
 
-from repro_torch.configs.base import CNNConfig, DNNConfig
-from repro_torch.data.pipeline import asr_frame_stream, image_stream
-from repro_torch.models import cnn, dnn
+from repro_torch.configs.base import CNNConfig, DNNConfig, ModelConfig
+from repro_torch.data.pipeline import (
+    asr_frame_stream,
+    image_stream,
+    lm_token_stream,
+)
+from repro_torch.models import cnn, dnn, transformer
 
 
 @dataclass(frozen=True)
@@ -71,4 +77,20 @@ DNN_FAMILY = register_family(FamilyAdapter(
     stream=lambda cfg, batch, seq, seed: asr_frame_stream(
         cfg.input_dim, cfg.output_dim, batch, seed),
     default_optimizer="sgd",
+))
+
+
+def _transformer_stream(cfg: ModelConfig, batch: int, seq: int, seed: int):
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name!r}: the {cfg.frontend} "
+                                  "frontend's stream is not ported yet")
+    return lm_token_stream(cfg.vocab_size, batch, seq, seed)
+
+
+TRANSFORMER_FAMILY = register_family(FamilyAdapter(
+    family="transformer", config_cls=ModelConfig,
+    init=transformer.init_params,
+    make_loss=lambda cfg: lambda p, b: transformer.lm_loss(p, cfg, b),
+    stream=_transformer_stream,
+    default_optimizer="adamw",
 ))

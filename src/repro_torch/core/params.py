@@ -42,12 +42,6 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
-def top_keys(tree):
-    """The keys of a dict in sorted order, or the indices of a list: how
-    the optimizers walk a flat param tree or a list of fusion strips."""
-    return sorted(tree) if isinstance(tree, dict) else range(len(tree))
-
-
 def tree_leaves(tree) -> list:
     """The leaves of a tree in :func:`map_tree`'s order (``jax.tree.leaves``)."""
     leaves = []

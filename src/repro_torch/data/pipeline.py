@@ -18,6 +18,24 @@ import numpy as np
 import torch
 
 
+def lm_token_stream(vocab: int, batch: int, seq: int,
+                    seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-ish token stream: a learnable bigram structure, each token
+    replaced by a uniform draw with probability 0.15."""
+    rng = np.random.default_rng(seed)
+    V = int(vocab)
+    shift = rng.integers(1, V, size=()).item()
+    while True:
+        first = rng.integers(0, V, size=(batch, 1))
+        noise = rng.random((batch, seq - 1)) < 0.15
+        toks = [first]
+        for t in range(1, seq):
+            nxt = (toks[-1] * 31 + shift) % V
+            rand = rng.integers(0, V, size=(batch, 1))
+            toks.append(np.where(noise[:, t - 1: t], rand, nxt))
+        yield {"tokens": np.concatenate(toks, axis=1).astype(np.int32)}
+
+
 def image_stream(image_size: int, num_classes: int, batch: int,
                  seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Images whose class determines a planted frequency pattern."""

@@ -2,6 +2,9 @@
 port's kernels and models are held against.
 
 :func:`matmul_ref` is the oracle of the blocked GEMM: one f32 product.
+:func:`attention_ref` is the oracle of the flash-attention kernel, and its
+gradient is the kernel route's backward (the reference's
+``ops._attention_bwd``).
 :func:`conv2d_ref` is the reference's default conv route (``lax.conv`` on
 NHWC/HWIO).  It is not a port of a TPU kernel: here it is one
 ``torch.nn.functional.conv2d`` call on permuted views, the route
@@ -9,6 +12,8 @@ NHWC/HWIO).  It is not a port of a TPU kernel: here it is one
 autograd wrapper uses.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +24,45 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=jnp.float32``): bf16 inputs are widened, which
     is exact, and multiplied in f32."""
     return torch.matmul(a.float(), b.float())
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(logits / cap) * cap if cap > 0 else logits
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  logit_softcap: float = 0.0,
+                  scale: Optional[float] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Multi-head attention oracle, softmax in f32.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0 (GQA: q
+    head ``h`` reads kv head ``h // (Hq / Hkv)``).  Query positions are
+    right-aligned against the keys (``Skv - Sq``); ``window`` > 0 keeps keys
+    in (pos - window, pos].  The softcap comes before the mask, masked
+    logits are -1e30.  The result is in ``out_dtype`` (default q's)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+    logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kf), logit_softcap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window and window > 0:
+        mask &= k_pos > q_pos - window
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(out_dtype or q.dtype)
 
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

@@ -4,7 +4,8 @@ adapter picks the CNN loss and stream and the paper's optimizer;
 ``--use-kernel`` swaps the forward convs onto the Hopper direct-conv kernel
 (on the CPU, onto its plain version).  :func:`use_kernel` dispatches by the
 run's config class, so the same switch puts a CD-DNN run's forward products
-on the blocked-GEMM kernel.
+on the blocked-GEMM kernel and a transformer LM run's attention forwards on
+the flash-attention kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --use-kernel
     PYTHONPATH=src python -m repro_torch.launch.paper_cnn_training --device cpu
@@ -14,15 +15,19 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.api import Run, RunSpec, compile_run
-from repro_torch.configs.base import DNNConfig
-from repro_torch.models import cnn, dnn
+from repro_torch.configs.base import DNNConfig, ModelConfig
+from repro_torch.models import cnn, dnn, transformer
 from repro_torch.train import make_train_step
 
 
 def kernel_loss(cfg):
     """The family's loss on its kernel: a CNN's forward convs on the
     direct-conv kernel, a DNN's forward products on the blocked GEMM
-    (``forward(use_kernel=True)``); the backward is PyTorch's."""
+    (``forward(use_kernel=True)``), an LM's attention forwards on the flash
+    kernel (``lm_loss(use_kernel=True)``); the backward is PyTorch's (for
+    attention, ``attention_ref``'s gradient)."""
+    if isinstance(cfg, ModelConfig):
+        return lambda p, b: transformer.lm_loss(p, cfg, b, use_kernel=True)
     model = dnn if isinstance(cfg, DNNConfig) else cnn
     return lambda p, b: model.loss_fn(p, cfg, b, use_kernel=True)
 

@@ -1,10 +1,10 @@
 """Transformer layers of the port: norm, RoPE, attention, MLP.
 
-``repro.models.layers`` for the token LMs the serving path runs, with the
-reference's numerics: f32 norms and RoPE angles, bf16 activations, every
-matmul bf16 @ ``w.to(bf16)``.  Layout is (B, S, H, D) throughout.  Not
-ported yet: M-RoPE, MoE, SSM blocks, ring-buffer and sequence-sharded
-decode.
+``repro.models.layers`` for the token LMs the serving and training paths
+run, with the reference's numerics: f32 norms and RoPE angles, bf16
+activations, every matmul bf16 @ ``w.to(bf16)``.  Layout is (B, S, H, D)
+throughout.  Not ported yet: M-RoPE, MoE, SSM blocks, ring-buffer and
+sequence-sharded decode.
 
 The reference's functions are pure and return new caches.  Here cache
 writes happen IN PLACE on the tensors the cache objects hold (the page
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec
+from repro_torch.kernels import flash_attention
 
 NEG_INF = -1e30
 
@@ -203,13 +204,19 @@ def paged_decode_attention_block(cache: PagedKVState, q: torch.Tensor,
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, *, window: int = 0,
-                    cache=None, update_cache: bool = False):
+                    cache=None, update_cache: bool = False,
+                    use_kernel: bool = False):
     """Pre-norm attention.  Returns (residual_out, new_cache_or_None).
 
     Train/prefill: full-sequence chunked attention (+ a fresh ring-buffer
-    write when ``update_cache``, for any S, one token included).  Decode
-    (S == 1): one token against the paged pool.  Decode against the ring
-    buffer (the reference's ``serve/decode.generate`` path) is not ported."""
+    write when ``update_cache``, for any S, one token included).  With
+    ``use_kernel`` and no cache (the training path) the attention is
+    ``kernels.flash_attention.attention`` instead: the flash kernel forward
+    (on CPU tensors its plain version) and ``attention_ref``'s gradient
+    backward; the reference's models always run chunked attention, so the
+    switch is the port's own, as for the CNN and the DNN.  Decode (S == 1):
+    one token against the paged pool.  Decode against the ring buffer (the
+    reference's ``serve/decode.generate`` path) is not ported."""
     B, S, _ = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -229,6 +236,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(
             "decode against a ring-buffer cache is not ported yet; the "
             "serving engine decodes through PagedKVState")
+    elif use_kernel and cache is None:
+        out = flash_attention.attention(q, k, v, True, window,
+                                        cfg.attn_logit_softcap)
     else:
         out = chunked_attention(q, k, v, causal=True, window=window,
                                 logit_softcap=cfg.attn_logit_softcap)

@@ -1,12 +1,14 @@
 """Config-driven decoder assembly of the port (``repro.models.transformer``
-for the attention-block token LMs).
+for the attention-block token LMs): params, caches, the forward and the
+next-token losses.
 
 Params keep the reference's tree: per pattern entry, each block's weights
 are stacked on a leading ``pattern_repeats`` axis (R).  The reference
-``lax.scan``s over R; here a Python loop walks the repeats and indexes the
-stacked weights and caches.  Caches mirror the params: a tuple (one entry
-per pattern position) of cache objects whose tensors carry the leading R
-axis; a layer writes through its view of them in place.
+``lax.scan``s over R; here a Python loop walks the repeats over the stacked
+weights, unbound once per forward, and indexes the caches.  Caches mirror
+the params: a tuple (one entry per pattern position) of cache objects whose
+tensors carry the leading R axis; a layer writes through its view of them
+in place.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.configs.base import (
     BLOCK_SHARED_ATTN,
     ModelConfig,
 )
-from repro_torch.core.params import Spec, init_tree, map_tree
+from repro_torch.core.params import Spec, init_tree, map_tree, tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.layers import attention_block, mlp_block, rms_norm
@@ -148,12 +150,30 @@ def _restack(stacked, per_layer):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _unstack(tree, repeats: int) -> list:
+    """The ``repeats`` per-layer trees of a tree of R-stacked weights.  Each
+    leaf is unbound once: the backward of ``torch.unbind`` stacks the R
+    layer gradients in one allocation, where indexing ``w[r]`` in every
+    layer would add R zero-filled gradients of the whole stacked leaf."""
+    cols = [torch.unbind(w) for w in tree_leaves(tree)]
+
+    def layer(r):
+        it = iter([c[r] for c in cols])
+        return map_tree(lambda _: next(it), tree)
+
+    return [layer(r) for r in range(repeats)]
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, caches=None,
-            update_cache: bool = False, long_ctx: bool = False):
-    """Returns (logits, aux_loss, new_caches) for ``tokens`` (B, S);
-    ``positions`` (B, S) default to ``arange(S)``.  ``aux_loss`` is zero:
-    the port has no MoE blocks yet."""
+            update_cache: bool = False, long_ctx: bool = False,
+            return_hidden: bool = False, use_kernel: bool = False):
+    """Returns (logits, aux_loss, new_caches) for ``tokens`` (B, S), or
+    the final-normed hidden states in place of the logits when
+    ``return_hidden``; ``positions`` (B, S) default to ``arange(S)``.
+    ``use_kernel`` runs every cacheless attention on the flash kernel
+    (``layers.attention_block``).  ``aux_loss`` is zero: the port has no MoE
+    blocks yet."""
     emb_scale = float(np.float32(cfg.d_model ** 0.5))
     x = (params["embed"][tokens.long()] * emb_scale).to(torch.bfloat16)
     B, S, _ = x.shape
@@ -162,19 +182,25 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
 
     have_cache = caches is not None
     per_layer = [[] for _ in cfg.block_pattern]
+    blocks = [_unstack(bp, cfg.pattern_repeats) for bp in params["blocks"]]
     for r in range(cfg.pattern_repeats):
         for j, kind in enumerate(cfg.block_pattern):
-            p = map_tree(lambda w: w[r], params["blocks"][j])
+            p = blocks[j][r]
             cache = _at(caches[j], r) if have_cache else None
             x, nc = attention_block(
                 p["attn"], x, cfg, positions,
                 window=effective_window(cfg, kind, long_ctx), cache=cache,
-                update_cache=update_cache)
+                update_cache=update_cache, use_kernel=use_kernel)
             x = mlp_block(p["mlp"], x, cfg)
             if have_cache:
                 per_layer[j].append(nc if nc is not None else cache)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = (tuple(_restack(c, pl) for c, pl in zip(caches, per_layer))
+                  if have_cache else None)
+    if return_hidden:
+        return x, aux, new_caches
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T.to(x.dtype)
     else:
@@ -182,7 +208,61 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = torch.tanh(logits / c) * c
-    new_caches = (tuple(_restack(c, pl) for c, pl in zip(caches, per_layer))
-                  if have_cache else None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, new_caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in f32 (``logits`` (..., V), ``labels`` (...))."""
+    lf = logits.float()
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - gold).mean()
+
+
+def chunked_lm_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
+                    labels: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """CE over sequence chunks, so the (B, S, V) f32 logits are never whole
+    (the reference's perf knob ``loss_chunk``)."""
+    B, S, _ = hidden.shape
+    Sm1 = S - 1
+    chunk = -(-Sm1 // n_chunks)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        lo = i * chunk
+        hi = min(lo + chunk, Sm1)
+        if lo >= hi:
+            break
+        hc = hidden[:, lo:hi]
+        logits = hc @ w.to(hc.dtype)
+        if cfg.final_logit_softcap:
+            c = cfg.final_logit_softcap
+            logits = torch.tanh(logits / c) * c
+        lf = logits.float()
+        # hidden positions lo..hi-1 predict tokens lo+1..hi
+        gold = torch.gather(lf, -1, labels[:, lo + 1:hi + 1, None].long())
+        total = total + (torch.logsumexp(lf, -1) - gold[..., 0]).sum()
+    return total / (B * Sm1)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict,
+            use_kernel: bool = False) -> torch.Tensor:
+    """Next-token CE of a token LM; ``batch["tokens"]`` (B, S).  With
+    ``cfg.loss_chunk`` the CE runs over sequence chunks.  ``use_kernel``
+    puts every attention forward on the flash kernel.  The vision and audio
+    branches of the reference wait for their frontends."""
+    if cfg.frontend is not None or cfg.num_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name!r}: the {cfg.frontend or 'codebook'} frontend's loss "
+            "is not ported yet")
+    tokens = batch["tokens"]
+    if cfg.loss_chunk:
+        hidden, aux, _ = forward(params, cfg, tokens=tokens,
+                                 return_hidden=True, use_kernel=use_kernel)
+        return chunked_lm_loss(params, cfg, hidden, tokens,
+                               cfg.loss_chunk) + aux
+    logits, aux, _ = forward(params, cfg, tokens=tokens,
+                             use_kernel=use_kernel)
+    return _ce(logits[:, :-1], tokens[:, 1:]) + aux

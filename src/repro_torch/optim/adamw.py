@@ -10,7 +10,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.core.params import map_tree, top_keys
+from repro_torch.core.params import map_tree, tree_leaves
 
 
 class AdamWState(NamedTuple):
@@ -37,8 +37,8 @@ class AdamW:
         # bias corrections in f32, as the reference computes them
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(c))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(c))
-        for k in top_keys(params):
-            g, m, v, p = grads[k], state.mu[k], state.nu[k], params[k]
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu), tree_leaves(params)):
             m.mul_(self.b1).add_(g, alpha=1 - self.b1)
             v.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
             step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)

@@ -12,7 +12,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.params import map_tree, top_keys
+from repro_torch.core.params import map_tree, tree_leaves
 
 
 class SgdState(NamedTuple):
@@ -32,9 +32,9 @@ class MomentumSGD:
                ) -> Tuple[Any, SgdState]:
         """v = momentum * v + g + weight_decay * p, then p = p - lr * v,
         leaf by leaf, in place."""
-        for k in top_keys(params):
-            v, p = state.velocity[k], params[k]
-            v.mul_(self.momentum).add_(grads[k])
+        for g, v, p in zip(tree_leaves(grads), tree_leaves(state.velocity),
+                           tree_leaves(params)):
+            v.mul_(self.momentum).add_(g)
             if self.weight_decay:
                 v.add_(p, alpha=self.weight_decay)
             p.sub_(v, alpha=lr)

@@ -3,8 +3,9 @@ synchronous-SGD update: the serial optimizer, or the explicit zero1
 update of ``optim.dist``.
 
 PyTorch runs eagerly, so there is no jit and no buffer donation: the step
-computes the gradients with ``torch.autograd.grad`` and the optimizer
-updates the params and its state in place.
+computes the gradients with ``torch.autograd.grad`` over the param tree's
+leaves (flat for the CNN and DNN, nested for the transformer) and the
+optimizer updates the params and its state in place.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.params import tree_leaves
+from repro_torch.core.params import map_tree, tree_leaves
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -36,15 +37,15 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
     ``opt_state`` comes from the ``init_fn`` of the same call."""
 
     def train_step(params, opt_state, step_idx, batch):
-        keys = sorted(params)
-        leaves = [params[k].requires_grad_() for k in keys]
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
         loss = loss_fn(params, batch)
-        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        it = iter(torch.autograd.grad(loss, leaves))
+        grads = map_tree(lambda _: next(it), params)
         gnorm = global_norm(grads)
         if grad_clip > 0:
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
-            for g in grads.values():
+            for g in tree_leaves(grads):
                 g.mul_(scale)
         lr = lr_schedule(step_idx)
         if dist_update is not None:

@@ -1,0 +1,103 @@
+"""The Hopper flash-attention kernel against its plain version, on the card.
+
+Runs only where there is an sm_90 GPU and nvcc (the kernel is CUDA C++ for
+sm_90a, built at first use); elsewhere every test skips with the reason.
+Run on the card with ``PYTHONPATH=src python -m pytest --noconftest -m gpu
+tests/test_torch_*_cuda.py``.
+
+Shapes: every compiled head_dim (32, 64, 128, 256), GQA groups 1, 2 and 4,
+Sq = 1, a multiple of the 64-row q tile and ragged, Skv = Sq and Sq + 64
+(right-aligned queries), causal and not, windows and the softcap.
+Tolerances: bf16 output, one bf16 ulp at the largest magnitude of each
+(batch, head) slice (both sides compute in f32 and round once); f32
+output, 2e-5 of the largest magnitude (f32 sums in different orders).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.ref import attention_ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernel is built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, B, Sq, Skv, Hq, Hkv, D, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+            for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+
+
+def _assert_agree(got, want, dtype):
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(g).all()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max())
+        return
+    big = np.abs(w).max(axis=(1, 3), keepdims=True)
+    ulp = 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert (np.abs(g - w) <= ulp).all(), (np.abs(g - w) / ulp).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("Sq,extra", [(1, 0), (1, 64), (64, 0), (200, 64),
+                                      (256, 0)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 4), (8, 2)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 48, 50.0), (False, 0, 50.0), (False, 48, 0.0)])
+def test_kernel_matches_plain(cuda, dtype, D, Sq, extra, Hq, Hkv, causal,
+                              window, softcap):
+    q, k, v = _inputs(cuda, dtype, 2, Sq, Sq + extra, Hq, Hkv, D)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+def test_kernel_at_gemma2_training_shape(cuda, window):
+    q, k, v = _inputs(cuda, torch.bfloat16, 2, 1024, 1024, 8, 4, 256, 1)
+    kw = dict(causal=True, window=window, logit_softcap=50.0)
+    _assert_agree(fa.flash_attention(q, k, v, **kw),
+                  fa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_attention_forward_is_the_kernel_and_backward_the_ref(cuda):
+    q, k, v = (t.requires_grad_() for t in _inputs(
+        cuda, torch.bfloat16, 2, 128, 128, 8, 4, 64, 2))
+    kw = dict(causal=True, window=48, logit_softcap=50.0)
+    before = fa.launches
+    out = fa.attention(q, k, v, True, 48, 50.0)
+    assert fa.launches == before + 1
+    assert torch.equal(out, fa.flash_attention(q.detach(), k.detach(),
+                                               v.detach(), **kw))
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(attention_ref(q, k, v, **kw), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_wrapper_raises_on_a_non_contiguous_cuda_tensor(cuda):
+    q, k, v = _inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 32)
+    before = fa.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    assert fa.launches == before

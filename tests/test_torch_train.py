@@ -21,6 +21,7 @@ from repro.api import RunSpec as JRunSpec  # noqa: E402
 from repro.api import compile_run as jcompile_run  # noqa: E402
 from repro_torch.api import PARALLEL_MODES, RunSpec, compile_run  # noqa: E402
 from repro_torch.comm import CommConfig  # noqa: E402
+from repro_torch.configs.base import H100_SXM  # noqa: E402
 from repro_torch.data.pipeline import Prefetcher, make_placer  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch import paper_cnn_training  # noqa: E402
@@ -176,8 +177,10 @@ def test_unported_pieces_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         compile_run(RunSpec(arch="vgg-a", smoke=True, parallel="zero1",
                             comm=CommConfig(overlap=True)), device="cpu")
+    # the token LMs have a family now; a config of no registered family
+    # still raises
     with pytest.raises(TypeError, match="no family adapter"):
-        compile_run(RunSpec(arch="llama3-8b", smoke=True), device="cpu")
+        compile_run(RunSpec(arch=H100_SXM), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(ckpt_dir="ckpts"),
