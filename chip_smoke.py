@@ -6,8 +6,9 @@ and fails (non-zero exit, no result line) when any phase fails:
 
 Phase 0  build every kernel of the ported paths from ``src/repro_torch``
          (one nvcc per source, all at once, the flash-attention source
-         among them); print the build times, what ``-Xptxas -v`` reports,
-         and the card's name and power limit.
+         among them); print the build times, what ``-Xptxas -v`` reports
+         (for flash attention each instance's registers and spills, and any
+         serialized-wgmma note), and the card's name and power limit.
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
          card, at the serving path's shapes and a few variants; max |error|
          against a stated tolerance; CUDA-event times of both beside the
@@ -91,8 +92,10 @@ Phase 12 the flash-attention kernel against its plain version: a feature
          bf16 within one ulp of each (batch, head) slice's largest
          magnitude, f32 within 2e-5 of max |plain|; CUDA-event times of the
          kernel and the plain version at the model shapes, and of
-         ``F.scaled_dot_product_attention`` (the library call) where it
-         computes the same function without the softcap, beside the bound.
+         ``F.scaled_dot_product_attention`` (the library call) beside the
+         kernel's where it computes the same function without the softcap;
+         the bound, the achieved TFLOP/s and the share of the bf16
+         tensor-core bound.  (bf16 runs the wgmma kernel, f32 the FFMA one.)
 Phase 13 the LM training path: gemma2-2b at full width and depth
          (2,614,222,080 f32 params) through ``compile_run`` and ``Run.fit``,
          AdamW, 4 steps of batch 2 x 1024 tokens of the seeded
@@ -1869,9 +1872,12 @@ def phase11(card):
 # ---------------------------------------------------------------------------
 # phase 12: flash attention, kernel vs plain, and its times
 # ---------------------------------------------------------------------------
-# bf16: one bf16 ulp at the largest |plain| of each (batch, head) slice; both
-# sides widen the same bf16 values exactly, compute in f32 and round once,
-# so they part only where the f32 values straddle a rounding boundary.
+# bf16: one bf16 ulp at the largest |plain| of each (batch, head) slice.
+# The plain version widens bf16 to f32 and rounds once; the bf16 kernel sums
+# exact bf16 products in f32 on the tensor cores and also rounds each tile's
+# P to bf16 before P V, which moves an output by far less than an ulp of the
+# slice's largest value (tests/test_torch_flash_numerics.py emulates it), so
+# the two part where an f32 value straddles a rounding boundary.
 # f32: 2e-5 of max |plain|; the two sum the same f32 products (at most D =
 # 256 a score, Skv a row) in different orders.
 FLASH_F32_TOL = 2e-5
@@ -1979,12 +1985,15 @@ def phase12(dev, card):
                                                                 **kw), 1, 3)
         bound_ms, bound_by, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True,
                                                  window, 2)
+        tflops = 4 * B * Hq * D * flash_live_pairs(S, S, True, window) \
+            / (ms * 1e-3) / 1e12
         line = (f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, window "
                 f"{window}, softcap {softcap}, bf16: max|kernel - plain| "
                 f"{err} (error / tolerance {r}); kernel {ms} ms, plain "
                 f"{plain_ms} ms; bound {bound_ms} ms ({bound_by}), at the "
                 f"f32 FFMA peak {f32_ms} ms; kernel / bound {ms / bound_ms}, "
-                f"kernel / f32 bound {ms / f32_ms}")
+                f"kernel / f32 bound {ms / f32_ms}; {tflops} TFLOP/s, "
+                f"{bound_ms / ms} of the bf16 tensor-core bound")
         library_ms = None
         if window == 0:
             # SDPA has no softcap: time it, and the kernel, without one
@@ -1996,10 +2005,10 @@ def phase12(dev, card):
                 qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
             d_sdpa = (sdpa.float() - kflash.flash_attention(q, k, v).float()
                       ).abs().max().item()
-            line += (f"; without the softcap: kernel {bare_ms} ms, "
-                     f"F.scaled_dot_product_attention {library_ms} ms "
-                     f"(max|kernel - SDPA| {d_sdpa}), kernel / SDPA "
-                     f"{bare_ms / library_ms}")
+            line += (f"; without the softcap, side by side: kernel "
+                     f"{bare_ms} ms, F.scaled_dot_product_attention "
+                     f"{library_ms} ms (max|kernel - SDPA| {d_sdpa}), "
+                     f"kernel / SDPA {bare_ms / library_ms}")
             del sdpa
         print(line + f" [{card}]")
         if row is None:   # the training path's global layer: the JSON row
@@ -2017,9 +2026,9 @@ def phase12(dev, card):
 # phase 13: gemma2-2b trains at full width and depth
 # ---------------------------------------------------------------------------
 # Kernel route vs plain route from the same params and batch.  The two
-# attention forwards differ by f32 sum order, so a bf16 output now and then
-# rounds one ulp apart (phase 12), in each of 26 layers, carried through
-# bf16 activations: the loss to a relative 1e-3 (the CPU tests' bound
+# attention forwards differ by f32 sum order and the kernel's bf16 P, so a
+# bf16 output now and then rounds one ulp apart (phase 12), in each of 26
+# layers, carried through bf16 activations: the loss to a relative 1e-3 (the CPU tests' bound
 # against the reference, where such flips measured 1.2e-4).  The gradients
 # of a bf16 network move with any such flip: on the CPU a one-ulp change
 # of the embedding moves every leaf by ~1e-2 relative L2.  So, as phase 4
@@ -2093,12 +2102,16 @@ def phase13(card):
     # where one step's time goes (CUDA events, 3 reps, median)
     batch = next(run.data)
     leaves = tree_leaves(run.params)
-    split = {"forward": [], "backward": [], "step": []}
+    split = {"forward": [], "backward": [], "step": [], "enqueue": []}
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
+        h0 = time.perf_counter()
         loss = run.loss_fn(run.params, batch)
         ev[1].record()
+        # the host's time to issue the forward: where it is about the
+        # forward's device time, the card waits on the host
+        split["enqueue"].append((time.perf_counter() - h0) * 1e3)
         grads = torch.autograd.grad(loss, leaves)
         ev[2].record()
         del loss, grads
@@ -2114,7 +2127,8 @@ def phase13(card):
           f"forward alone {fwd} ms ({n_attn} kernel attentions), backward "
           f"alone {bwd} ms (attention_ref's gradient recomputed per layer), "
           f"so gradient norm, clipping and the AdamW update about "
-          f"{step - fwd - bwd} ms [{card}]")
+          f"{step - fwd - bwd} ms; the host issued the forward in "
+          f"{float(np.median(split['enqueue']))} ms [{card}]")
     run.close()
     run.opt_state = None     # free AdamW's moments before the route check
     del leaves
@@ -2308,6 +2322,28 @@ def _leaves(tree):
         yield tree
 
 
+def flash_build_lines(log):
+    """One line per compiled flash instance from ``-Xptxas -v``: which
+    kernel and head dim, its registers and its spills; and every note of a
+    performance loss (serialized wgmma) ptxas printed."""
+    import re
+    out, inst = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            tc = re.search(r"flash_tc_kernelILi(\d+)E", m.group(1))
+            ffma = re.search(r"flash_kernelIfLi(\d+)E", m.group(1))
+            inst = (f"bf16 wgmma D {tc.group(1)}" if tc else
+                    f"f32 FFMA D {ffma.group(1)}" if ffma else m.group(1))
+        elif "spill" in line and inst:
+            out.append(f"{inst}: {line.strip()}")
+        elif "Used" in line and "registers" in line and inst:
+            out[-1] += f"; {line.split(':', 1)[1].strip()}"
+        elif "Performance Loss" in line:
+            out.append(line.strip())
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device visible", file=sys.stderr)
@@ -2330,6 +2366,10 @@ def main() -> int:
     print(f"phase 0: built {', '.join(f'{n} in {secs[n]:.2f} s' for n in names)}"
           f", all in {time.perf_counter() - t0:.2f} s")
     for name in names:
+        if name == "flash_attention":
+            for line in flash_build_lines(build.BUILD_LOG.get(name, "")):
+                print(f"  {name}: {line}")
+            continue
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")

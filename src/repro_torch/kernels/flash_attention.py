@@ -5,8 +5,9 @@ Port of ``repro.kernels.flash_attention.flash_attention``: causal,
 sliding-window, logit-softcapped GQA attention with an online softmax over
 KV blocks, so the (Sq, Skv) score matrix is never stored.  q: (B, Sq, Hq,
 D); k, v: (B, Skv, Hkv, D); bf16 or f32 in (one type for all three), q's
-type out, f32 inside.  The CUDA source, ``csrc/flash_attention.cu``, states
-its design and its bound.  Unlike the TPU kernel it takes any Sq and Skv:
+type out, f32 inside.  bf16 runs on the tensor cores (wgmma, K and V fed by
+TMA), f32 on an FFMA kernel; the CUDA source, ``csrc/flash_attention.cu``,
+states both designs and the bound.  Unlike the TPU kernel it takes any Sq and Skv:
 it masks its ragged edges (the reference sends such shapes to
 ``attention_ref``).
 
@@ -145,6 +146,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Skv, Hkv = k.shape[1], k.shape[2]
     if Hq > _MAX_GRID_Y or B > _MAX_GRID_Y:
         raise ValueError(f"B {B} or Hq {Hq} exceeds the kernel's grid")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the bf16 kernel loads q, k and v by TMA, which "
+                         "needs 16-byte-aligned tensors")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

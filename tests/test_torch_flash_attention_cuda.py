@@ -7,7 +7,12 @@ tests/test_torch_*_cuda.py``.
 
 Shapes: every compiled head_dim (32, 64, 128, 256), GQA groups 1, 2 and 4,
 Sq = 1, a multiple of the 64-row q tile and ragged, Skv = Sq and Sq + 64
-(right-aligned queries), causal and not, windows and the softcap.
+(right-aligned queries), causal and not, windows and the softcap; for the
+bf16 kernel also Skv = 1024 under a 200-key window (its K/V ring of 3-4
+stages wraps several times, and windowed tiles are skipped between live
+ones), Sq = 130 (no multiple of its 64- or 128-row q tile), the four model
+shapes of chip_smoke.py's phase 12, and a 16-byte-misaligned view, which
+TMA cannot load and the wrapper refuses.
 Tolerances: bf16 output, one bf16 ulp at the largest magnitude of each
 (batch, head) slice (both sides compute in f32 and round once); f32
 output, 2e-5 of the largest magnitude (f32 sums in different orders).
@@ -76,6 +81,50 @@ def test_kernel_at_gemma2_training_shape(cuda, window):
     kw = dict(causal=True, window=window, logit_softcap=50.0)
     _assert_agree(fa.flash_attention(q, k, v, **kw),
                   fa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("Sq", [1, 130, 1024])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (True, 50.0),
+                                            (False, 0.0)])
+def test_bf16_kernel_over_a_long_windowed_kv(cuda, D, Sq, causal, softcap):
+    q, k, v = _inputs(cuda, torch.bfloat16, 2, Sq, 1024, 8, 4, D, Sq + D)
+    kw = dict(causal=causal, window=200, logit_softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap", [
+    (2, 1024, 8, 4, 256, 0, 50.0),      # gemma2-2b global layer
+    (2, 1024, 8, 4, 256, 4096, 50.0),   # its local layer
+    (1, 8192, 8, 4, 256, 4096, 50.0),   # its local layer at S 8192
+    (1, 2048, 32, 8, 128, 0, 0.0)])     # llama3-8b
+def test_bf16_kernel_at_the_model_shapes(cuda, B, S, Hq, Hkv, D, window,
+                                         softcap):
+    q, k, v = _inputs(cuda, torch.bfloat16, B, S, S, Hq, Hkv, D, S + D)
+    kw = dict(causal=True, window=window, logit_softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_raises_on_a_misaligned_bf16_tensor(cuda, which):
+    q, k, v = _inputs(cuda, torch.bfloat16, 1, 64, 64, 4, 2, 64)
+    t = dict(q=q, k=k, v=v)
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    view = buf[1:1 + t[which].numel()].view(t[which].shape)
+    view.copy_(t[which])
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    t[which] = view
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(t["q"], t["k"], t["v"])
+    assert fa.launches == before
 
 
 def test_attention_forward_is_the_kernel_and_backward_the_ref(cuda):
