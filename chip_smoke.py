@@ -7,8 +7,10 @@ and fails (non-zero exit, no result line) when any phase fails:
 Phase 0  build every kernel of the ported paths from ``src/repro_torch``
          (one nvcc per source, all at once, the flash-attention source
          among them); print the build times, what ``-Xptxas -v`` reports
-         (for flash attention each instance's registers and spills, and any
-         serialized-wgmma note), and the card's name and power limit.
+         (each instance's registers and spills, and every ptxas warning, a
+         serialized-wgmma note among them: the GEMM's and the conv's
+         3xTF32 wgmma instances must show neither a spill nor a warning),
+         and the card's name and power limit.
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
          card, at the serving path's shapes and a few variants; max |error|
          against a stated tolerance; CUDA-event times of both beside the
@@ -23,7 +25,8 @@ Phase 2  the serving path: llama3-8b at full width and depth with random
 Phase 3  the direct-conv kernel against its plain version, f32 with TF32
          off, at every conv layer of VGG-A and OverFeat-FAST at batch 64;
          CUDA-event times of the kernel, the plain version, ``F.conv2d``
-         (the library call) and the reference backward, beside the bound.
+         (the library call) and the reference backward, beside two bounds:
+         the kernel's own (3xTF32 on the tensor cores) and the FFMA one.
 Phase 4  the training path: full-width VGG-A through ``compile_run`` and
          ``Run.fit`` for 6 steps of batch 64 with every forward conv on the
          kernel.  Launch counts are zeroed just before ``fit`` and read just
@@ -72,7 +75,8 @@ Phase 10 the blocked-GEMM kernel against its plain version, f32 with TF32
          reference's test shapes, f32 and bf16 inputs, at the solver's tile
          and every compiled tile; CUDA-event times of the kernel, the plain
          version and ``torch.matmul`` (the library call) per CD-DNN shape
-         and summed over one forward's 8 layers, beside the bound.
+         and summed over one forward's 8 layers, beside two bounds: the
+         kernel's own (3xTF32 on the tensor cores) and the FFMA one.
 Phase 11 the CD-DNN path: full-width CD-DNN through ``compile_run`` and
          ``Run.fit``, every forward product on the kernel, 6 steps of batch
          1024 serially and then with ``parallel="zero1"``, G = 4 members on
@@ -144,8 +148,10 @@ from repro_torch.configs.base import H100_SXM  # noqa: E402
 REL_L2_TOL = 0.025             # kernel vs gather decode logits, phase 2
 # phase 3: max |kernel - plain| over max |plain| of a conv layer.  Each
 # output is an f32 sum of up to K*K*IFM = 9216 products, which the kernel
-# and cuBLAS take in different orders; with unit-scale inputs their
-# rounding differs by a few 1e-6 of the output's scale.
+# (as three TF32 products each, promoted to an f32 sum every 32 of the
+# depth) and cuBLAS take in different orders; with unit-scale inputs their
+# rounding differs by a few 1e-6 of the output's scale
+# (tests/test_torch_tf32x3_numerics.py emulates the kernel's).
 CONV_REL_TOL = 2e-5
 # phase 4: kernel route vs plain route from the same params and batch.  The
 # forward convs differ by rounding (above) in each of 8 layers, carried
@@ -483,14 +489,18 @@ def conv_layer_shapes(cfg):
 
 
 def conv_bound(N, H, C, F, K, s, p):
-    """Least time of one call on an H100 SXM: x, w and out moved once at
-    3.35 TB/s, or 2 N OH OW F K K C operations at the f32 peak of 67
-    TFLOP/s, whichever is longer.  Returns (ms, t_bytes, t_ops)."""
+    """Least time of one call on an H100 SXM, in ms: x, w and out moved once
+    at 3.35 TB/s, or the kernel's 3 x 2 N OH OW F K K C tf32 operations
+    (3xTF32) at the dense TF32 tensor-core peak, whichever is longer.
+    Returns (ms, t_bytes, t_ops, FFMA ms), the last the bound with the
+    2 N OH OW F K K C operations at the f32 peak of 67 TFLOP/s outside the
+    tensor cores (the ceiling of an FFMA kernel)."""
     OH = (H + 2 * p - K) // s + 1
     nbytes = 4 * (N * H * H * C + K * K * C * F + N * OH * OH * F)
     ops = 2 * N * OH * OH * F * K * K * C
-    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, ops / H100_SXM.peak_flops
-    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, 3 * ops / H100_TF32_TC_FLOPS
+    ffma = max(t_bytes, ops / H100_SXM.peak_flops)
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3, ffma * 1e3
 
 
 def phase3(dev, card):
@@ -506,7 +516,7 @@ def phase3(dev, card):
           f"{CONV_REL_TOL} x max|plain| per layer; CUDA-event medians of 20 "
           f"calls after 3 warm-up [{card}]")
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "t_bytes": 0.0, "t_ops": 0.0, "bwd_ms": 0.0}
+              "t_bytes": 0.0, "t_ops": 0.0, "ffma_ms": 0.0, "bwd_ms": 0.0}
     worst = 0.0
     for arch in ("vgg-a", "overfeat-fast"):
         for j, (name, H, C, Fo, K, s, p) in enumerate(
@@ -538,25 +548,36 @@ def phase3(dev, card):
                 "bwd_ms": cuda_ms(lambda: kconv.conv2d_ref_backward(
                     x, w, g, s, p), 3, 20),
             }
-            bound_ms, t_bytes, t_ops = conv_bound(N, H, C, Fo, K, s, p)
+            bound_ms, t_bytes, t_ops, ffma_ms = conv_bound(N, H, C, Fo, K, s,
+                                                           p)
             print(f"  {name}: {H}x{H}x{C} -> {Fo}, {K}x{K} s{s} p{p}: "
                   f"max|kernel - plain| {err} (max|plain| {scale}); kernel "
                   f"{t['ms']} ms, plain {t['plain_ms']} ms, F.conv2d "
-                  f"{t['library_ms']} ms, reference backward (input + "
-                  f"weight grads) {t['bwd_ms']} ms; bound {bound_ms} ms ("
-                  f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
-                  f"bytes {t_bytes} ms, operations {t_ops} ms) [{card}]")
+                  f"{t['library_ms']} ms (kernel / F.conv2d "
+                  f"{t['ms'] / t['library_ms']}), reference backward (input "
+                  f"+ weight grads) {t['bwd_ms']} ms; 3xTF32 bound {bound_ms} "
+                  f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+                  f"bytes {t_bytes} ms, tensor-core operations {t_ops} ms), "
+                  f"kernel / bound {t['ms'] / bound_ms}; FFMA bound "
+                  f"{ffma_ms} ms, kernel / FFMA bound {t['ms'] / ffma_ms} "
+                  f"[{card}]")
             if arch == "vgg-a":     # the training path's shapes
                 for k in t:
                     totals[k] += t[k]
                 totals["bound_ms"] += bound_ms
                 totals["t_bytes"] += t_bytes
                 totals["t_ops"] += t_ops
+                totals["ffma_ms"] += ffma_ms
             del x, w, xn, wn, g
     print(f"  VGG-A's 8 conv layers at batch {N}, one forward pass: kernel "
           f"{totals['ms']} ms, plain {totals['plain_ms']} ms, F.conv2d "
-          f"{totals['library_ms']} ms, bound {totals['bound_ms']} ms; "
-          f"reference backward {totals['bwd_ms']} ms [{card}]")
+          f"{totals['library_ms']} ms (kernel / F.conv2d "
+          f"{totals['ms'] / totals['library_ms']}), 3xTF32 bound "
+          f"{totals['bound_ms']} ms (kernel / bound "
+          f"{totals['ms'] / totals['bound_ms']}), FFMA bound "
+          f"{totals['ffma_ms']} ms (kernel / FFMA bound "
+          f"{totals['ms'] / totals['ffma_ms']}); reference backward "
+          f"{totals['bwd_ms']} ms [{card}]")
     return {"name": "conv2d_nhwc", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/conv2d.cu",
             "replaces": "src/repro/kernels/conv2d.py:85",
@@ -1521,9 +1542,10 @@ def phase9(card, fmt, ratio=TOPK_RATIO):
 # ---------------------------------------------------------------------------
 # max |kernel - plain| over max |plain| of a product.  Each output is an f32
 # sum of up to K = 2048 products (2048 of the ragged shapes), which the
-# kernel and cuBLAS take in different orders; with unit-scale inputs their
-# rounding differs by a few 1e-6 of the output's scale (the conv's 4.2e-6 at
-# K = 9216).  bf16 inputs are widened exactly on both sides.
+# kernel (f32 inputs as three TF32 products each) and cuBLAS take in
+# different orders; with unit-scale inputs their rounding differs by a few
+# 1e-6 of the output's scale (the conv's 4.2e-6 at K = 9216).  bf16 inputs
+# are widened exactly on both sides.
 GEMM_REL_TOL = 2e-5
 DNN_BATCH = 1024                # frames a minibatch (fig7_cddnn_scaling.py)
 GEMM_TILES = (None, (64, 64), (64, 128), (128, 64), (128, 128))
@@ -1541,14 +1563,18 @@ def dnn_layer_shapes(cfg, batch):
     return [(batch, n, k) for k, n in zip(dims[:-1], dims[1:])]
 
 
-def gemm_bound(M, N, K, itemsize=4):
-    """Least time of one call on an H100 SXM: A and B read once, C written
-    once (f32), or 2 M N K operations at the f32 peak, whichever is longer.
-    Returns (ms, t_bytes ms, t_ops ms)."""
-    nbytes = itemsize * (M * K + K * N) + 4 * M * N
+def gemm_bound(M, N, K):
+    """Least time of one f32 call on an H100 SXM, in ms: A and B read once,
+    C written once, or the kernel's 3 x 2 M N K tf32 operations (3xTF32) at
+    the dense TF32 tensor-core peak, whichever is longer.  Returns (ms,
+    t_bytes, t_ops, FFMA ms), the last the bound with the 2 M N K operations
+    at the f32 peak of 67 TFLOP/s outside the tensor cores (the ceiling of an
+    FFMA kernel)."""
+    nbytes = 4 * (M * K + K * N + M * N)
     ops = 2 * M * N * K
-    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, ops / H100_SXM.peak_flops
-    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+    t_bytes, t_ops = nbytes / H100_SXM.mem_bw, 3 * ops / H100_TF32_TC_FLOPS
+    ffma = max(t_bytes, ops / H100_SXM.peak_flops)
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3, ffma * 1e3
 
 
 def phase10(dev, card):
@@ -1602,25 +1628,30 @@ def phase10(dev, card):
              "plain_ms": cuda_ms(lambda: kmm.blocked_matmul_plain(a, b), 3,
                                  20),
              "library_ms": cuda_ms(lambda: torch.matmul(a, b), 3, 20)}
-        t["bound_ms"], t_bytes, t_ops = gemm_bound(M, N, K)
+        t["bound_ms"], t_bytes, t_ops, t["ffma_ms"] = gemm_bound(M, N, K)
         t["t_bytes"], t["t_ops"] = t_bytes, t_ops
         times[(M, N, K)] = t
         print(f"  ({M} x {K}) @ ({K} x {N}), f32: solver tile bm={blk.bm} "
               f"bn={blk.bn} bk={blk.bk} (B/F {blk.bf_ratio}); kernel "
               f"{t['ms']} ms, plain {t['plain_ms']} ms, torch.matmul "
-              f"{t['library_ms']} ms; bound {t['bound_ms']} ms ("
+              f"{t['library_ms']} ms; 3xTF32 bound {t['bound_ms']} ms ("
               f"{'bytes' if t_bytes >= t_ops else 'operations'}; bytes "
-              f"{t_bytes} ms, operations {t_ops} ms); kernel / bound "
-              f"{t['ms'] / t['bound_ms']}, kernel / torch.matmul "
-              f"{t['ms'] / t['library_ms']} [{card}]")
+              f"{t_bytes} ms, tensor-core operations {t_ops} ms); kernel / "
+              f"bound {t['ms'] / t['bound_ms']}, FFMA bound {t['ffma_ms']} "
+              f"ms, kernel / FFMA bound {t['ms'] / t['ffma_ms']}, kernel / "
+              f"torch.matmul {t['ms'] / t['library_ms']} [{card}]")
         del a, b
     total = {k: sum(times[s][k] for s in layers)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes",
-                       "t_ops")}
+                       "t_ops", "ffma_ms")}
     print(f"  CD-DNN's {len(layers)} forward products at batch {DNN_BATCH}, "
           f"one forward pass: kernel {total['ms']} ms, plain "
-          f"{total['plain_ms']} ms, torch.matmul {total['library_ms']} ms, "
-          f"bound {total['bound_ms']} ms [{card}]")
+          f"{total['plain_ms']} ms, torch.matmul {total['library_ms']} ms "
+          f"(kernel / torch.matmul {total['ms'] / total['library_ms']}), "
+          f"3xTF32 bound {total['bound_ms']} ms (kernel / bound "
+          f"{total['ms'] / total['bound_ms']}), FFMA bound "
+          f"{total['ffma_ms']} ms (kernel / FFMA bound "
+          f"{total['ms'] / total['ffma_ms']}) [{card}]")
     return {"name": "blocked_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/blocked_matmul.cu",
             "replaces": "src/repro/kernels/blocked_matmul.py:60",
@@ -1882,6 +1913,7 @@ def phase11(card):
 # 256 a score, Skv a row) in different orders.
 FLASH_F32_TOL = 2e-5
 H100_BF16_TC_FLOPS = 989e12    # data sheet, dense bf16 tensor cores
+H100_TF32_TC_FLOPS = 494.7e12  # data sheet, dense TF32 tensor cores
 FLASH_GRID = dict(Sq=(1, 64, 200, 256), extra=(0, 64),
                   heads=((4, 4), (8, 4), (32, 8)), D=(32, 64, 128, 256),
                   causal=(True, False), window=(0, 48), softcap=(0.0, 50.0),
@@ -2322,24 +2354,39 @@ def _leaves(tree):
         yield tree
 
 
-def flash_build_lines(log):
-    """One line per compiled flash instance from ``-Xptxas -v``: which
-    kernel and head dim, its registers and its spills; and every note of a
-    performance loss (serialized wgmma) ptxas printed."""
+def instance_name(entry):
+    """A compiled kernel instance's name for the build lines, from its
+    mangled entry: the flash kernels' head dim, the GEMM's input type and
+    tile, the conv's tile."""
+    import re
+    if m := re.search(r"flash_tc_kernelILi(\d+)E", entry):
+        return f"bf16 wgmma D {m.group(1)}"
+    if m := re.search(r"flash_kernelIfLi(\d+)E", entry):
+        return f"f32 FFMA D {m.group(1)}"
+    if m := re.search(r"blocked_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)ELi"
+                      r"(\d+)E", entry):
+        kind = "f32 3xTF32" if m.group(1) == "f" else "bf16"
+        return f"{kind} wgmma {m.group(2)} x {m.group(3)}"
+    if m := re.search(r"conv2d_nhwc_kernelILi(\d+)E", entry):
+        return f"f32 3xTF32 wgmma 128 x {m.group(1)}"
+    return entry
+
+
+def build_lines(log):
+    """One line per compiled instance from ``-Xptxas -v``: its name, its
+    spills and its registers; and every ptxas warning in full (a
+    serialized-wgmma note among them)."""
     import re
     out, inst = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            tc = re.search(r"flash_tc_kernelILi(\d+)E", m.group(1))
-            ffma = re.search(r"flash_kernelIfLi(\d+)E", m.group(1))
-            inst = (f"bf16 wgmma D {tc.group(1)}" if tc else
-                    f"f32 FFMA D {ffma.group(1)}" if ffma else m.group(1))
+            inst = instance_name(m.group(1))
         elif "spill" in line and inst:
             out.append(f"{inst}: {line.strip()}")
         elif "Used" in line and "registers" in line and inst:
             out[-1] += f"; {line.split(':', 1)[1].strip()}"
-        elif "Performance Loss" in line:
+        elif "warning" in line or "Performance Loss" in line:
             out.append(line.strip())
     return out
 
@@ -2366,13 +2413,14 @@ def main() -> int:
     print(f"phase 0: built {', '.join(f'{n} in {secs[n]:.2f} s' for n in names)}"
           f", all in {time.perf_counter() - t0:.2f} s")
     for name in names:
-        if name == "flash_attention":
-            for line in flash_build_lines(build.BUILD_LOG.get(name, "")):
-                print(f"  {name}: {line}")
-            continue
-        for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        lines = build_lines(build.BUILD_LOG.get(name, ""))
+        for line in lines:
+            print(f"  {name}: {line}")
+        if name in ("blocked_matmul", "conv2d"):   # the 3xTF32 wgmma kernels
+            check(not any("warning" in x or "Performance Loss" in x or
+                          (" 0 bytes spill stores" not in x and "spill" in x)
+                          for x in lines),
+                  f"{name}: ptxas spilled or serialized the wgmmas")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 

@@ -5,8 +5,10 @@ Port of ``repro.kernels.blocked_matmul.blocked_matmul``: C[M,N] = A[M,K] @
 B[K,N] for f32 or bf16 A and B (the same type), f32 result, f32
 accumulation, tiles from the paper's §2.2 blocking search
 (``core.blocking.solve_h100_gemm_blocking``).  The CUDA source,
-``csrc/blocked_matmul.cu``, states its design and its bound.  Unlike the
-TPU kernel it takes any M, N and K: it masks its ragged edges.
+``csrc/blocked_matmul.cu``, states its design and its bound: it runs on the
+tensor cores, f32 inputs as 3xTF32 (``csrc/gemm_tf32x3.cuh``, the mainloop
+it shares with the conv), bf16 inputs as bf16 products.  Unlike the TPU
+kernel it takes any M, N and K: it masks its ragged edges.
 
 :func:`blocked_matmul` is the wrapper: on CPU tensors it computes the plain
 version (that is how the CPU tests run it); on CUDA tensors it launches the
@@ -23,6 +25,7 @@ the backward runs PyTorch's own (cuBLAS on the card).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -60,6 +63,15 @@ def kernel_tile(blocking: GemmBlocking, M: int, N: int, K: int
     return (pick(blocking.bm, M, H100_GEMM_TILES_MN, "bm"),
             pick(blocking.bn, N, H100_GEMM_TILES_MN, "bn"),
             pick(blocking.bk, K, (H100_GEMM_TILE_K,), "bk"))
+
+
+@functools.lru_cache(maxsize=None)
+def _solver_tile(M: int, N: int, K: int, size_data: int) -> GemmBlocking:
+    """The §2.2 search's choice under the H100 preset, searched once per
+    shape: a training step asks for the same few shapes every step, and on
+    the host the search costs about as much as the kernel takes on the card
+    at CD-DNN's first layer."""
+    return solve_h100_gemm_blocking(M, N, K, size_data=size_data)
 
 
 def blocked_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -102,8 +114,7 @@ def blocked_matmul(a: torch.Tensor, b: torch.Tensor, *,
     _check(a, b)
     (M, K), N = a.shape, b.shape[1]
     if blocking is None:
-        blocking = solve_h100_gemm_blocking(M, N, K,
-                                            size_data=a.element_size())
+        blocking = _solver_tile(M, N, K, a.element_size())
     bm, bn, bk = kernel_tile(blocking, M, N, K)
     if a.device.type == "cpu":
         return blocked_matmul_plain(a, b, bk=bk)

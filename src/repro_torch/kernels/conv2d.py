@@ -3,7 +3,9 @@ its autograd wrapper.
 
 Port of ``repro.kernels.conv2d.conv2d_nhwc``: x (N, H, W, IFM) and HWIO
 weights w (K, K, IFM, OFM), stride and symmetric zero padding, f32 in and
-out.  The CUDA source, ``csrc/conv2d.cu``, states its design and its bound.
+out.  The CUDA source, ``csrc/conv2d.cu``, states its design and its bound:
+an implicit GEMM on the tensor cores in 3xTF32, on the mainloop it shares
+with the blocked GEMM (``csrc/gemm_tf32x3.cuh``).
 
 :func:`conv2d_nhwc` is the wrapper: on CPU tensors it computes the plain
 version (that is how the CPU tests run it); on CUDA tensors it launches the

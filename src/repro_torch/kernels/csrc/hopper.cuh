@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// wgmma descriptors and the few wgmma shapes the port's kernels issue, and
-// register hand-over between warpgroups (setmaxnreg).
+// wgmma descriptors and the few wgmma shapes the port's kernels issue (bf16,
+// and tf32 with its rounding), and register hand-over between warpgroups
+// (setmaxnreg).
 //
 // Shared-memory operand layouts are the ones TMA writes with a 64- or
 // 128-byte swizzle: rows of R bytes (R = 64 or 128), eight rows an atom of
@@ -167,10 +168,70 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(OB));
 }
 
+// The products of the blocked GEMM and the direct conv (gemm_tf32x3.cuh):
+// d (64 x N, f32) += A (64 x K, K-major in shared memory)
+//                  . B (K x N, K-major in shared memory),
+// K = 8 tf32 (f32 bits of which the instruction reads the top 19) or 16
+// bf16, N = 32, 64 or 128; the product is added to d where accumulate != 0,
+// else it overwrites d.
+#define HK_R64                                                                              \
+  HK_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+// operands after the accumulator: descriptors a, b, accumulate, OA, OB
+#define HK_WGMMA_SS(SHAPE, TYPES, TAIL, RLIST, A, B, ACC, OA, OB)                              \
+  asm volatile("{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %" ACC ", 0;\n"          \
+               "add.s64 da, %" A ", %" OA ";\nadd.s64 db, %" B ", %" OB ";\n"                   \
+               "wgmma.mma_async.sync.aligned." SHAPE "." TYPES " {" RLIST "}, da, db, p, 1, 1" \
+               TAIL ";\n}\n"
+
+template <int N, bool TF32, int OA, int OB>
+__device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "no such shape");
+  // tf32 takes no transpose operands; bf16 takes two, both 0 (K-major)
+  if constexpr (N == 32 && TF32) {
+    HK_WGMMA_SS("m64n32k8", "f32.tf32.tf32", "", HK_R16, "16", "17", "18", "19", "20")
+        : HK_F16(d, 0) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else if constexpr (N == 32) {
+    HK_WGMMA_SS("m64n32k16", "f32.bf16.bf16", ", 0, 0", HK_R16, "16", "17", "18", "19", "20")
+        : HK_F16(d, 0) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else if constexpr (N == 64 && TF32) {
+    HK_WGMMA_SS("m64n64k8", "f32.tf32.tf32", "", HK_R32, "32", "33", "34", "35", "36")
+        : HK_F16(d, 0), HK_F16(d, 16) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else if constexpr (N == 64) {
+    HK_WGMMA_SS("m64n64k16", "f32.bf16.bf16", ", 0, 0", HK_R32, "32", "33", "34", "35", "36")
+        : HK_F16(d, 0), HK_F16(d, 16) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else if constexpr (TF32) {
+    HK_WGMMA_SS("m64n128k8", "f32.tf32.tf32", "", HK_R64, "64", "65", "66", "67", "68")
+        : HK_F16(d, 0), HK_F16(d, 16), HK_F16(d, 32), HK_F16(d, 48)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else {
+    HK_WGMMA_SS("m64n128k16", "f32.bf16.bf16", ", 0, 0", HK_R64, "64", "65", "66", "67", "68")
+        : HK_F16(d, 0), HK_F16(d, 16), HK_F16(d, 32), HK_F16(d, 48)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  }
+}
+
+#undef HK_WGMMA_SS
+#undef HK_R64
 #undef HK_F4
 #undef HK_F16
 #undef HK_R16
 #undef HK_R32
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero):
+// the f32 bits a tf32 wgmma reads, with the 13 it ignores zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (a wgmma's operand fetch)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // two floats as one bf16x2 register, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

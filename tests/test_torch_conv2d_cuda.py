@@ -7,10 +7,15 @@ Run on the card with
 
 TF32 is off for cuDNN and matmul, so every side computes in f32.  Shapes:
 three VGG-A layers (conv1, the first 256 -> 256 layer, the last 512 -> 512
-layer) at batch 2, and OverFeat-FAST conv1 (11x11, stride 4) at batch 4.
-Tolerance: 2e-5 of the layer's max |plain| — each output is an f32 sum of
-up to K*K*IFM = 4608 products taken in another order by each side; the
-rounding of such a sum is a few 1e-6 of the output's scale.
+layer) at batch 2, and OverFeat-FAST conv1 (11x11, stride 4) at batch 4;
+ragged shapes; and the edges of the tensor-core mainloop
+(``csrc/gemm_tf32x3.cuh``): C % 4 != 0 (one copy a tap), C % 4 == 0 with
+K*K*C no multiple of a 16-deep stage, K*K*C under one stage, F = 96 and
+F = 130 on the 64- and 128-wide tiles, stride 4, and x that starts off 16
+bytes.  Tolerance: 2e-5 of the layer's max |plain| — each output is an f32
+sum of up to K*K*IFM = 4608 products (the kernel's as three TF32 products
+each) taken in another order by each side; the rounding of such a sum is a
+few 1e-6 of the output's scale.
 """
 import numpy as np
 import pytest
@@ -73,6 +78,35 @@ def test_ragged_shapes(cuda, N, H, C, F, K, s, p):
     x, w = _inputs(cuda, N, H, C, F, K, seed=C)
     got = kconv.conv2d_nhwc(x, w, stride=s, padding=p)
     want = kconv.conv2d_nhwc_plain(x, w, stride=s, padding=p)
+    assert (got - want).abs().max().item() \
+        <= REL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("N,H,C,F,K,s,p", [(2, 20, 4, 96, 3, 1, 1),
+                                           (2, 31, 64, 96, 11, 4, 0),
+                                           (1, 16, 3, 130, 3, 2, 1),
+                                           (3, 9, 8, 64, 1, 1, 0),
+                                           (1, 7, 2, 5, 2, 1, 1),
+                                           (2, 12, 12, 27, 3, 1, 1)])
+def test_kernel_at_the_mainloops_edges(cuda, N, H, C, F, K, s, p):
+    x, w = _inputs(cuda, N, H, C, F, K, seed=C * F)
+    got = kconv.conv2d_nhwc(x, w, stride=s, padding=p)
+    want = kconv.conv2d_nhwc_plain(x, w, stride=s, padding=p)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() \
+        <= REL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("F", [64, 128])
+def test_kernel_on_storage_not_16_byte_aligned(cuda, F):
+    """C % 4 == 0, but x starting one element past an aligned address:
+    every tap is copied on its own."""
+    x, w = _inputs(cuda, 2, 14, 64, F, 3, seed=F)
+    shifted = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = kconv.conv2d_nhwc(shifted, w, stride=1, padding=1)
+    want = kconv.conv2d_nhwc_plain(x, w, stride=1, padding=1)
     assert (got - want).abs().max().item() \
         <= REL_TOL * want.abs().max().item()
 

@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _gloo_ranks import run_ranks  # noqa: E402
 from repro.optim.adamw import AdamWState as JAdamWState  # noqa: E402
 from repro.optim.sgd import SgdState as JSgdState  # noqa: E402
 from repro_torch.api import MeshSpec, RunSpec, compile_run  # noqa: E402
@@ -349,22 +350,7 @@ def _gloo_run(world, tmp_path, xs):
     np.savez(tmp_path / "inputs.npz", **xs, **{
         f"{name}/{k}": v for name, t in
         (("p", PARAMS), ("g1", GRADS1), ("g2", GRADS2)) for k, v in t.items()})
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    init = str(tmp_path / "init")
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r),
-                               str(world), init, str(tmp_path)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+    run_ranks(WORKER, world, tmp_path, SRC)
     out = []
     for r in range(world):
         with np.load(tmp_path / f"rank{r}.npz") as z:
