@@ -37,15 +37,18 @@ Phase 4  the training path: full-width VGG-A through ``compile_run`` and
 Phase 5  the three ring kernels (``ring_reduce_scatter``, ``ring_all_gather``,
          ``ring_hop_accum``) against their plain versions, bitwise, at G in
          {1, 2, 3, 4, 8} and strips of 1 to 2^20 + 3 elements, f32 and bf16,
-         16-byte-aligned and unaligned rows and a member stride of 0; then
-         CUDA-event times of each kernel, its plain version and its library
-         yardstick over VGG-A's 14 fusion buckets at G = 4, beside the bound.
+         16-byte-aligned and unaligned rows and a member stride of 0, one
+         launch a call; then CUDA-event times of each kernel, its plain
+         version and its library yardstick over VGG-A's 14 fusion buckets at
+         G = 4 (the reduce-scatter of the zero1 path's stride-0 stacks and of
+         G distinct partials, 14 launches each; one hop beside ``torch.add``),
+         beside the bound.
 Phase 6  the zero1 path: full-width VGG-A through ``compile_run`` with
          ``parallel="zero1"``, G = 4 members on the card
          (``MeshSpec(members_per_device=4)``) and the ``pallas-ring`` backend,
          every forward conv on the kernel, ``Run.fit`` for 4 steps of batch 64.
          Launch counts are zeroed just before ``fit`` and read just after:
-         reduce-scatter hops = steps x 14 buckets x 3, all-gathers = steps x 14,
+         reduce-scatters = steps x 14 buckets, all-gathers = steps x 14,
          conv = steps x 8, paged decode, flash and the process hop never.  Then the
          strip state's layout, the replication invariant (every member's
          gathered buffer bitwise the same), one step split into reduce, apply
@@ -82,8 +85,8 @@ Phase 11 the CD-DNN path: full-width CD-DNN through ``compile_run`` and
          1024 serially and then with ``parallel="zero1"``, G = 4 members on
          the card and the ``pallas-ring`` backend.  Launch counts are zeroed
          just before each ``fit`` and read just after (GEMM: steps x 8 in
-         both; zero1 also steps x buckets x 3 hops and steps x buckets
-         gathers; nothing else, flash included).  Then the kernel route against the plain
+         both; zero1 also steps x buckets reduce-scatters and steps x
+         buckets gathers; nothing else, flash included).  Then the kernel route against the plain
          route from the same params and batch, the zero1 params and losses
          bitwise the serial run's, and one zero1 update split into reduce,
          apply and broadcast.
@@ -800,7 +803,9 @@ def phase5(dev, card):
           "contiguous, unaligned, wide-stride and stride-0 member stacks")
     worst = {"ring_hop_accum": 0.0, "ring_reduce_scatter": 0.0,
              "ring_all_gather": 0.0}
+    calls = dict.fromkeys(worst, 0)     # one launch a call (none at G = 1)
     cases = 0
+    kring.reset_launches()
     for G in RING_GS:
         for n in RING_NS:
             for dtype in (torch.float32, torch.bfloat16):
@@ -831,7 +836,12 @@ def phase5(dev, card):
                         worst[kname] = max(worst[kname], (
                             got.float() - want.float()).abs().max().item())
                         cases += 1
-    print(f"  {cases} kernel calls bitwise equal to their plain versions")
+                        calls[kname] += kname == "ring_hop_accum" or G > 1
+    launched = {k: kring.launches[k] for k in calls}
+    check(launched == calls, f"ring launches {launched}, want one a call "
+          f"{calls}")
+    print(f"  {cases} kernel calls bitwise equal to their plain versions; "
+          f"launches {launched}, one a call")
 
     G = 4
     plan = vgg_buckets(G)
@@ -860,7 +870,10 @@ def phase5(dev, card):
                  kring.ring_reduce_scatter_plain, full),
                 ("ring_all_gather", kring.ring_all_gather,
                  kring.ring_all_gather_plain, strips)):
+            before = kring.launches[kname]
             got, want = fn(x), plain(x)
+            check(kring.launches[kname] - before == 1, f"{kname} at VGG-A "
+                  f"bucket {bi}: {kring.launches[kname] - before} launches")
             check(got.shape == want.shape and torch.equal(got, want),
                   f"{kname} at VGG-A bucket {bi} (N={N}, member "
                   f"stride {x.stride(0)}): kernel disagrees with the plain "
@@ -887,17 +900,19 @@ def phase5(dev, card):
           f"kernel calls (reduce-scatter of the stride-0 stack and of G "
           f"distinct partials, all-gather) bitwise equal to their plain "
           f"versions")
+    rs_launches = plan.n_collectives    # a call of each timing: one a bucket
     # bytes each function must move: inputs read once, outputs written once
     rs_bound = bytes_bound(4 * (N_tot + N_tot))          # one buffer in
     rs_full_bound = bytes_bound(4 * (G * N_tot + N_tot))  # G buffers in
     ag_bound = bytes_bound(4 * (N_tot + G * N_tot))
     print(f"  reduce-scatter of the zero1 path's stride-0 stacks (one "
           f"gradient viewed {G} times), summed over the buckets: kernel "
-          f"{t['rs']} ms ({3 * plan.n_collectives} hop launches), plain "
+          f"{t['rs']} ms ({rs_launches} launches), plain "
           f"{t['rs_plain']} ms, library (view(G, G, n).sum(0)) "
           f"{t['rs_lib']} ms, bound {rs_bound} ms (bytes) [{card}]")
     print(f"  reduce-scatter of G distinct partials: kernel {t['rs_full']} "
-          f"ms, plain {t['rs_full_plain']} ms, library {t['rs_full_lib']} "
+          f"ms ({rs_launches} launches), plain {t['rs_full_plain']} ms, "
+          f"library {t['rs_full_lib']} "
           f"ms, bound {rs_full_bound} ms (bytes) [{card}]")
     print(f"  all-gather: kernel {t['ag']} ms, plain (a view) "
           f"{t['ag_plain']} ms, library (expand().contiguous()) "
@@ -1000,10 +1015,10 @@ def phase6(card):
     check(len(hist) == spec.steps and all(
         np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
         f"zero1 history {hist}")
-    # the path's launches: G - 1 hops per bucket reduce, one gather per
-    # bucket, one conv per conv layer; the process hop is not on this path
-    check(counts["ring_reduce_scatter"] == spec.steps * n_buckets * (G - 1),
-          f"reduce-scatter hops {counts['ring_reduce_scatter']}")
+    # the path's launches: one reduce-scatter and one gather per bucket, one
+    # conv per conv layer; the process hop is not on this path
+    check(counts["ring_reduce_scatter"] == spec.steps * n_buckets,
+          f"reduce-scatters {counts['ring_reduce_scatter']}")
     check(counts["ring_all_gather"] == spec.steps * n_buckets,
           f"all-gathers {counts['ring_all_gather']}")
     check(counts["ring_hop_accum"] == 0,
@@ -1013,9 +1028,9 @@ def phase6(card):
     steps = spans.samples["step"]
     waits = spans.samples["data_wait"]
     n_later = spec.batch * (spec.steps - 1)
-    print(f"  {spec.steps} steps in {wall} s; launches: reduce-scatter hops "
-          f"{counts['ring_reduce_scatter']} = {spec.steps} x {n_buckets} x "
-          f"{G - 1}, all-gathers {counts['ring_all_gather']} = {spec.steps} "
+    print(f"  {spec.steps} steps in {wall} s; launches: reduce-scatters "
+          f"{counts['ring_reduce_scatter']} = {spec.steps} x {n_buckets}, "
+          f"all-gathers {counts['ring_all_gather']} = {spec.steps} "
           f"x {n_buckets}, conv {conv} = {spec.steps} x {n_conv}, "
           f"paged {paged}, process hops {counts['ring_hop_accum']}")
     print(f"  steps 2-{spec.steps}: {n_later / (sum(steps[1:]) + sum(waits[1:]))}"
@@ -1847,7 +1862,7 @@ def phase11(card):
     n_buckets = len(run.opt_state.velocity)
     want = dict.fromkeys(counts, 0)
     want["blocked_matmul"] = zspec.steps * n_layers
-    want["ring_reduce_scatter"] = zspec.steps * n_buckets * (G - 1)
+    want["ring_reduce_scatter"] = zspec.steps * n_buckets
     want["ring_all_gather"] = zspec.steps * n_buckets
     check(counts == want, f"zero1 launches {counts}, want {want}")
     rs_launches = counts["ring_reduce_scatter"]

@@ -1,54 +1,41 @@
 // The paper's §3.4 ring collectives for NVIDIA Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the TPU kernels of src/repro/kernels/ring.py:
-//   ring_hop_accum       (Pallas body _hop_accum_kernel)    recv + chunks[c]
 //   ring_reduce_scatter  (Pallas body _reduce_scatter_kernel) stacked ring, G-1 hops
+//   ring_hop_accum       (Pallas body _hop_accum_kernel)    recv + chunks[c]
 //   ring_all_gather      (Pallas body _all_gather_kernel)   stacked ring all-gather
 //
-// Two kernels serve all three:
-//
-// hop_kernel  out[m] = a[m] + b[m][c_m] for M members at once, row by row:
-//   a row    a + ((m + a_shift) mod M) * a_ms + c_m * a_cs
-//   b row    b + m * b_ms + c_m * b_cs
-//   out row  out + ((m + o_shift) mod M) * o_ms
-//   c_m      (m + c_shift + *c_dev) mod G   (*c_dev counts 0 when c_dev is null)
-//   All offsets are 64-bit elements: a VGG-A bucket row holds up to 102.8 M
-//   elements, and at G = 8 a gathered (G, G*n) buffer passes 2^31 bytes.
-//   * ring_hop_accum is one launch with M = 1: a = recv, b = chunks, and the
-//     chunk index either a host int (c_shift) or an int32 on the card (c_dev),
-//     read by the kernel so that a hop never waits for the host.
-//   * ring_reduce_scatter is G - 1 launches with M = G, one per step of the
-//     reference's step-major ring (ring.py:75-99): at step s member p adds its
-//     own x[p, c] to what its left neighbour sent, x[p-1, c] at s = 0 or
-//     mailbox slot s % 2 row p after, with c = (p - 2 - s) mod G, and sends it
-//     to mailbox slot (s + 1) % 2 row p + 1, or to its output row at the last
-//     step.  The TPU ran the (step, member) grid in order on one core; Hopper
-//     blocks run in no order, so the kernel boundary is the step barrier.  The
-//     ring's order of additions is kept, in the input dtype, so the result is
-//     bitwise the reference kernel's.  A member stride of 0 (one replicated
-//     gradient viewed G times) is read as it is, never copied.
-//   * bf16 adds the way the reference's jnp add does: in f32, rounded to
-//     nearest even (__float2bfloat16_rn), bitwise torch's bf16 add.
-//   * Loads and stores are 16 bytes a thread when every row start is 16-byte
-//     aligned (bases and strides), with a scalar tail; otherwise scalar.  A
-//     chunk starts at c * n, so VGG-A's ragged strips (fc15_b's 250 elements
-//     at G = 4) take the scalar path.
+// fold_kernel  strip p of P is a left fold of rows, element by element, each
+//   add rounded in the input dtype (bf16: in f32, then to nearest even, as jnp
+//   and torch round it): row 0 at a + p * n (row 1 when a is null), then
+//   rows k = 1 .. R at x + ((p + k) mod G) * x_ms + c * x_cs, c = (p + c_shift
+//   + *c_dev) mod G (*c_dev, 0 when null, is read once: no hop waits on the host).
+//   * ring_reduce_scatter is one launch, P = R = G, c = p.  In the reference's
+//     (step, member) grid (ring.py:75-99) member p adds its chunk (p-2-s) mod G
+//     at step s to what p - 1 sent, so strip p is ((x[p+1, p] + x[p+2, p]) +
+//     ...) + x[p, p], members mod G.  One thread folds that in registers in
+//     that order, bitwise, without the mailbox and step barriers the TPU needed
+//     to run its grid in order on one core.  At a member stride of 0 (zero1's
+//     one gradient viewed G times) the row is read once: ((v + v) + v) + v.
+//   * ring_hop_accum is recv then chunks[c]: P = R = 1, a = recv, x_ms = 0.
+//   * A thread takes kUnroll 16-byte words of a row and issues kBatch rows'
+//     loads before their adds (__restrict__, streaming loads and stores); one
+//     block a tile (a grid that fills the SMs once ran slower).  Rows not all 16-byte
+//     aligned go an element at a time (VGG-A's fc15_b strip of 250 at G = 4,
+//     CD-DNN's 2326).  Offsets are 64-bit (G = 8 partials: up to 3.3 GB).
 //
 // all_gather_kernel  out[p, o*n : (o+1)*n] = x[o] for every member p and
 //   owner o, in one launch: each thread reads a word of x[o] once and writes
 //   it to all G rows.  Pure data movement, exact in any dtype; the word is
 //   the widest of 16, 8, 4, 2 bytes that every row start allows.
 //
-// Bound on this card: bytes over 3.35 TB/s.  reduce-scatter must read the
-// (G, N) stack once and write the (G, N/G) result once; the mailbox ring
-// moves about 9/5 of that at G = 4 (each step reads two chunk rows per member
-// and writes one).  all-gather reads N and writes G*N.  A hop reads 2n and
-// writes n.  Their times are in PERF.md.
+// Bound on this card: bytes over 3.35 TB/s.  The reduce-scatter must read the
+// (G, N) stack once (N elements at a member stride of 0) and write N, as the
+// fold does; a hop reads 2n and writes n; the all-gather reads N, writes G*N.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// (repro_torch/kernels/build.py).  The C entries launch on the given stream,
-// never synchronise, allocate nothing and return cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernels do not take).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (kernels/build.py).
+// The C entries launch on the given stream, never synchronise, allocate nothing
+// and return cudaGetLastError() (cudaErrorInvalidValue for arguments not taken).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,73 +44,95 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1024;   // per launch, spread over the members
+constexpr int kUnroll = 2;               // fold: words of a row a thread takes a trip
+constexpr int kBatch = 4;                // fold: rows whose loads precede their adds
+constexpr long long kTile = kThreads * kUnroll;   // fold: words a block takes a trip
+constexpr long long kMaxBlocks = 1024;   // all-gather: blocks a launch, over the rows
 
-__device__ __forceinline__ long long wrap(long long i, long long m) {
-  long long r = i % m;
-  return r < 0 ? r + m : r;
-}
-
-__device__ __forceinline__ float add1(float x, float y) { return x + y; }
-
-__device__ __forceinline__ __nv_bfloat16 add1(__nv_bfloat16 x, __nv_bfloat16 y) {
+__device__ __forceinline__ float add(float x, float y, float) { return x + y; }
+__device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 x, __nv_bfloat16 y, __nv_bfloat16) {
   return __float2bfloat16_rn(__bfloat162float(x) + __bfloat162float(y));
 }
 
-// 16 bytes of T added lane by lane, each lane rounded as add1 rounds it
-__device__ __forceinline__ uint4 add16(uint4 x, uint4 y, float) {
-  float4 a = *reinterpret_cast<float4*>(&x), b = *reinterpret_cast<float4*>(&y);
-  float4 r = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-  return *reinterpret_cast<uint4*>(&r);
-}
-
-__device__ __forceinline__ uint4 add16(uint4 x, uint4 y, __nv_bfloat16) {
-  uint4 r;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&r);
+// 16 bytes of T added lane by lane, each lane rounded as the scalar add rounds it
+template <typename T>
+__device__ __forceinline__ uint4 add(uint4 x, uint4 y, T) {
+  T* a = reinterpret_cast<T*>(&x);
+  const T* b = reinterpret_cast<const T*>(&y);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float2 fa = __bfloat1622float2(a[k]), fb = __bfloat1622float2(b[k]);
-    o[k] = __floats2bfloat162_rn(fa.x + fb.x, fa.y + fb.y);
-  }
-  return r;
+  for (int k = 0; k < 16 / static_cast<int>(sizeof(T)); ++k) a[k] = add(a[k], b[k], T());
+  return x;
 }
 
-struct HopArgs {
-  const void* a;
-  long long a_ms, a_cs;
-  int a_shift;
-  const void* b;
-  long long b_ms, b_cs;
+struct FoldArgs {   // as ring_fold takes them
+  const void *a, *x, *c_dev;
   void* out;
-  long long o_ms;
-  int o_shift;
-  const int* c_dev;
-  int c_shift, G, M;
-  long long n;
+  long long x_ms, x_cs, n;
+  int c_shift, G, R;
 };
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads) hop_kernel(HopArgs p) {
-  const long long m = blockIdx.y;
-  const long long c = wrap(m + p.c_shift + (p.c_dev ? *p.c_dev : 0), p.G);
-  const T* a = static_cast<const T*>(p.a) + wrap(m + p.a_shift, p.M) * p.a_ms + c * p.a_cs;
-  const T* b = static_cast<const T*>(p.b) + m * p.b_ms + c * p.b_cs;
-  T* o = static_cast<T*>(p.out) + wrap(m + p.o_shift, p.M) * p.o_ms;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long done = 0;
-  if (kVec) {
-    constexpr int kV = 16 / sizeof(T);
-    const long long nv = p.n / kV;
-    const uint4* av = reinterpret_cast<const uint4*>(a);
-    const uint4* bv = reinterpret_cast<const uint4*>(b);
-    uint4* ov = reinterpret_cast<uint4*>(o);
-    for (long long i = tid; i < nv; i += stride) ov[i] = add16(av[i], bv[i], T());
-    done = nv * kV;
+// One strip's fold at words i + u * kThreads (u < U) below nw: it starts from
+// row0 and adds rows k0 .. R, row k at xs + ((p + k) mod G) * ms.
+template <typename T, int U, typename W>
+__device__ __forceinline__ void fold_tile(const W* __restrict__ row0, const W* __restrict__ xs,
+                                          long long ms, int p, int G, int k0, int R,
+                                          W* __restrict__ o, long long i, long long nw) {
+  W acc[U], one[U];   // one: at ms = 0 every row of x is one row, read once (row0 if k0 = 2)
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool in = i + u * kThreads < nw;
+    acc[u] = in ? __ldcs(row0 + i + u * kThreads) : W();
+    one[u] = k0 == 2 || ms || !in ? acc[u] : __ldcs(xs + i + u * kThreads);
   }
-  for (long long i = done + tid; i < p.n; i += stride) o[i] = add1(a[i], b[i]);
+  for (int k = k0; k <= R; k += kBatch) {
+    W v[kBatch][U];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const long long row = (p + k + b < G ? p + k + b : p + k + b - G) * ms;   // p + k + b < 2G
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[b][u] = ms && k + b <= R && i + u * kThreads < nw ? __ldcs(xs + row + i + u * kThreads)
+                                                            : one[u];
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k + b <= R) acc[u] = add(acc[u], v[b][u], T());
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (i + u * kThreads < nw) __stcs(o + i + u * kThreads, acc[u]);
+}
+
+// W: uint4 (16 bytes of T; every row start aligned) or T.  Block (x, p) walks strip p.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads) fold_kernel(const FoldArgs f) {
+  constexpr int kV = sizeof(W) / sizeof(T);
+  const int p = blockIdx.y;
+  const int* c_dev = static_cast<const int*>(f.c_dev);
+  const long long c = (static_cast<long long>(p) + f.c_shift + (c_dev ? *c_dev : 0)) % f.G;
+  const T* xs = static_cast<const T*>(f.x) + (c < 0 ? c + f.G : c) * f.x_cs;
+  const T* row0 = f.a ? static_cast<const T*>(f.a) + p * f.n
+                      : xs + (p + 1 < f.G ? p + 1 : 0) * f.x_ms;
+  const int k0 = f.a ? 1 : 2;
+  T* o = static_cast<T*>(f.out) + p * f.n;
+  const long long nw = f.n / kV;
+  for (long long t = blockIdx.x; t * kTile < nw; t += gridDim.x)
+    fold_tile<T, kUnroll>(reinterpret_cast<const W*>(row0), reinterpret_cast<const W*>(xs),
+                          f.x_ms / kV, p, f.G, k0, f.R, reinterpret_cast<W*>(o),
+                          t * kTile + threadIdx.x, nw);
+  if (kV > 1 && blockIdx.x == 0 && threadIdx.x < f.n - nw * kV)   // the row's last elements
+    fold_tile<T, 1>(row0, xs, f.x_ms, p, f.G, k0, f.R, o, nw * kV + threadIdx.x, f.n);
+}
+
+template <typename T, typename W>
+int launch_fold(const FoldArgs& f, int P, void* stream) {
+  const long long tiles = (f.n / static_cast<long long>(sizeof(W) / sizeof(T)) + kTile - 1) / kTile;
+  const long long blocks = tiles;   // one tile a block
+  fold_kernel<T, W><<<dim3(static_cast<unsigned>(blocks > 1 ? blocks : 1), P), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename W>
@@ -148,37 +157,25 @@ unsigned blocks_for(long long work, int rows) {
   return static_cast<unsigned>(g > 0 ? g : 1);
 }
 
-template <typename T>
-int launch_hop(const HopArgs& p, cudaStream_t stream) {
-  const long long es = sizeof(T);
-  const bool vec = ((reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.b) |
-                     reinterpret_cast<uintptr_t>(p.out)) % 16 == 0) &&
-                   (p.a_ms * es) % 16 == 0 && (p.a_cs * es) % 16 == 0 &&
-                   (p.b_ms * es) % 16 == 0 && (p.b_cs * es) % 16 == 0 &&
-                   (p.o_ms * es) % 16 == 0;
-  const long long work = vec ? p.n / (16 / es) + 1 : p.n;
-  dim3 grid(blocks_for(work, p.M), static_cast<unsigned>(p.M));
-  if (vec)
-    hop_kernel<T, true><<<grid, kThreads, 0, stream>>>(p);
-  else
-    hop_kernel<T, false><<<grid, kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides and n count elements.
-extern "C" int ring_hop(int dtype, const void* a, long long a_ms, long long a_cs, int a_shift,
-                        const void* b, long long b_ms, long long b_cs, void* out,
-                        long long o_ms, int o_shift, const void* c_dev, int c_shift, int G,
-                        int M, long long n, void* stream) {
-  if (G < 1 || M < 1 || M > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  HopArgs p{a, a_ms, a_cs, a_shift, b, b_ms, b_cs, out, o_ms, o_shift,
-            static_cast<const int*>(c_dev), c_shift, G, M, n};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hop<float>(p, s);
-  if (dtype == 1) return launch_hop<__nv_bfloat16>(p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// dtype: 0 = float32, 1 = bfloat16.  a (may be null) and out are (P, n), strides
+// and n in elements; 1 <= R, P <= G.
+extern "C" int ring_fold(int dtype, const void* a, const void* x, long long x_ms, long long x_cs,
+                         void* out, const void* c_dev, int c_shift, int G, int R, int P,
+                         long long n, void* stream) {
+  if (G < 1 || R < 1 || R > G || P < 1 || P > G || P > 65535 || n < 1 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FoldArgs f{a, x, c_dev, out, x_ms, x_cs, n, c_shift, G, R};
+  const long long es = dtype == 0 ? 4 : 2;   // 16-byte words need every row start aligned
+  const bool vec = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(out)) % 16 == 0) &&
+                   (x_ms * es) % 16 == 0 && (x_cs * es) % 16 == 0 &&
+                   (P == 1 || (n * es) % 16 == 0);
+  if (dtype == 0)
+    return vec ? launch_fold<float, uint4>(f, P, stream) : launch_fold<float, float>(f, P, stream);
+  return vec ? launch_fold<__nv_bfloat16, uint4>(f, P, stream)
+             : launch_fold<__nv_bfloat16, __nv_bfloat16>(f, P, stream);
 }
 
 // out (G, G * row_bytes) bytes, contiguous; row o of x starts at x + o * x_ms

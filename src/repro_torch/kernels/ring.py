@@ -4,6 +4,9 @@ PyTorch versions.
 Port of ``repro.kernels.ring``: the three dense kernels (CUDA source
 ``csrc/ring.cu``) and the three of the compressed wire formats
 (``csrc/ring_wire.cu``); each source states its kernels' design and bound.
+The hop and the reduce-scatter share one kernel, a left fold of rows in
+registers: the hop folds ``recv`` and one chunk, the reduce-scatter every
+member's partial of a strip in the ring's order, in one launch.
 
 :func:`ring_hop_accum`       one hop of the distributed ring: ``recv +
                              chunks[c]`` (the process mesh's combine after
@@ -39,6 +42,8 @@ adds are the wire arithmetic.
 from __future__ import annotations
 
 import ctypes
+import functools
+from contextlib import nullcontext
 from typing import Union
 
 import torch
@@ -48,8 +53,8 @@ from repro_torch.kernels import ref as kref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, per wrapper (the plain versions are
-# not counted); ring_reduce_scatter launches its hop kernel G - 1 times a
-# call, a wire wrapper counts one a call (its kernel runs in two passes)
+# not counted): one a call, G = 1 (no kernel) aside; a wire wrapper's kernel
+# runs in two passes and counts one
 launches = {"ring_hop_accum": 0, "ring_reduce_scatter": 0,
             "ring_all_gather": 0, "int8_quantize": 0, "ring_hop_int8": 0,
             "ring_hop_topk": 0}
@@ -135,9 +140,10 @@ def ring_hop_accum(chunks: torch.Tensor, recv: torch.Tensor,
         return ring_hop_accum_plain(chunks, recv, c)
     out = torch.empty_like(recv)
     tensor_c = isinstance(c, torch.Tensor)
-    _launch_hop(recv, 0, 0, 0, chunks, 0, chunks.stride(0), out, 0, 0,
-                c.data_ptr() if tensor_c else None, 0 if tensor_c else int(c),
-                G, 1, n)
+    # the fold of two rows: recv, then chunk c (member stride 0: one member)
+    _launch_fold(recv, chunks, 0, chunks.stride(0), out,
+                 c.data_ptr() if tensor_c else None, 0 if tensor_c else int(c),
+                 G, 1, 1, n)
     launches["ring_hop_accum"] += 1
     return out
 
@@ -155,7 +161,11 @@ def ring_reduce_scatter(stacked: torch.Tensor) -> torch.Tensor:
     """Reduce-scatter a stacked ``(G, N)`` buffer of per-member partials:
     row p of the ``(G, N // G)`` result is the fully reduced chunk p,
     member p's strip under the §3.4 owner convention.  ``N % G == 0``.  The
-    member stride may be anything, 0 included (one buffer viewed G times)."""
+    member stride may be anything, 0 included (one buffer viewed G times,
+    which the kernel reads once).  One launch: strip p is the left fold
+    ``x[p+1, p] + x[p+2, p] + ... + x[p, p]`` (members mod G), the order in
+    which the ring's G - 1 hops add it, so the result is bitwise
+    :func:`ring_reduce_scatter_plain`; no mailbox is allocated."""
     _check_rows("stacked", stacked)
     G, N = stacked.shape
     if G < 1 or N % G:
@@ -165,21 +175,9 @@ def ring_reduce_scatter(stacked: torch.Tensor) -> torch.Tensor:
     if stacked.device.type == "cpu":
         return ring_reduce_scatter_plain(stacked)
     n = N // G
-    xs = stacked.stride(0)
     out = stacked.new_empty(G, n)
-    box = stacked.new_empty(2, G, n) if G > 2 else None
-    for s in range(G - 1):
-        if s == 0:      # the left neighbour sends its raw chunk
-            a, a_ms, a_cs, a_shift = stacked, xs, n, -1
-        else:
-            a, a_ms, a_cs, a_shift = box[s % 2], n, 0, 0
-        if s == G - 2:  # the last hop lands in the owner's row
-            o, o_shift = out, 0
-        else:           # send to the right neighbour's mailbox
-            o, o_shift = box[(s + 1) % 2], 1
-        _launch_hop(a, a_ms, a_cs, a_shift, stacked, xs, n, o, n, o_shift,
-                    None, -2 - s, G, G, n)
-        launches["ring_reduce_scatter"] += 1
+    _launch_fold(None, stacked, stacked.stride(0), n, out, None, 0, G, G, G, n)
+    launches["ring_reduce_scatter"] += 1
     return out
 
 
@@ -207,28 +205,36 @@ def ring_all_gather(strips: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_hop(a, a_ms, a_cs, a_shift, b, b_ms, b_cs, out, o_ms, o_shift,
-                c_ptr, c_shift, G, M, n) -> None:
-    if out.device.type != "cuda":
-        raise ValueError(f"the ring kernels run on cuda, got {out.device}")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().ring_hop(_DTYPES[out.dtype], a.data_ptr(), a_ms, a_cs,
-                             a_shift, b.data_ptr(), b_ms, b_cs,
-                             out.data_ptr(), o_ms, o_shift, c_ptr, c_shift,
-                             G, M, n, stream)
+def _launch_fold(a, x, x_ms, x_cs, out, c_ptr, c_shift, G, R, P, n) -> None:
+    """``csrc/ring.cu``'s fold into ``out`` (P, n): strip p is row p of
+    ``a`` (P, n) (row 1 when ``a`` is None) plus rows 1..R, row k at ``x +
+    ((p + k) % G) * x_ms + c * x_cs`` with ``c = (p + c_shift + *c_ptr) %
+    G``.  The zero1
+    path launches it once a bucket, so the host's part is kept short: no
+    device switch for tensors on the current device, and the stream as a raw
+    handle (a ``torch.cuda.device`` guard and a ``Stream`` object take ~10
+    of a call's ~20 us: ``experiments/ring_fold_variants.py``)."""
+    dev = out.device
+    if dev.type != "cuda":
+        raise ValueError(f"the ring kernels run on cuda, got {dev}")
+    with (nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        rc = _lib().ring_fold(_DTYPES[out.dtype], _ptr(a), x.data_ptr(),
+                              x_ms, x_cs, out.data_ptr(), c_ptr, c_shift, G,
+                              R, P, n,
+                              torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"ring hop launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ring fold launch failed: CUDA error {rc}")
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load("ring")
-    if lib.ring_hop.argtypes is None:
+    if lib.ring_fold.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ring_hop.argtypes = [i, p, ll, ll, i, p, ll, ll, p, ll, i, p, i,
-                                 i, i, ll, p]
-        lib.ring_hop.restype = ctypes.c_int
+        lib.ring_fold.argtypes = [i, p, p, ll, ll, p, p, i, i, i, i, ll, p]
+        lib.ring_fold.restype = ctypes.c_int
         lib.ring_all_gather.argtypes = [p, ll, p, i, ll, p]
         lib.ring_all_gather.restype = ctypes.c_int
     return lib

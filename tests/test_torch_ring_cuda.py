@@ -8,7 +8,11 @@ reason.  Run on the card with
 Tolerance: none.  Each kernel adds in the plain version's order and dtype
 (or only moves data), so the two agree bitwise, in f32 and in bf16, for
 16-byte-aligned and unaligned chunk starts and for a member stride of 0.
+The reduce-scatter is one launch of the fold kernel a call, with no scratch
+beyond its output.
 """
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,7 +21,7 @@ from repro_torch.kernels import ring as kring  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-GS = [1, 2, 3, 4, 8]
+GS = [1, 2, 3, 4, 8, 16]
 NS = [1, 3, 250, 2 ** 20 + 3]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -57,7 +61,7 @@ def test_reduce_scatter_matches_plain(cuda, G, n, dtype):
         kring.reset_launches()
         got = kring.ring_reduce_scatter(x)
         torch.cuda.synchronize()
-        assert kring.launches["ring_reduce_scatter"] == G - 1, name
+        assert kring.launches["ring_reduce_scatter"] == (G > 1), name
         want = kring.ring_reduce_scatter_plain(x)
         assert got.shape == (G, n) and got.dtype == dtype, name
         assert torch.equal(got, want), (name, (got.float() - want.float())
@@ -81,8 +85,12 @@ def test_all_gather_matches_plain(cuda, G, n, dtype):
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_hop_matches_plain(cuda, G, n, dtype):
-    for name, x in _layouts(cuda, G, n, dtype, seed=G * 13 + n).items():
-        recv = _randn(cuda, n, dtype=dtype, seed=n)
+    recvs = {"recv": _randn(cuda, n, dtype=dtype, seed=n),
+             "unaligned recv": _randn(cuda, n + 1, dtype=dtype, seed=n)[1:]}
+    for (name, x), (rname, recv) in itertools.product(
+            _layouts(cuda, G, n, dtype, seed=G * 13 + n).items(),
+            recvs.items()):
+        name = f"{name}, {rname}"
         for c in range(G):
             kring.reset_launches()
             got = kring.ring_hop_accum(x, recv, c)
@@ -93,6 +101,33 @@ def test_hop_matches_plain(cuda, G, n, dtype):
             want = kring.ring_hop_accum_plain(x, recv, c)
             assert torch.equal(got, want), (name, c)
             assert torch.equal(on_card, want), (name, c)
+
+
+@pytest.mark.parametrize("stride0", [False, True], ids=["partials", "stride0"])
+def test_reduce_scatter_allocates_only_its_output(cuda, stride0):
+    G, n = 4, 2 ** 20 + 4
+    x = _randn(cuda, n * G, dtype=torch.float32, seed=5).expand(G, -1) \
+        if stride0 else _randn(cuda, G, G * n, dtype=torch.float32, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = kring.ring_reduce_scatter(x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    assert grown <= -(-out.numel() * 4 // 512) * 512, grown
+    assert torch.equal(out, kring.ring_reduce_scatter_plain(x))
+
+
+def test_reduce_scatter_past_2_to_the_31_bytes(cuda):
+    """G = 8 distinct partials of strips as long as VGG-A's largest bucket's
+    at G = 4: a 6.6 GB stack, byte offsets far past 2^31."""
+    G, n = 8, 25_690_112
+    x = _randn(cuda, G, G * n, dtype=torch.float32, seed=9)
+    kring.reset_launches()
+    got = kring.ring_reduce_scatter(x)
+    torch.cuda.synchronize()
+    assert kring.launches["ring_reduce_scatter"] == 1
+    assert torch.equal(got, kring.ring_reduce_scatter_plain(x))
 
 
 def test_round_trip_is_the_sum(cuda):
