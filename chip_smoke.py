@@ -14,7 +14,8 @@ Phase 0  build every kernel of the ported paths from ``src/repro_torch``
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
          card, at the serving path's shapes and a few variants; max |error|
          against a stated tolerance; CUDA-event times of both beside the
-         kernel's least possible time (its bound).
+         kernel's least possible time (its bound), at the serving shapes
+         and at a long context (4 requests of 4096 positions).
 Phase 2  the serving path: llama3-8b at full width and depth with random
          f32 weights from a seed, through ``compile_serve``; 8 requests of
          2-512 prompt tokens and 32 new tokens each, drained.  Launch counts
@@ -149,6 +150,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs.base import H100_SXM  # noqa: E402
 
 REL_L2_TOL = 0.025             # kernel vs gather decode logits, phase 2
+LONG_CONTEXT = 4096             # positions a request, phase 1's long timing
 # phase 3: max |kernel - plain| over max |plain| of a conv layer.  Each
 # output is an f32 sum of up to K*K*IFM = 9216 products, which the kernel
 # (as three TF32 products each, promoted to an f32 sum every 32 of the
@@ -337,9 +339,30 @@ def phase1(dev):
             plain_ms = cuda_ms(lambda: paged_attn.paged_decode_attention_plain(
                 q, pk, pv, pt, ln, **kw))
             bound_ms, bound_by = paged_bound(q, pk, pt, lengths, window)
-    print(f"  time at B=4 Hq=32 Hkv=8 D=128 ps=16 n=34 lengths={lengths}: "
-          f"kernel {ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
+    pps = paged_attn.split_pages(4, 8, 4, n)
+    print(f"  time at B=4 Hq=32 Hkv=8 D=128 ps=16 n=34 lengths={lengths} "
+          f"({-(-n // pps)} splits of {pps} pages, two CUDA launches a "
+          f"call): kernel {ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
           f"({bound_by})")
+    # a long context: 4 requests of 4096 positions, llama3-8b's heads
+    n_long = LONG_CONTEXT // ps
+    q, pk, pv, pt, ln = paged_inputs(dev, 4, 32, 8, 128, ps, n_long,
+                                     4 * n_long + 16, [LONG_CONTEXT] * 4,
+                                     seed=9)
+    got = paged_attn.paged_decode_attention(q, pk, pv, pt, ln)
+    want = paged_attn.paged_decode_attention_plain(q, pk, pv, pt, ln)
+    err = (got.float() - want.float()).abs().max().item()
+    long_ms = cuda_ms(lambda: paged_attn.paged_decode_attention(
+        q, pk, pv, pt, ln))
+    long_plain = cuda_ms(lambda: paged_attn.paged_decode_attention_plain(
+        q, pk, pv, pt, ln), 2, 10)
+    long_bound, long_by = paged_bound(q, pk, pt, [LONG_CONTEXT] * 4, 0)
+    pps = paged_attn.split_pages(4, 8, 4, n_long)
+    print(f"  time at B=4 Hq=32 Hkv=8 D=128 ps=16, {LONG_CONTEXT} positions "
+          f"each ({-(-n_long // pps)} splits of {pps} pages): kernel "
+          f"{long_ms} ms, plain {long_plain} ms, bound {long_bound} ms "
+          f"({long_by}); max|kernel - plain| {err} (timing only, no gate)")
+    del q, pk, pv, pt, ln, got, want
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:131",

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 with ``nvcc`` into ``_build/<name>-<hash>.so`` beside the sources (a
-directory git ignores).  The hash covers the source text, every header
+directory git ignores); :func:`launch` calls one of its C entries on the
+current stream.  The hash covers the source text, every header
 under ``csrc/`` that it names with ``#include "..."`` (and theirs), and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 reused.  Nothing here runs at import: the CPU tests import every module of
@@ -15,8 +16,11 @@ import hashlib
 import os
 import re
 import subprocess
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -74,3 +78,20 @@ def load(name: str) -> ctypes.CDLL:
         os.replace(tmp, so)   # atomic: concurrent builders agree
     _LIBS[name] = ctypes.CDLL(str(so))
     return _LIBS[name]
+
+
+def launch(entry, dev: torch.device, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` for CUDA device ``dev`` on
+    its current stream, and raise if it returns a CUDA error.  The host's
+    part is kept short, since the ring's zero1 path and the decode step
+    launch many small kernels: no device switch for the current device, and
+    the stream as a raw handle (a ``torch.cuda.device`` guard and a
+    ``Stream`` object took ~10 of a ring call's ~20 us:
+    ``experiments/ring_fold_variants.py``)."""
+    if dev.type != "cuda":
+        raise ValueError(f"the port's kernels run on cuda, got {dev}")
+    with (nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")

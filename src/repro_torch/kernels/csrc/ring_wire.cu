@@ -28,15 +28,22 @@
 //   Pass 2 computes s = amax / 127 (IEEE division, __fdiv_rn), 1 where that
 //   is 0, recomputes acc the same way and writes q' = round-half-even(acc/s)
 //   and s.  The result is bitwise the plain version's.
-// topk (ring_hop_topk): two launches.
-//   Pass 1 writes out = 0 + x (the 0 + turns -0 into +0, as the reference's
-//   dense zeros do); pass 2 adds vals[j] at idx[j].  The indices of one
-//   top-k message are unique, so each entry is rounded once, (0 + x) + v,
-//   bitwise the reference's (0 + v) + x.  The add is __fadd_rn in a
-//   compare-and-swap loop, not atomicAdd: atom.add.f32 flushes subnormal
-//   inputs and results to zero, which IEEE addition does not (a gradient
-//   entry below 2^-126 is common enough in a top-k message at ratio 0.25).
-//   Indices outside [0, n) are dropped, as JAX's scatter drops them.
+// topk (ring_hop_topk): the dense pass and the scatter, range by range.
+//   The result is out = 0 + x (the 0 + turns -0 into +0, as the reference's
+//   dense zeros do) with vals[j] added at idx[j].  The indices of one top-k
+//   message are unique (the wrapper's contract; a top-k selection's are), so
+//   no two threads touch one word: each entry is a plain load, one IEEE add
+//   and a store, (0 + x) + v, bitwise the reference's (0 + v) + x,
+//   subnormals kept (atom.add.f32 would flush them).  Indices outside
+//   [0, n) are dropped, as JAX's scatter drops them.
+//   The first design wrote all of out, then added each entry in place with a
+//   compare-and-swap loop: at fc13_w (n = 25,690,112, k = 1,284,506) out
+//   is twice the 50 MB L2, so each entry's read-modify-write of a 32-byte
+//   sector went to DRAM.  Now out is written in ranges of at most kRange
+//   elements (32 MB), and right after each range's dense pass a scatter
+//   launch adds the entries whose index falls in it, while the range is
+//   still in L2.  Each scatter reads the message's indices (4k bytes) once,
+//   and only its own entries' values.
 // Loads are 16 bytes a thread (4 floats; 4 int8 for the messages) when every
 // row start allows it, else scalar: VGG-A's ragged strips (fc15_b, 250
 // elements at G = 4) start at c * 250 floats.
@@ -44,7 +51,8 @@
 // Bound on this card, bytes over 3.35 TB/s, per member and chunk of n:
 // int8_quantize must read 4n and write n, a hop read n + 4n and write n; the
 // two passes read the inputs twice (9n and 11n moved).  ring_hop_topk must
-// read 4n + 8k and write 4n.  Their times are in PERF.md.
+// read 4n + 8k and write 4n; it reads the indices once a range (4k bytes
+// each).  Their times are in PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (repro_torch/kernels/build.py), never with --use_fast_math.  The C entries
@@ -58,6 +66,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1024;   // per launch, spread over the members
+constexpr long long kRange = 8LL << 20;  // top-k: out elements a dense pass and scatter
+constexpr int kScatter = 4;              // top-k: entries a thread, loads before stores
 
 __device__ __forceinline__ long long wrap(long long i, long long m) {
   long long r = i % m;
@@ -166,47 +176,55 @@ __global__ void __launch_bounds__(kThreads) int8_quant_kernel(WireArgs p) {
   if (blockIdx.x == 0 && threadIdx.x == 0) p.s_out[blockIdx.y] = sc;
 }
 
+// out[lo, hi) = 0 + x[lo, hi) for member blockIdx.y (lo % 4 == 0)
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads) topk_dense_kernel(WireArgs p) {
+__global__ void __launch_bounds__(kThreads) topk_dense_kernel(WireArgs p, long long lo,
+                                                               long long hi) {
   const Member mb = member(p);
-  float* o = static_cast<float*>(p.out) + static_cast<long long>(blockIdx.y) * p.o_ms;
+  const float* x = mb.x + lo;
+  float* o = static_cast<float*>(p.out) + static_cast<long long>(blockIdx.y) * p.o_ms + lo;
+  const long long len = hi - lo;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long done = 0;
   if (kVec) {
-    const long long nv = p.n / 4;
-    const float4* xv = reinterpret_cast<const float4*>(mb.x);
+    const long long nv = len / 4;
+    const float4* xv = reinterpret_cast<const float4*>(x);
     float4* ov = reinterpret_cast<float4*>(o);
     for (long long i = tid; i < nv; i += stride) {
-      const float4 a = xv[i];
+      const float4 a = __ldcs(xv + i);
       ov[i] = make_float4(__fadd_rn(0.f, a.x), __fadd_rn(0.f, a.y), __fadd_rn(0.f, a.z),
                           __fadd_rn(0.f, a.w));
     }
     done = nv * 4;
   }
-  for (long long i = done + tid; i < p.n; i += stride) o[i] = __fadd_rn(0.f, mb.x[i]);
+  for (long long i = done + tid; i < len; i += stride) o[i] = __fadd_rn(0.f, __ldcs(x + i));
 }
 
-// *addr += v, rounded once as IEEE addition (subnormals kept)
-__device__ __forceinline__ void add_exact(float* addr, float v) {
-  unsigned* word = reinterpret_cast<unsigned*>(addr);
-  unsigned old = *word, seen;
-  do {
-    seen = old;
-    old = atomicCAS(word, seen, __float_as_uint(__fadd_rn(__uint_as_float(seen), v)));
-  } while (old != seen);
-}
-
-__global__ void __launch_bounds__(kThreads) topk_scatter_kernel(WireArgs p) {
+// out[idx[j]] += vals[j] for the entries with idx[j] in [lo, hi)
+__global__ void __launch_bounds__(kThreads) topk_scatter_kernel(WireArgs p, long long lo,
+                                                                 long long hi) {
   const long long r = wrap(static_cast<long long>(blockIdx.y) + p.msg_shift, p.M);
   const float* vals = static_cast<const float*>(p.msg) + r * p.msg_ms;
   const int* idx = static_cast<const int*>(p.msg2) + r * p.msg_ms;
   float* o = static_cast<float*>(p.out) + static_cast<long long>(blockIdx.y) * p.o_ms;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = tid; j < p.k; j += stride) {
-    const long long i = idx[j];
-    if (i >= 0 && i < p.n) add_exact(o + i, vals[j]);
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads * kScatter + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads * kScatter;
+  for (long long j0 = first; j0 < p.k; j0 += stride) {
+    long long i[kScatter];
+    float v[kScatter], cur[kScatter];
+#pragma unroll
+    for (int u = 0; u < kScatter; ++u) {
+      const long long j = j0 + u * kThreads;
+      i[u] = j < p.k ? idx[j] : -1;
+      i[u] = i[u] >= lo && i[u] < hi ? i[u] : -1;
+      v[u] = i[u] >= 0 ? vals[j] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScatter; ++u) cur[u] = i[u] >= 0 ? o[i[u]] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kScatter; ++u)
+      if (i[u] >= 0) o[i[u]] = __fadd_rn(cur[u], v[u]);
   }
 }
 
@@ -267,12 +285,21 @@ extern "C" int ring_wire_topk(const void* x, long long x_ms, long long x_cs, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned(x, x_ms * 4, 16) && aligned(x, x_cs * 4, 16) &&
                    aligned(out, o_ms * 4, 16);
-  const dim3 grid(blocks_for(vec ? n / 4 + 1 : n, M), static_cast<unsigned>(M));
-  if (vec)
-    topk_dense_kernel<true><<<grid, kThreads, 0, s>>>(p);
-  else
-    topk_dense_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  if (k > 0)
-    topk_scatter_kernel<<<dim3(blocks_for(k, M), static_cast<unsigned>(M)), kThreads, 0, s>>>(p);
+  // ranges of equal size, a multiple of 4 elements, at most kRange
+  const long long ranges = (n + kRange - 1) / kRange;
+  const long long size = ((n + ranges - 1) / ranges + 3) / 4 * 4;
+  const long long per = static_cast<long long>(kThreads) * kScatter;
+  const long long sblocks = (k + per - 1) / per < 65535 ? (k + per - 1) / per : 65535;
+  for (long long lo = 0; lo < n; lo += size) {
+    const long long hi = lo + size < n ? lo + size : n;
+    const dim3 grid(blocks_for(vec ? (hi - lo) / 4 + 1 : hi - lo, M), static_cast<unsigned>(M));
+    if (vec)
+      topk_dense_kernel<true><<<grid, kThreads, 0, s>>>(p, lo, hi);
+    else
+      topk_dense_kernel<false><<<grid, kThreads, 0, s>>>(p, lo, hi);
+    if (k > 0)
+      topk_scatter_kernel<<<dim3(static_cast<unsigned>(sblocks), static_cast<unsigned>(M)),
+                            kThreads, 0, s>>>(p, lo, hi);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,17 +16,34 @@ explicit ``attn_impl="gather"`` path and what the kernel is checked against.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-NEG_INF = -1e30
-_THREADS = 128     # kThreads in csrc/paged_attn.cu
-_MAX_ACC = 32      # kMaxAcc in csrc/paged_attn.cu
-_MAX_SMEM = 48 * 1024
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels.build import launch, load
 
-# kernel launches since the last reset (the plain version is not counted)
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = 132           # streaming multiprocessors of an H100 SXM
+_BLOCKS_PER_SM = 4   # the split grid's target: this many blocks an SM
+_HEADS = 8           # kMaxHeads in csrc/paged_attn.cu: query heads a block
+
+# kernel launches since the last reset, one a call (the plain version is not
+# counted; a call runs two CUDA launches, the split pass and the combine)
 launches = 0
+
+
+def split_pages(B: int, Hkv: int, g: int, n: int) -> int:
+    """Pages per split block of the kernel, for B requests of n pages and
+    Hkv kv heads of g query heads each.  The grid is (kv head x head group,
+    request, split); each request's n pages get ceil(_BLOCKS_PER_SM * _SMS
+    / (B * Hkv * head groups)) splits (at least 1, at most n), so that a
+    call fills the SMs about that many times over.  At the serving shapes
+    (llama3-8b, B 4, n 34) that is 2 pages a split, 17 splits and 544
+    blocks."""
+    groups = B * Hkv * -(-g // _HEADS)
+    splits = min(n, -(-_BLOCKS_PER_SM * _SMS // groups))
+    return -(-n // splits)
 
 
 def paged_decode_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
@@ -81,7 +98,7 @@ def _check(q, pages_k, pages_v, page_table, lengths, window, logit_softcap):
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pools "
                          f"{tuple(pages_k.shape)}/{tuple(pages_v.shape)}")
     B, Hq, D = q.shape
-    _, ps, Hkv, Dk = pages_k.shape
+    _, _, Hkv, Dk = pages_k.shape
     if Dk != D or page_table.dim() != 2 or page_table.shape[0] != B \
             or tuple(lengths.shape) != (B,):
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pools "
@@ -93,12 +110,9 @@ def _check(q, pages_k, pages_v, page_table, lengths, window, logit_softcap):
     if D % 32 or D > 256:
         raise ValueError(f"head_dim must be a multiple of 32 and <= 256, "
                          f"got {D}")
-    g = Hq // Hkv
-    if g * -(-D // _THREADS) > _MAX_ACC:
-        raise ValueError(f"{g} query heads per kv head at head_dim {D} "
-                         f"exceed the kernel's {_MAX_ACC} accumulators")
-    if 4 * (g * D + g * ps + 3 * g) > _MAX_SMEM:
-        raise ValueError("page_size too large for the kernel's shared memory")
+    for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if window < 0 or logit_softcap < 0:
         raise ValueError("window and logit_softcap must be >= 0")
 
@@ -116,32 +130,29 @@ def paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, got "
                          f"{q.device}")
     _check(q, pages_k, pages_v, page_table, lengths, window, logit_softcap)
-    lib = _lib()
     B, Hq, D = q.shape
     P, ps, Hkv, _ = pages_k.shape
+    n = page_table.shape[1]
+    pps = split_pages(B, Hkv, Hq // Hkv, n)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.paged_decode_attention(
-            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, D, P, ps, page_table.shape[1], int(window),
-            float(logit_softcap), float(D ** -0.5), _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
-                           f"error {rc}")
+    # each split's (m, l) pairs, then its acc rows, in f32
+    scratch = torch.empty(B * Hq * -(-n // pps) * (2 + D),
+                          dtype=torch.float32, device=q.device)
+    launch(_lib().paged_decode_attention, q.device, q.data_ptr(),
+           pages_k.data_ptr(), pages_v.data_ptr(), page_table.data_ptr(),
+           lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+           D, P, ps, n, pps, int(window), float(logit_softcap),
+           float(D ** -0.5), _DTYPES[q.dtype])
     global launches
     launches += 1
     return out
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load
     lib = load("paged_attn")
-    fn = lib.paged_decode_attention
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode_attention.argtypes = [p, p, p, p, p, p, p] + [i] * 9 + [
+        ctypes.c_float, ctypes.c_float, i, p]
+    lib.paged_decode_attention.restype = ctypes.c_int
     return lib

@@ -43,18 +43,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from contextlib import nullcontext
 from typing import Union
 
 import torch
 
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.build import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, per wrapper (the plain versions are
 # not counted): one a call, G = 1 (no kernel) aside; a wire wrapper's kernel
-# runs in two passes and counts one
+# runs in several passes (int8 two, top-k two a range of 8 Mi elements) and
+# counts one
 launches = {"ring_hop_accum": 0, "ring_reduce_scatter": 0,
             "ring_all_gather": 0, "int8_quantize": 0, "ring_hop_int8": 0,
             "ring_hop_topk": 0}
@@ -195,12 +196,8 @@ def ring_all_gather(strips: torch.Tensor) -> torch.Tensor:
         return ring_all_gather_plain(strips)
     out = strips.new_empty(G, G * n)
     es = strips.element_size()
-    with torch.cuda.device(strips.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().ring_all_gather(strips.data_ptr(), strips.stride(0) * es,
-                                    out.data_ptr(), G, n * es, stream)
-    if rc != 0:
-        raise RuntimeError(f"ring_all_gather launch failed: CUDA error {rc}")
+    launch(_lib().ring_all_gather, out.device, strips.data_ptr(),
+           strips.stride(0) * es, out.data_ptr(), G, n * es)
     launches["ring_all_gather"] += 1
     return out
 
@@ -209,22 +206,10 @@ def _launch_fold(a, x, x_ms, x_cs, out, c_ptr, c_shift, G, R, P, n) -> None:
     """``csrc/ring.cu``'s fold into ``out`` (P, n): strip p is row p of
     ``a`` (P, n) (row 1 when ``a`` is None) plus rows 1..R, row k at ``x +
     ((p + k) % G) * x_ms + c * x_cs`` with ``c = (p + c_shift + *c_ptr) %
-    G``.  The zero1
-    path launches it once a bucket, so the host's part is kept short: no
-    device switch for tensors on the current device, and the stream as a raw
-    handle (a ``torch.cuda.device`` guard and a ``Stream`` object take ~10
-    of a call's ~20 us: ``experiments/ring_fold_variants.py``)."""
-    dev = out.device
-    if dev.type != "cuda":
-        raise ValueError(f"the ring kernels run on cuda, got {dev}")
-    with (nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        rc = _lib().ring_fold(_DTYPES[out.dtype], _ptr(a), x.data_ptr(),
-                              x_ms, x_cs, out.data_ptr(), c_ptr, c_shift, G,
-                              R, P, n,
-                              torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"ring fold launch failed: CUDA error {rc}")
+    G``."""
+    launch(_lib().ring_fold, out.device, _DTYPES[out.dtype], _ptr(a),
+           x.data_ptr(), x_ms, x_cs, out.data_ptr(), c_ptr, c_shift, G, R, P,
+           n)
 
 
 @functools.cache
@@ -392,9 +377,10 @@ def ring_hop_topk(chunks: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     (k,) f32, idx (k,) int32)`` into a dense f32 buffer and add this
     member's chunk ``c`` of ``chunks`` (G, n) f32.  Returns the dense
     ``(n,)`` sum; the backend re-selects before it forwards.  The indices
-    must be unique (a top-k selection's are) and in ``[0, n)``: the kernel
-    adds with atomics, one rounding per entry, and drops an index outside
-    the chunk."""
+    must be unique (a top-k selection's are): the kernel adds each entry
+    once, one rounding per entry, with a plain load and store, so a
+    repeated index keeps one of its adds (the reference sums them).  An
+    index outside ``[0, n)`` is dropped."""
     _check_rows("chunks", chunks, dtypes=_F32)
     G, n = chunks.shape
     if n == 0:
@@ -468,31 +454,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_wire(entry: str, out: torch.Tensor, *args) -> None:
-    if out.device.type != "cuda":
-        raise ValueError(f"the wire kernels run on cuda, got {out.device}")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_wire_lib(), entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-
-
 def _launch_int8(x, x_ms, x_cs, q, qs, q_ms, q_shift, out, s_out, o_ms,
                  c_dev, c_shift, G, M, n) -> None:
     amax = torch.empty(M, dtype=torch.int32, device=out.device)  # scratch
-    _launch_wire("ring_wire_int8", out, x.data_ptr(), x_ms, x_cs, _ptr(q),
-                 _ptr(qs), q_ms, q_shift, out.data_ptr(), s_out.data_ptr(),
-                 o_ms, amax.data_ptr(), _ptr(c_dev), c_shift, G, M, n)
+    launch(_wire_lib().ring_wire_int8, out.device, x.data_ptr(), x_ms, x_cs,
+           _ptr(q), _ptr(qs), q_ms, q_shift, out.data_ptr(), s_out.data_ptr(),
+           o_ms, amax.data_ptr(), _ptr(c_dev), c_shift, G, M, n)
 
 
 def _launch_topk(x, x_ms, x_cs, vals, idx, v_ms, v_shift, k, out, o_ms,
                  c_dev, c_shift, G, M, n) -> None:
-    _launch_wire("ring_wire_topk", out, x.data_ptr(), x_ms, x_cs,
-                 vals.data_ptr(), idx.data_ptr(), v_ms, v_shift, k,
-                 out.data_ptr(), o_ms, _ptr(c_dev), c_shift, G, M, n)
+    launch(_wire_lib().ring_wire_topk, out.device, x.data_ptr(), x_ms, x_cs,
+           vals.data_ptr(), idx.data_ptr(), v_ms, v_shift, k, out.data_ptr(),
+           o_ms, _ptr(c_dev), c_shift, G, M, n)
 
 
+@functools.cache
 def _wire_lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load("ring_wire")

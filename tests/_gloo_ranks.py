@@ -10,8 +10,10 @@ printed survives it.  Gloo binds the loopback interface
 (``GLOO_SOCKET_IFNAME=lo``), so its rendezvous does not depend on how the
 host's name resolves.  All ranks share one deadline; a rank that exits
 with an error ends the run at once (the others would wait for it in their
-next collective until gloo's own 30-minute timeout).  A failed run reports
-every rank's exit code, run time and the tail of its log.
+next collective until gloo's own 30-minute timeout).  A failed run says
+whether the deadline passed or which rank failed first, and reports every
+rank's exit code, run time (or that the harness killed it) and the tail of
+its log.
 """
 import os
 import subprocess
@@ -39,13 +41,19 @@ def run_ranks(worker, world, tmp_path, src):
                  str(tmp_path / "init"), str(tmp_path)],
                 env=env, stdout=f, stderr=subprocess.STDOUT))
     ended = [None] * world
+    first_failed = None          # the rank whose failure ended the run
+    timed_out = False
     try:
-        while time.monotonic() - t0 < DEADLINE_S:
+        while True:
+            if time.monotonic() - t0 >= DEADLINE_S:
+                timed_out = True
+                break
             for r, p in enumerate(procs):
                 if ended[r] is None and p.poll() is not None:
                     ended[r] = time.monotonic() - t0
-            if all(e is not None for e in ended) or any(
-                    p.returncode not in (None, 0) for p in procs):
+                    if p.returncode != 0 and first_failed is None:
+                        first_failed = r
+            if all(e is not None for e in ended) or first_failed is not None:
                 break
             time.sleep(0.05)
     finally:
@@ -55,12 +63,16 @@ def run_ranks(worker, world, tmp_path, src):
                 p.wait()
     if all(p.returncode == 0 for p in procs):
         return
-    why = (f"timed out after {DEADLINE_S} s" if any(e is None for e in ended)
-           else "a rank failed")
+    if timed_out:
+        why, killed = (f"timed out after {DEADLINE_S} s",
+                       "killed at the deadline")
+    else:
+        why, killed = (f"rank {first_failed} failed first",
+                       f"killed after rank {first_failed} failed")
     report = [f"gloo run of {world} ranks: {why}"]
     for r, p in enumerate(procs):
         tail = logs[r].read_text(errors="replace").splitlines()[-TAIL_LINES:]
-        took = "killed" if ended[r] is None else f"after {ended[r]:.1f} s"
+        took = killed if ended[r] is None else f"after {ended[r]:.1f} s"
         report.append(f"--- rank {r}: exit code {p.returncode} ({took})")
         report.extend(tail)
     pytest.fail("\n".join(report), pytrace=False)

@@ -300,7 +300,7 @@ def test_meshspec_rejects_bad_extents(kw):
 # the process mesh: G CPU processes over gloo against the local mesh
 # ---------------------------------------------------------------------------
 WORKER = """
-import sys
+import os, sys
 import numpy as np, torch, torch.distributed as dist
 rank, world, init, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
     sys.argv[4]
@@ -342,7 +342,13 @@ for hier in ([False, True] if world == 4 else [False]):
         for i, s in enumerate(state.velocity):
             out[f"{tag}/s/{i}"] = s.numpy()
 np.savez(f"{tmp}/rank{rank}.npz", **out)
-dist.destroy_process_group()
+# every rank has written its results; gloo's own teardown has aborted a rank
+# under load ("terminate called without an active exception") after that,
+# so each rank waits for the others and exits without it
+dist.barrier()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 """
 
 

@@ -5,7 +5,10 @@ sm_90a, built at first use); elsewhere every test skips with the reason.
 Run on the card with ``PYTHONPATH=src python -m pytest -m gpu tests``.
 
 Shapes are the serving path's (llama3-8b: Hq 32, Hkv 8, D 128; page size
-16; 34 pages per request) plus gemma2's heads (Hq 8, Hkv 4, D 256).
+16; 34 pages per request) plus gemma2's heads (Hq 8, Hkv 4, D 256).  The
+kernel splits each request's pages over blocks (``split_pages``); the split
+tests put lengths on a split's edge and inside a split, let a window empty
+whole splits, and run B * Hkv under and over the card's 132 SMs.
 Tolerance: bf16 output, both sides compute in f32 and round once, in
 different summation orders — one bf16 ulp at the largest magnitude of
 each request's output (a one-token request returns a raw V row, a long one
@@ -55,7 +58,11 @@ def test_kernel_matches_plain(cuda, Hq, Hkv, D, window, softcap, dtype):
     got = paged_attn.paged_decode_attention(q, pk, pv, pt, ln, **kw)
     torch.cuda.synchronize()
     assert paged_attn.launches == before + 1
-    want = paged_attn.paged_decode_attention_plain(q, pk, pv, pt, ln, **kw)
+    _check_close(got, paged_attn.paged_decode_attention_plain(
+        q, pk, pv, pt, ln, **kw), dtype)
+
+
+def _check_close(got, want, dtype):
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     for b in range(want.shape[0]):   # per request: outputs differ in size
         if dtype == torch.bfloat16:
@@ -64,6 +71,30 @@ def test_kernel_matches_plain(cuda, Hq, Hkv, D, window, softcap, dtype):
             tol = 1e-5
         np.testing.assert_allclose(got[b], want[b], rtol=0, atol=tol,
                                    err_msg=f"request {b}")
+
+
+@pytest.mark.parametrize("B", [4, 24, 80])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 4, 256)])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_kernel_at_split_edges(cuda, B, Hq, Hkv, D, window, dtype):
+    """B * Hkv of 32 and 16 (B 4), 192 and 96 (B 24) and 640 and 320 (B 80,
+    at least one split a page or one split a request)."""
+    ps, n = 16, 34
+    pps = paged_attn.split_pages(B, Hkv, Hq // Hkv, n)
+    edge = pps * ps                       # positions a split
+    choices = sorted({min(max(x, 1), n * ps) for x in (
+        1, edge, edge + 1, 2 * edge - 3, n * ps - edge, n * ps - 5, n * ps)})
+    lengths = [choices[b % len(choices)] for b in range(B)]
+    q, pk, pv, pt, ln = _inputs(cuda, dtype, B, Hq, Hkv, D, ps, n, lengths,
+                                seed=B + D + window)
+    kw = dict(window=window, logit_softcap=0.0)
+    before = paged_attn.launches
+    got = paged_attn.paged_decode_attention(q, pk, pv, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert paged_attn.launches == before + 1
+    _check_close(got, paged_attn.paged_decode_attention_plain(
+        q, pk, pv, pt, ln, **kw), dtype)
 
 
 def test_idle_slot_on_null_page(cuda):
@@ -84,3 +115,7 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         paged_attn.paged_decode_attention(q.transpose(0, 1).contiguous()
                                           .transpose(0, 1), pk, pv, pt, ln)
+    shifted = torch.empty(pk.numel() + 8, dtype=pk.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attn.paged_decode_attention(
+            q, shifted[1:1 + pk.numel()].view(pk.shape), pv, pt, ln)

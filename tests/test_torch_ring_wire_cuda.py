@@ -8,9 +8,11 @@ reason.  Run on the card with
 
 Tolerance: none.  The int8 kernel rounds the product and the sum apart and
 divides as IEEE division, the plain version too, and its only cross-block
-reduction is a max; the top-k kernel adds each unique index once.  So the
-kernels agree with their plain versions bitwise, for 16-byte-aligned and
-unaligned chunk starts, for a member stride of 0 and for subnormal values.
+reduction is a max; the top-k kernel adds each unique index once, a plain
+load, an IEEE add and a store (no float atomics: they flush subnormals).
+So the kernels agree with their plain versions bitwise, for 16-byte-aligned
+and unaligned chunk starts, for a member stride of 0 and for subnormal
+values.
 """
 import pytest
 
@@ -99,6 +101,73 @@ def test_per_member_kernels_match_plain(cuda, n):
             want = kring.ring_hop_topk_plain(chunks, vals, idx, c)
             _same(kring.ring_hop_topk(chunks, vals, idx, c), want, (name, c))
             _same(kring.ring_hop_topk(chunks, vals, idx, cd), want, (name, c))
+
+
+# chunk sizes of VGG-A's fusion buckets at G = 4 (chip_smoke.py's
+# vgg_buckets): ragged (250, the fc15_b strip), and 16-byte-aligned up to
+# the largest, fc13_w
+VGG_NS = [250, 240352, 1024000, 25690112]
+
+
+@pytest.mark.parametrize("ratio", [0.05, 0.25])
+@pytest.mark.parametrize("n", VGG_NS)
+def test_topk_hop_at_vgg_bucket_strides(cuda, n, ratio):
+    """Member-batched over a stride-0 stack and distinct partials, and per
+    member with host and on-card chunk indices; messages that hold
+    subnormal values (below 2^-126, kept) and a dense part of -0 (+0
+    after the hop)."""
+    G = 4
+    k = topk_chunk_k(n, ratio)
+    one = _randn(cuda, G * n, seed=n)
+    for name, st in (("stride0", one.expand(G, G * n)),
+                     ("distinct", _randn(cuda, G, G * n, seed=n + 1))):
+        vals, idx = _topk_select(kring.member_chunks(st, -1), k)
+        vals = vals.clone()
+        vals[:, ::3] = vals[:, ::3] * 2.0 ** -140      # subnormal entries
+        for step in range(G - 1):
+            dense = kring.ring_hop_topk_members(st, vals, idx, step)
+            _same(dense, kring.ring_hop_topk_members_plain(st, vals, idx,
+                                                           step),
+                  (name, step))
+            vals, idx = _topk_select(dense, k)
+    chunks = -torch.zeros(G, n, device=cuda)
+    chunks[2] = one[:n]
+    vals, idx = _topk_select(one[n:2 * n], k)
+    vals = vals * 2.0 ** -140
+    for c in (1, 2):
+        cd = torch.tensor([c], dtype=torch.int32, device=cuda)
+        want = kring.ring_hop_topk_plain(chunks, vals, idx, c)
+        assert (want[idx.long()] != 0).any()   # subnormal sums survive
+        _same(kring.ring_hop_topk(chunks, vals, idx, c), want, c)
+        _same(kring.ring_hop_topk(chunks, vals, idx, cd), want, c)
+    off = torch.ones(n, dtype=torch.bool, device=cuda)
+    off[idx.long()] = False                  # the dense part alone: +0
+    assert not torch.signbit(kring.ring_hop_topk(chunks, vals, idx, 1)[off]
+                             ).any()
+
+
+@pytest.mark.parametrize("k", [1, 6, 5000])
+@pytest.mark.parametrize("n", [2 ** 24 + 12, 2 ** 24 + 13])
+def test_topk_hop_at_range_edges(cuda, n, k):
+    """The kernel writes the chunk in ranges of at most 2^23 elements, each
+    a dense pass and then a scatter of the entries that fall in it: entries
+    on the first and last element of each of the 3 ranges, n a multiple of
+    4 (16-byte path) and not (4-byte path)."""
+    size = (-(-n // 3) + 3) // 4 * 4           # the kernel's range size
+    edges = [0, size - 1, size, 2 * size - 1, 2 * size, n - 1]
+    chunks = _randn(cuda, 2, n, seed=n + k)
+    rest = torch.randperm(n, device=cuda)
+    rest = rest[~torch.isin(rest, torch.tensor(edges, device=cuda))]
+    idx = torch.cat([torch.tensor(edges, device=cuda), rest])[:k]
+    idx = idx.to(torch.int32)
+    vals = _randn(cuda, k, seed=k + 1)
+    for c in (0, 1):
+        _same(kring.ring_hop_topk(chunks, vals, idx, c),
+              kring.ring_hop_topk_plain(chunks, vals, idx, c), (n, k, c))
+    st = _randn(cuda, 2, 2 * n, seed=n)
+    rows_v, rows_i = vals.repeat(2, 1), idx.repeat(2, 1)
+    _same(kring.ring_hop_topk_members(st, rows_v, rows_i, 0),
+          kring.ring_hop_topk_members_plain(st, rows_v, rows_i, 0), (n, k))
 
 
 def test_all_zero_message_and_signed_zeros(cuda):
