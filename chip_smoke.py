@@ -60,8 +60,11 @@ Phase 8  the three wire-format kernels (``int8_quantize``, ``ring_hop_int8``,
          of 1 to 2^20 + 3 elements, aligned, unaligned, wide-stride, stride-0,
          all-zero and subnormal stacks, the per-member forms with host and on-card
          chunk indices, and both rings at VGG-A's 14 bucket shapes at G = 4;
-         then CUDA-event times of each kernel and its plain version (top-k
-         also ``index_add``) beside the bound.
+         ``torch.profiler`` must show one int8 call as one kernel on the
+         card and no memset; then CUDA-event times of each kernel and its
+         plain version (top-k also ``index_add``) beside the bound, and the
+         int8 calls' device time alone (CUDA graphs) beside their two-pass
+         floor.
 Phase 9  the zero1 path under ``wire_format="int8"`` and ``"topk"`` (ratio
          0.05, error feedback; then again at 0.25, ``BENCH_fig5.json``'s):
          full-width VGG-A, G = 4 members on the card, 3 steps of batch 64
@@ -104,6 +107,8 @@ Phase 12 the flash-attention kernel against its plain version: a feature
          kernel's where it computes the same function without the softcap;
          the bound, the achieved TFLOP/s and the share of the bf16
          tensor-core bound.  (bf16 runs the wgmma kernel, f32 the FFMA one.)
+         The f32 instance is also timed at gemma2-2b's global-layer shape,
+         beside its FFMA bound and ``F.scaled_dot_product_attention`` in f32.
 Phase 13 the LM training path: gemma2-2b at full width and depth
          (2,614,222,080 f32 params) through ``compile_run`` and ``Run.fit``,
          AdamW, 4 steps of batch 2 x 1024 tokens of the seeded
@@ -206,6 +211,30 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def graph_ms(fn, warmup=3, reps=20) -> float:
+    """Median CUDA-event time of one replay of ``fn`` captured as a CUDA
+    graph: the device's time alone, no host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, warmup, reps)
+
+
+def device_ops(fn):
+    """Names of the kernels and memory operations ``fn`` puts on the card,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def cuda_ms(fn, warmup=10, reps=50) -> float:
@@ -1260,12 +1289,31 @@ def phase8(dev, card):
             cases += check_pairs(pairs, f"per member n={n} {name}", worst)
     print(f"  {cases} kernel calls bitwise equal to their plain versions")
 
+    # one int8 call is one kernel on the card, and no memset
+    st = torch.randn(4, 4 * 1000, device=dev)
+    q, s = kring.int8_quantize_members(st)
+    for name, fn in (("int8_quantize_members",
+                      lambda: kring.int8_quantize_members(st)),
+                     ("ring_hop_int8_members",
+                      lambda: kring.ring_hop_int8_members(st, q, s, 0)),
+                     ("int8_quantize", lambda: kring.int8_quantize(st[1])),
+                     ("ring_hop_int8", lambda: kring.ring_hop_int8(
+                         st.view(16, 1000), q[0], s[:1], 5))):
+        ops = device_ops(fn)
+        check(len(ops) == 1 and "int8_wire_kernel" in ops[0],
+              f"{name}: the card ran {ops}, want one int8_wire_kernel")
+    print("  torch.profiler: one int8 call (member-batched or one member, "
+          "quantize or hop) is one int8_wire_kernel on the card and no "
+          "memset")
+    del st, q, s
+
     G = 4
     plan = vgg_buckets(G)
     at_buckets = 0
-    t = dict.fromkeys(("q", "q_plain", "h", "h_plain", "k", "k_plain"), 0.0)
-    per_bucket = {"q": [], "h": [], "k": []}
-    nbytes = dict.fromkeys(("q", "h", "k"), 0)
+    t = dict.fromkeys(("q", "q_plain", "h", "h_plain", "k", "k_plain",
+                       "q_graph", "h_graph"), 0.0)
+    per_bucket = {"q": [], "h": [], "k": [], "q_graph": [], "h_graph": []}
+    nbytes = dict.fromkeys(("q", "h", "k", "q_floor", "h_floor"), 0)
     for bi, b in enumerate(plan.buckets):
         N = b.padded_size
         n = N // G
@@ -1294,9 +1342,19 @@ def phase8(dev, card):
             t[key] += ms
             if key in per_bucket:
                 per_bucket[key].append(ms)
-        # bytes each call must move: inputs read once, outputs written once
+        # the int8 calls' device time alone, each as a CUDA graph
+        for key, fn in (("q_graph", lambda: kring.int8_quantize_members(st)),
+                        ("h_graph",
+                         lambda: kring.ring_hop_int8_members(st, q, s, 0))):
+            ms = graph_ms(fn)
+            t[key] += ms
+            per_bucket[key].append(ms)
+        # bytes each call must move: inputs read once, outputs written once;
+        # the int8 kernels' two passes read the inputs twice (their floor)
         nbytes["q"] += 4 * N + N + 4 * G
         nbytes["h"] += 4 * N + N + 4 * G + N + 4 * G
+        nbytes["q_floor"] += 2 * 4 * N + N + 4 * G
+        nbytes["h_floor"] += 2 * (4 * N + N + 4 * G) + N + 4 * G
         nbytes["k"] += 4 * N + 8 * G * k + 4 * N
         del g, st, kept, q, s, vals, idx
     print(f"  at VGG-A's {plan.n_collectives} bucket shapes at G={G}: "
@@ -1315,6 +1373,14 @@ def phase8(dev, card):
     print(f"  per bucket (chunk sizes {[b.padded_size // G for b in plan.buckets]}"
           f"): int8_quantize {per_bucket['q']} ms; ring_hop_int8 "
           f"{per_bucket['h']} ms; ring_hop_topk {per_bucket['k']} ms [{card}]")
+    print(f"  int8, device time alone (each call a CUDA graph), summed over "
+          f"the {plan.n_collectives} buckets: int8_quantize {t['q_graph']} ms "
+          f"(two-pass floor {bytes_bound(nbytes['q_floor'])} ms, bound "
+          f"{bytes_bound(nbytes['q'])} ms), ring_hop_int8 {t['h_graph']} ms "
+          f"(floor {bytes_bound(nbytes['h_floor'])} ms, bound "
+          f"{bytes_bound(nbytes['h'])} ms); per bucket int8_quantize "
+          f"{per_bucket['q_graph']} ms, ring_hop_int8 {per_bucket['h_graph']}"
+          f" ms [{card}]")
 
     # one member's call at the largest chunk (fc13_w, n = 25,690,112)
     n = max(b.padded_size for b in plan.buckets) // G
@@ -1349,8 +1415,13 @@ def phase8(dev, card):
         rows[name] = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
                       "library_ms": None if lib is None else cuda_ms(lib),
                       "bound_ms": bytes_bound(nb), "bound_by": "bytes"}
+        extra = ""
+        if lib is None:   # int8: the device time alone and the two-pass floor
+            extra = (f"device alone (CUDA graph) {graph_ms(fn)} ms, two-pass "
+                     f"floor {bytes_bound(nb + (4 * n if name == 'int8_quantize' else 5 * n))}"
+                     f" ms, ")
         print(f"  {name}, one member at n={n}" + (f", k={k}" if lib else "")
-              + f": kernel {rows[name]['ms']} ms, plain "
+              + f": kernel {rows[name]['ms']} ms, {extra}plain "
               f"{rows[name]['plain_ms']} ms, "
               + (f"index_add {rows[name]['library_ms']} ms, " if lib else
                  "no single PyTorch call computes it, ")
@@ -2089,6 +2160,35 @@ def phase12(dev, card):
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
         del q, k, v
+
+    # the f32 instances (FFMA; no model's path runs them) at the global
+    # layer's shape
+    name, B, S, Hq, Hkv, D, window, softcap = FLASH_MODEL_SHAPES[0]
+    q, k, v = flash_inputs(dev, torch.float32, B, S, S, Hq, Hkv, D, S + D)
+    kw = dict(causal=True, window=window, logit_softcap=softcap)
+    got = kflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    r = flash_ratio(got, kflash.flash_attention_plain(q, k, v, **kw))
+    check(np.isfinite(r) and r <= 1.0, f"{name} f32: kernel disagrees with "
+          f"the plain version (error / tolerance {r})")
+    del got
+    ms = cuda_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
+    plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v, **kw),
+                       1, 3)
+    _, _, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True, window, 4)
+    f32_bytes = bytes_bound(4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 3, 20)
+    bare_ms = cuda_ms(lambda: kflash.flash_attention(q, k, v), 3, 20)
+    print(f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, softcap {softcap}, "
+          f"f32 (the FFMA instance): error / tolerance {r}; kernel {ms} ms, "
+          f"plain {plain_ms} ms; bound {max(f32_ms, f32_bytes)} ms "
+          f"(operations at the f32 FFMA peak; bytes {f32_bytes} ms); kernel "
+          f"/ bound {ms / max(f32_ms, f32_bytes)}; without the softcap "
+          f"kernel {bare_ms} ms, F.scaled_dot_product_attention f32 "
+          f"{sdpa_ms} ms [{card}]")
+    del q, k, v, qt, kt, vt
     return row
 
 

@@ -47,6 +47,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
+from chip_smoke import graph_ms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ring as kring  # noqa: E402
 
@@ -113,17 +114,6 @@ def fold_call(lib, a, x, x_ms, x_cs, out, c_ptr, c_shift, G, R, P, n):
                        x_ms, x_cs, out.data_ptr(), c_ptr, c_shift, G, R, P, n,
                        stream)
     assert rc == 0, rc
-
-
-def graph_ms(fn):
-    """CUDA-event median of one replay of ``fn`` captured as a CUDA graph:
-    the device's time for its launches, with no host time between them."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cs.cuda_ms(graph.replay, 3, 20)
 
 
 def host_us(fn, calls=2000):

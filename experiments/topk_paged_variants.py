@@ -64,6 +64,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
+from chip_smoke import graph_ms  # noqa: E402
 from repro_torch.comm.backends.ring import _topk_select, topk_chunk_k  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import paged_attn  # noqa: E402
@@ -156,16 +157,6 @@ def build_variant(job):
 
 def stream():
     return torch.cuda.current_stream().cuda_stream
-
-
-def graph_ms(fn):
-    """CUDA-event median of one replay of ``fn`` captured as a CUDA graph."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cs.cuda_ms(graph.replay, 3, 20)
 
 
 def topk_call(lib, st, vals, idx, out, step):

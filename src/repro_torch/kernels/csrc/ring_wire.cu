@@ -17,17 +17,30 @@
 // Offsets are 64-bit elements (a chunk reaches 25,690,112 elements at
 // VGG-A's fc13_w bucket, G = 4).
 //
-// int8 (int8_quantize, ring_hop_int8): two launches.
-//   Pass 1 computes acc = q*s + x (x alone for int8_quantize), with
-//   __fmul_rn / __fadd_rn so that nvcc cannot contract it into an FMA (the
-//   plain PyTorch version rounds the product and the sum apart), takes each
-//   block's max |acc| and folds it into member m's slot with atomicMax on
-//   the bits: non-negative floats order as their bits, and a max is exact in
-//   any order, so the scale is the same in every run.  The slots are zeroed
-//   on the stream first.
-//   Pass 2 computes s = amax / 127 (IEEE division, __fdiv_rn), 1 where that
-//   is 0, recomputes acc the same way and writes q' = round-half-even(acc/s)
-//   and s.  The result is bitwise the plain version's.
+// int8 (int8_quantize, ring_hop_int8): one cooperative launch a call.
+//   The scale is the max over the whole message, so every element is read
+//   twice, with a grid-wide barrier between the passes.  A member's units
+//   (16-byte vectors of 4 floats, or floats) fall in tiles of kThreads *
+//   kLoads units; block b of a member's B blocks takes tiles b, b + B, ...
+//   Each thread issues its kLoads loads of a tile before their arithmetic.
+//   Pass 1 walks the block's tiles forward and computes acc = q*s + x (x
+//   alone for int8_quantize) with __fmul_rn / __fadd_rn, so that nvcc cannot
+//   contract it into an FMA (the plain PyTorch version rounds the product
+//   and the sum apart), and writes the block's max |acc| bits into its own
+//   slot of a workspace: non-negative floats order as their bits.  The
+//   slots are written every call, so nothing is zeroed.  Then
+//   cooperative_groups::this_grid().sync(), and every block folds its
+//   member's slots; a max is exact in any order, so the scale is the same
+//   in every run.  s = amax / 127 (IEEE division, __fdiv_rn), 1 where that
+//   is 0.  Pass 2 walks the block's tiles backward, recomputes acc the same
+//   way and writes q' = round-half-even(acc/s) with streaming stores, and
+//   s.  The result is bitwise the plain version's.  Backward, pass 2 starts
+//   on what pass 1 read last, which is still in the 50 MB L2; the streaming
+//   loads and stores of pass 2 keep the lines it has yet to read there.
+//   The grid is the card's co-resident blocks (occupancy x SMs), spread
+//   over the members; a cooperative launch refuses more, so with more
+//   members than that (each needs a block) the entry returns
+//   cudaErrorCooperativeLaunchTooLarge and launches nothing.
 // topk (ring_hop_topk): the dense pass and the scatter, range by range.
 //   The result is out = 0 + x (the 0 + turns -0 into +0, as the reference's
 //   dense zeros do) with vals[j] added at idx[j].  The indices of one top-k
@@ -50,7 +63,9 @@
 //
 // Bound on this card, bytes over 3.35 TB/s, per member and chunk of n:
 // int8_quantize must read 4n and write n, a hop read n + 4n and write n; the
-// two passes read the inputs twice (9n and 11n moved).  ring_hop_topk must
+// two passes read the inputs twice (9n and 11n moved) where pass 2 misses
+// L2, as it must for a chunk of twice the L2 (fc13_w's 4 members hold 514
+// MB: pass 2 finds ~50 MB of it there).  ring_hop_topk must
 // read 4n + 8k and write 4n; it reads the indices once a range (4k bytes
 // each).  Their times are in PERF.md.
 //
@@ -59,15 +74,19 @@
 // launch on the given stream, never synchronise, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments they do not take).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1024;   // per launch, spread over the members
+constexpr long long kMaxBlocks = 1024;   // top-k: per launch, spread over the members
 constexpr long long kRange = 8LL << 20;  // top-k: out elements a dense pass and scatter
 constexpr int kScatter = 4;              // top-k: entries a thread, loads before stores
+constexpr int kLoads = 4;                // int8: loads a thread in flight, a tile
+constexpr long long kTile = static_cast<long long>(kThreads) * kLoads;  // int8: units a tile
+constexpr int kDevices = 64;             // int8: devices whose occupancy is cached
 
 __device__ __forceinline__ long long wrap(long long i, long long m) {
   long long r = i % m;
@@ -85,7 +104,7 @@ struct WireArgs {
   void* out;               // int8 q' or f32 dense
   float* s_out;            // int8: the new scales, one per member
   long long o_ms;
-  unsigned* amax;          // int8: (M,) slots, zeroed before pass 1
+  unsigned* slots;         // int8: one per block of the grid, member-major
   const int* c_dev;
   int c_shift, G, M;
   long long n;
@@ -102,78 +121,169 @@ __device__ __forceinline__ Member member(const WireArgs& p) {
   return {p.x + m * p.x_ms + c * p.x_cs, wrap(m + p.msg_shift, p.M)};
 }
 
-__device__ __forceinline__ float acc1(float x, const int8_t* q, float s, long long i) {
-  return q ? __fadd_rn(__fmul_rn(static_cast<float>(q[i]), s), x) : x;
+// the int8 arithmetic on one float or one vector of 4
+__device__ __forceinline__ float dq(signed char q, float s, float x) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(q), s), x);
 }
-
-__device__ __forceinline__ float4 acc4(float4 x, const int8_t* q, float s, long long i) {
-  if (!q) return x;
-  const char4 v = reinterpret_cast<const char4*>(q)[i];
-  return make_float4(__fadd_rn(__fmul_rn(static_cast<float>(v.x), s), x.x),
-                     __fadd_rn(__fmul_rn(static_cast<float>(v.y), s), x.y),
-                     __fadd_rn(__fmul_rn(static_cast<float>(v.z), s), x.z),
-                     __fadd_rn(__fmul_rn(static_cast<float>(v.w), s), x.w));
+__device__ __forceinline__ float acc_of(float x, signed char q, float s) { return dq(q, s, x); }
+__device__ __forceinline__ float4 acc_of(float4 x, char4 q, float s) {
+  return make_float4(dq(q.x, s, x.x), dq(q.y, s, x.y), dq(q.z, s, x.z), dq(q.w, s, x.w));
 }
-
 __device__ __forceinline__ unsigned abs_bits(float v) { return __float_as_uint(fabsf(v)); }
-
-__device__ __forceinline__ signed char quant1(float acc, float s) {
+__device__ __forceinline__ unsigned abs_bits(float4 v) {
+  return max(max(abs_bits(v.x), abs_bits(v.y)), max(abs_bits(v.z), abs_bits(v.w)));
+}
+__device__ __forceinline__ signed char quant(float acc, float s) {
   return static_cast<signed char>(__float2int_rn(__fdiv_rn(acc, s)));
 }
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) int8_amax_kernel(WireArgs p) {
-  const Member mb = member(p);
-  const int8_t* q = p.msg ? static_cast<const int8_t*>(p.msg) + mb.r * p.msg_ms : nullptr;
-  const float s = p.msg ? static_cast<const float*>(p.msg2)[mb.r] : 0.f;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  unsigned best = 0;
-  long long done = 0;
-  if (kVec) {
-    const long long nv = p.n / 4;
-    const float4* xv = reinterpret_cast<const float4*>(mb.x);
-    for (long long i = tid; i < nv; i += stride) {
-      const float4 a = acc4(xv[i], q, s, i);
-      best = max(best, max(max(abs_bits(a.x), abs_bits(a.y)), max(abs_bits(a.z), abs_bits(a.w))));
-    }
-    done = nv * 4;
-  }
-  for (long long i = done + tid; i < p.n; i += stride)
-    best = max(best, abs_bits(acc1(mb.x[i], q, s, i)));
-  best = __reduce_max_sync(0xffffffffu, best);
-  __shared__ unsigned warp_best[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) best = max(best, warp_best[w]);
-    atomicMax(p.amax + blockIdx.y, best);
-  }
+__device__ __forceinline__ char4 quant(float4 a, float s) {
+  return make_char4(quant(a.x, s), quant(a.y, s), quant(a.z, s), quant(a.w, s));
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) int8_quant_kernel(WireArgs p) {
-  const Member mb = member(p);
-  const int8_t* q = p.msg ? static_cast<const int8_t*>(p.msg) + mb.r * p.msg_ms : nullptr;
-  const float s = p.msg ? static_cast<const float*>(p.msg2)[mb.r] : 0.f;
-  float sc = __fdiv_rn(__uint_as_float(p.amax[blockIdx.y]), 127.0f);
-  sc = sc > 0.f ? sc : 1.0f;
-  signed char* o = static_cast<signed char*>(p.out) + static_cast<long long>(blockIdx.y) * p.o_ms;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long done = 0;
-  if (kVec) {
-    const long long nv = p.n / 4;
-    const float4* xv = reinterpret_cast<const float4*>(mb.x);
-    char4* ov = reinterpret_cast<char4*>(o);
-    for (long long i = tid; i < nv; i += stride) {
-      const float4 a = acc4(xv[i], q, s, i);
-      ov[i] = make_char4(quant1(a.x, sc), quant1(a.y, sc), quant1(a.z, sc), quant1(a.w, sc));
-    }
-    done = nv * 4;
+template <bool kVec> struct Unit;
+template <> struct Unit<true> { using X = float4; using Q = char4; };
+template <> struct Unit<false> { using X = float; using Q = signed char; };
+
+// One member's view for the int8 passes: its units (n / 4 vectors, or n
+// floats), its message row, and the vector path's ragged end (n % 4
+// elements, taken by block 0's first threads in both passes).
+template <bool kVec, bool kHop>
+struct Int8View {
+  using X = typename Unit<kVec>::X;
+  using Q = typename Unit<kVec>::Q;
+  const float* x;
+  const signed char* q;    // message row (kHop)
+  float s;                 // its scale (kHop)
+  long long units, tiles, tail;
+
+  __device__ __forceinline__ explicit Int8View(const WireArgs& p) {
+    const Member mb = member(p);
+    x = mb.x;
+    q = kHop ? static_cast<const signed char*>(p.msg) + mb.r * p.msg_ms : nullptr;
+    s = kHop ? static_cast<const float*>(p.msg2)[mb.r] : 0.f;
+    units = kVec ? p.n / 4 : p.n;
+    tiles = (units + kTile - 1) / kTile;
+    tail = kVec && blockIdx.x == 0 ? p.n - 4 * units : 0;
   }
-  for (long long i = done + tid; i < p.n; i += stride) o[i] = quant1(acc1(mb.x[i], q, s, i), sc);
+  // unit i of x (and of the message, into qv); kLast: pass 2's loads, the
+  // data's last use
+  template <bool kLast>
+  __device__ __forceinline__ X load(long long i, Q& qv) const {
+    const X* xv = reinterpret_cast<const X*>(x) + i;
+    if constexpr (kHop) {
+      const Q* qp = reinterpret_cast<const Q*>(q) + i;
+      qv = kLast ? __ldcs(qp) : __ldg(qp);
+    }
+    return kLast ? __ldcs(xv) : __ldg(xv);
+  }
+  __device__ __forceinline__ X acc(X xv, Q qv) const {
+    if constexpr (kHop) return acc_of(xv, qv, s);
+    return xv;
+  }
+  __device__ __forceinline__ float tail_acc(long long e) const {
+    return kHop ? dq(q[e], s, x[e]) : x[e];
+  }
+};
+
+// max over the block of each thread's v (every thread gets it)
+__device__ __forceinline__ unsigned block_max(unsigned v) {
+  __shared__ unsigned warp_best[kThreads / 32];
+  v = __reduce_max_sync(0xffffffffu, v);
+  __syncthreads();   // warp_best's last readers are done
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < kThreads / 32; ++w) v = max(v, warp_best[w]);
+  return v;
+}
+
+// pass 1: the block's tiles forward; its max |acc| bits into its slot
+template <bool kVec, bool kHop>
+__device__ __forceinline__ void int8_pass1(const WireArgs& p) {
+  const Int8View<kVec, kHop> v(p);
+  const long long B = gridDim.x;
+  unsigned best = 0;
+  for (long long t = blockIdx.x; t < v.tiles; t += B) {
+    const long long base = t * kTile + threadIdx.x;
+    typename Unit<kVec>::X xv[kLoads];
+    typename Unit<kVec>::Q qv[kLoads] = {};
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (base + u * kThreads < v.units) xv[u] = v.template load<false>(base + u * kThreads, qv[u]);
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (base + u * kThreads < v.units) best = max(best, abs_bits(v.acc(xv[u], qv[u])));
+  }
+  if (threadIdx.x < v.tail) best = max(best, abs_bits(v.tail_acc(4 * v.units + threadIdx.x)));
+  best = block_max(best);
+  if (threadIdx.x == 0) p.slots[blockIdx.y * B + blockIdx.x] = best;
+}
+
+// pass 2: fold the member's slots into its scale; the block's tiles
+// backward, q' = round(acc / s) with streaming stores
+template <bool kVec, bool kHop>
+__device__ __forceinline__ void int8_pass2(const WireArgs& p) {
+  using Q = typename Unit<kVec>::Q;
+  const Int8View<kVec, kHop> v(p);
+  const long long B = gridDim.x;
+  unsigned amax = 0;
+  for (long long b = threadIdx.x; b < B; b += kThreads)
+    amax = max(amax, __ldcg(p.slots + blockIdx.y * B + b));
+  amax = block_max(amax);
+  float sc = __fdiv_rn(__uint_as_float(amax), 127.0f);
+  sc = sc > 0.f ? sc : 1.0f;
+  signed char* ob = static_cast<signed char*>(p.out) + static_cast<long long>(blockIdx.y) * p.o_ms;
+  Q* o = reinterpret_cast<Q*>(ob);
+  if (blockIdx.x < v.tiles) {
+    for (long long t = blockIdx.x + (v.tiles - 1 - blockIdx.x) / B * B; t >= 0; t -= B) {
+      const long long base = t * kTile + threadIdx.x;
+      typename Unit<kVec>::X xv[kLoads];
+      Q qv[kLoads] = {};
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (base + u * kThreads < v.units) xv[u] = v.template load<true>(base + u * kThreads, qv[u]);
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (base + u * kThreads < v.units) __stcs(o + base + u * kThreads, quant(v.acc(xv[u], qv[u]), sc));
+    }
+  }
+  if (threadIdx.x < v.tail) {
+    const long long e = 4 * v.units + threadIdx.x;
+    ob[e] = quant(v.tail_acc(e), sc);
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) p.s_out[blockIdx.y] = sc;
+}
+
+template <bool kVec, bool kHop>
+__global__ void __launch_bounds__(kThreads) int8_wire_kernel(WireArgs p) {
+  int8_pass1<kVec, kHop>(p);
+  cooperative_groups::this_grid().sync();
+  int8_pass2<kVec, kHop>(p);
+}
+
+template <bool kVec, bool kHop>
+cudaError_t launch_int8(dim3 grid, WireArgs p, cudaStream_t s) {
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&int8_wire_kernel<kVec, kHop>),
+                                     grid, dim3(kThreads), args, 0, s);
+}
+
+// blocks of each int8 instance the device holds at once (occupancy x SMs),
+// the current device's, cached; 0 on error
+int resident(int which) {
+  static int cache[kDevices][4];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices) return 0;
+  if (cache[dev][which] > 0) return cache[dev][which];
+  const void* fns[4] = {reinterpret_cast<const void*>(&int8_wire_kernel<false, false>),
+                        reinterpret_cast<const void*>(&int8_wire_kernel<false, true>),
+                        reinterpret_cast<const void*>(&int8_wire_kernel<true, false>),
+                        reinterpret_cast<const void*>(&int8_wire_kernel<true, true>)};
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[which], kThreads, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  cache[dev][which] = per_sm * sms;
+  return cache[dev][which];
 }
 
 // out[lo, hi) = 0 + x[lo, hi) for member blockIdx.y (lo % 4 == 0)
@@ -245,31 +355,54 @@ bool bad_common(const WireArgs& p) {
 
 }  // namespace
 
+// The workspace slots ring_wire_int8 may need on the current device: the
+// most blocks any int8 instance holds at once.  0 on a CUDA error.
+extern "C" long long ring_wire_int8_slots() {
+  long long most = 0;
+  for (int which = 0; which < 4; ++which) {
+    const long long r = resident(which);
+    if (r == 0) return 0;
+    most = r > most ? r : most;
+  }
+  return most;
+}
+
 // int8_quantize (msg null) and ring_hop_int8: out (M, n) int8 at o_ms bytes a
-// row, s_out (M,) f32, amax (M,) scratch of 4 bytes each.  Strides and n
-// count elements of their own type.
+// row, s_out (M,) f32, slots a workspace of n_slots 4-byte words (at least
+// ring_wire_int8_slots(); a call writes each slot it uses before reading
+// it).  Strides and n count elements of their own type.  One cooperative
+// launch; cudaErrorCooperativeLaunchTooLarge when M exceeds the blocks the
+// device holds at once.
 extern "C" int ring_wire_int8(const void* x, long long x_ms, long long x_cs, const void* q,
                               const void* qs, long long q_ms, int q_shift, void* out,
-                              void* s_out, long long o_ms, void* amax, const void* c_dev,
-                              int c_shift, int G, int M, long long n, void* stream) {
+                              void* s_out, long long o_ms, void* slots, long long n_slots,
+                              const void* c_dev, int c_shift, int G, int M, long long n,
+                              void* stream) {
   WireArgs p{static_cast<const float*>(x), x_ms, x_cs, q, qs, q_ms, q_shift, 0, out,
-             static_cast<float*>(s_out), o_ms, static_cast<unsigned*>(amax),
+             static_cast<float*>(s_out), o_ms, static_cast<unsigned*>(slots),
              static_cast<const int*>(c_dev), c_shift, G, M, n};
-  if (bad_common(p) || !s_out || !amax || (q && !qs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_common(p) || !s_out || !slots || (q && !qs)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned(x, x_ms * 4, 16) && aligned(x, x_cs * 4, 16) &&
                    aligned(out, o_ms, 4) && (!q || aligned(q, q_ms, 4));
-  const dim3 grid(blocks_for(vec ? n / 4 + 1 : n, M), static_cast<unsigned>(M));
-  cudaError_t rc = cudaMemsetAsync(amax, 0, static_cast<size_t>(M) * sizeof(unsigned), s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (vec) {
-    int8_amax_kernel<true><<<grid, kThreads, 0, s>>>(p);
-    int8_quant_kernel<true><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    int8_amax_kernel<false><<<grid, kThreads, 0, s>>>(p);
-    int8_quant_kernel<false><<<grid, kThreads, 0, s>>>(p);
+  const long long held = resident(2 * vec + (q != nullptr));
+  if (held == 0) {
+    const cudaError_t rc = cudaGetLastError();
+    return static_cast<int>(rc != cudaSuccess ? rc : cudaErrorInvalidDevice);
   }
-  return static_cast<int>(cudaGetLastError());
+  const long long units = vec ? n / 4 : n;
+  const long long tiles = (units + kTile - 1) / kTile;
+  long long per = held / M < tiles ? held / M : tiles;   // blocks a member
+  per = per > 0 ? per : 1;
+  if (per * M > held) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (per * M > n_slots) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(per), static_cast<unsigned>(M));
+  cudaError_t rc;
+  if (vec)
+    rc = q ? launch_int8<true, true>(grid, p, s) : launch_int8<true, false>(grid, p, s);
+  else
+    rc = q ? launch_int8<false, true>(grid, p, s) : launch_int8<false, false>(grid, p, s);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 // ring_hop_topk: vals (f32) and idx (int32) rows of k at v_ms elements a row;

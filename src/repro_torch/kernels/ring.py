@@ -53,9 +53,9 @@ from repro_torch.kernels.build import launch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, per wrapper (the plain versions are
-# not counted): one a call, G = 1 (no kernel) aside; a wire wrapper's kernel
-# runs in several passes (int8 two, top-k two a range of 8 Mi elements) and
-# counts one
+# not counted): one a call, G = 1 (no kernel) aside; the int8 kernel is one
+# cooperative launch of two passes, the top-k one two launches a range of 8
+# Mi elements, and each call counts one
 launches = {"ring_hop_accum": 0, "ring_reduce_scatter": 0,
             "ring_all_gather": 0, "int8_quantize": 0, "ring_hop_int8": 0,
             "ring_hop_topk": 0}
@@ -401,7 +401,11 @@ def ring_hop_topk(chunks: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
 def int8_quantize_members(stacked: torch.Tensor):
     """The first send of the int8 ring for all G members of a ``(G, N)``
     f32 stack (any member stride, 0 included): row m of ``(q (G, n) int8,
-    scale (G,) f32)`` is member m's chunk ``(m - 1) % G`` quantized."""
+    scale (G,) f32)`` is member m's chunk ``(m - 1) % G`` quantized.  On
+    the card G may not exceed the blocks the kernel's cooperative grid
+    holds at once (528 to 1056 on an H100, by kernel instance): past that
+    the launch is refused and this raises; so for
+    :func:`ring_hop_int8_members`."""
     G, n = _check_stack(stacked)
     if stacked.device.type == "cpu":
         return int8_quantize_members_plain(stacked)
@@ -456,10 +460,24 @@ def _ptr(t):
 
 def _launch_int8(x, x_ms, x_cs, q, qs, q_ms, q_shift, out, s_out, o_ms,
                  c_dev, c_shift, G, M, n) -> None:
-    amax = torch.empty(M, dtype=torch.int32, device=out.device)  # scratch
+    # the kernel's block slots: every call writes each slot it reads, so a
+    # fresh allocation on the current stream needs no zeroing, and two
+    # calls that may overlap (other streams, graph replays) never share one
+    ws = torch.empty(_int8_slots(out.device.index), dtype=torch.int32,
+                     device=out.device)
     launch(_wire_lib().ring_wire_int8, out.device, x.data_ptr(), x_ms, x_cs,
            _ptr(q), _ptr(qs), q_ms, q_shift, out.data_ptr(), s_out.data_ptr(),
-           o_ms, amax.data_ptr(), _ptr(c_dev), c_shift, G, M, n)
+           o_ms, ws.data_ptr(), ws.numel(), _ptr(c_dev), c_shift, G, M, n)
+
+
+@functools.cache
+def _int8_slots(index: int) -> int:
+    """The most blocks the int8 kernel's grid holds on device ``index``."""
+    with torch.cuda.device(index):
+        slots = _wire_lib().ring_wire_int8_slots()
+    if slots < 1:
+        raise RuntimeError(f"ring_wire_int8_slots failed on cuda:{index}")
+    return slots
 
 
 def _launch_topk(x, x_ms, x_cs, vals, idx, v_ms, v_shift, k, out, o_ms,
@@ -476,8 +494,10 @@ def _wire_lib() -> ctypes.CDLL:
     if lib.ring_wire_int8.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_wire_int8.argtypes = [p, ll, ll, p, p, ll, i, p, p, ll, p,
-                                       p, i, i, i, ll, p]
+                                       ll, p, i, i, i, ll, p]
         lib.ring_wire_int8.restype = ctypes.c_int
+        lib.ring_wire_int8_slots.argtypes = []
+        lib.ring_wire_int8_slots.restype = ll
         lib.ring_wire_topk.argtypes = [p, ll, ll, p, p, ll, i, ll, p, ll, p,
                                        i, i, i, ll, p]
         lib.ring_wire_topk.restype = ctypes.c_int

@@ -8,7 +8,8 @@ reason.  Run on the card with
 
 Tolerance: none.  The int8 kernel rounds the product and the sum apart and
 divides as IEEE division, the plain version too, and its only cross-block
-reduction is a max; the top-k kernel adds each unique index once, a plain
+reduction is a max (each block's into its own slot, folded after a grid
+barrier); the top-k kernel adds each unique index once, a plain
 load, an IEEE add and a store (no float atomics: they flush subnormals).
 So the kernels agree with their plain versions bitwise, for 16-byte-aligned
 and unaligned chunk starts, for a member stride of 0 and for subnormal
@@ -191,6 +192,109 @@ def test_topk_kernel_drops_indices_outside_the_chunk(cuda):
     want = chunks[1].clone()
     want[7] += 1
     assert torch.equal(got, want)
+
+
+def _int8_calls(dev, seed):
+    """Int8 calls of alternating shapes and member counts: (thunk, the
+    plain version's thunk) pairs over fresh inputs."""
+    calls = []
+    for i, (M, n) in enumerate([(4, 1024000), (1, 3), (8, 250), (2, 2 ** 20 + 3),
+                                (3, 128), (1, 25_000), (4, 1)]):
+        rows = 4 if M == 1 else M
+        st = _stacks(dev, rows, rows * n, seed=seed + i)
+        st = st["unaligned" if i % 3 == 2 else "contiguous"]
+        if M == 1:
+            chunks = st.view(-1)[:4 * n].view(4, n)
+            x = chunks[i % 4]
+            q, s = kring.int8_quantize_plain(x)
+            calls += [(lambda x=x: kring.int8_quantize(x),
+                       lambda x=x: kring.int8_quantize_plain(x)),
+                      (lambda c=chunks, q=q, s=s, j=i: kring.ring_hop_int8(
+                          c, q, s, j % 4),
+                       lambda c=chunks, q=q, s=s, j=i: kring.ring_hop_int8_plain(
+                          c, q, s, j % 4))]
+        else:
+            q, s = kring.int8_quantize_members_plain(st)
+            calls += [(lambda st=st: kring.int8_quantize_members(st),
+                       lambda st=st: kring.int8_quantize_members_plain(st)),
+                      (lambda st=st, q=q, s=s: kring.ring_hop_int8_members(
+                          st, q, s, 1),
+                       lambda st=st, q=q, s=s: kring.ring_hop_int8_members_plain(
+                          st, q, s, 1))]
+    return calls
+
+
+def test_int8_back_to_back_calls_of_alternating_shapes(cuda):
+    """Calls of other shapes and member counts one after another on one
+    stream, with no synchronisation or reset between them: each call's
+    block slots and grid barrier start from what the last call left."""
+    calls = _int8_calls(cuda, seed=100)
+    for rnd in range(3):
+        order = calls[rnd:] + calls[:rnd]
+        order = order[::-1] if rnd % 2 else order
+        got = [fn() for fn, _ in order]
+        torch.cuda.synchronize()
+        for i, (g, (_, plain)) in enumerate(zip(got, order)):
+            w = plain()
+            _same(g, w, (rnd, i))
+
+
+def test_int8_call_captured_in_a_cuda_graph(cuda):
+    """One cooperative launch a call, captured in a CUDA graph and replayed
+    on new data written into the captured inputs: bitwise the plain
+    version each time."""
+    G, n = 4, 2 ** 20 + 3
+    st = _randn(cuda, G, G * n, seed=7)
+    q0, s0 = kring.int8_quantize_members(st)
+    x = _randn(cuda, 3 * n, seed=8)[n:2 * n]
+    kring.int8_quantize(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q1, s1 = kring.int8_quantize_members(st)
+        q2, s2 = kring.ring_hop_int8_members(st, q1, s1, 0)
+        q3, s3 = kring.int8_quantize(x)
+    for seed in (9, 10):
+        st.copy_(_randn(cuda, G, G * n, seed=seed) * (seed - 8))
+        x.copy_(_randn(cuda, n, seed=seed + 100))
+        graph.replay()
+        torch.cuda.synchronize()
+        want1 = kring.int8_quantize_members_plain(st)
+        _same((q1, s1), want1, seed)
+        _same((q2, s2), kring.ring_hop_int8_members_plain(st, *want1, 0), seed)
+        _same((q3, s3), kring.int8_quantize_plain(x), seed)
+    del q0, s0
+
+
+def test_int8_eight_members_at_a_ragged_million(cuda):
+    """M = 8 members of 2^20 + 3 elements: a grid of the most blocks the
+    card holds at once, spread over 8 members, every hop of the ring."""
+    G, n = 8, 2 ** 20 + 3
+    for name, st in _stacks(cuda, G, G * n, seed=11).items():
+        kring.reset_launches()
+        q, s = kring.int8_quantize_members(st)
+        _same((q, s), kring.int8_quantize_members_plain(st), name)
+        for step in range(G - 1):
+            got = kring.ring_hop_int8_members(st, q, s, step)
+            _same(got, kring.ring_hop_int8_members_plain(st, q, s, step),
+                  (name, step))
+            q, s = got
+        assert kring.launches["int8_quantize"] == 1
+        assert kring.launches["ring_hop_int8"] == G - 1
+
+
+def test_int8_grid_beyond_the_card_raises(cuda):
+    """More members than the card holds blocks at once: the cooperative
+    launch is refused with a CUDA error before anything runs, nothing
+    hangs, and the next call works."""
+    G = kring._int8_slots(cuda.index or 0) + 1
+    st = torch.zeros(G, G, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kring.int8_quantize_members(st)
+    torch.cuda.synchronize()
+    st = _randn(cuda, 4, 4000, seed=12)
+    _same(kring.int8_quantize_members(st),
+          kring.int8_quantize_members_plain(st), "after")
 
 
 def test_wire_kernels_raise_on_what_they_do_not_take(cuda):
