@@ -9,8 +9,9 @@ Phase 0  build every kernel of the ported paths from ``src/repro_torch``
          among them); print the build times, what ``-Xptxas -v`` reports
          (each instance's registers and spills, and every ptxas warning, a
          serialized-wgmma note among them: the GEMM's and the conv's
-         3xTF32 wgmma instances must show neither a spill nor a warning),
-         and the card's name and power limit.
+         3xTF32 wgmma instances and every flash-attention instance, bf16
+         and f32, must show neither a spill nor a warning), and the card's
+         name and power limit.
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
          card, at the serving path's shapes and a few variants; max |error|
          against a stated tolerance; CUDA-event times of both beside the
@@ -106,9 +107,16 @@ Phase 12 the flash-attention kernel against its plain version: a feature
          ``F.scaled_dot_product_attention`` (the library call) beside the
          kernel's where it computes the same function without the softcap;
          the bound, the achieved TFLOP/s and the share of the bf16
-         tensor-core bound.  (bf16 runs the wgmma kernel, f32 the FFMA one.)
-         The f32 instance is also timed at gemma2-2b's global-layer shape,
-         beside its FFMA bound and ``F.scaled_dot_product_attention`` in f32.
+         tensor-core bound.  The f32 instances (a split pass, then six bf16
+         wgmma products a product) at the same four shapes, also as CUDA
+         graphs, beside their bound (six bf16 products at the tensor-core
+         peak) and the FFMA one, and beside ``F.scaled_dot_product_attention``
+         in f32 where the window is 0, with the GEMM kernels that call
+         launches (``torch.profiler``).  Then the f32 path: gemma2-2b's two
+         attention blocks at full width on f32 activations of 2 x 1024,
+         forward and backward through ``layers.attention_block(use_kernel=
+         True)``; counts zeroed just before and read just after (flash: 2,
+         everything else 0), and the kernel route against the plain route.
 Phase 13 the LM training path: gemma2-2b at full width and depth
          (2,614,222,080 f32 params) through ``compile_run`` and ``Run.fit``,
          AdamW, 4 steps of batch 2 x 1024 tokens of the seeded
@@ -124,7 +132,10 @@ Phase 7  the process path on the same card: two processes over gloo, one
          ``ring_hop_accum``, ``ring_hop_int8`` or ``ring_hop_topk`` (counts
          zeroed just before, read just after: one hop per bucket, and one
          quantize per bucket under int8), and the params (and the top-k
-         residual) must equal a local mesh's bitwise.  It runs last.
+         residual) must equal a local mesh's bitwise.  A member that
+         succeeds waits for the other and leaves with ``os._exit(0)``,
+         without gloo's teardown; every member must exit with code 0.  It
+         runs last.
 
 The line before the last is a JSON object of per-kernel findings, the last
 line ``{"ok": true, "device": {...}}``.
@@ -2045,15 +2056,19 @@ def flash_live_pairs(Sq, Skv, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_bound(B, Sq, Skv, Hq, Hkv, D, causal, window, itemsize):
+def flash_bound(B, Sq, Skv, Hq, Hkv, D, causal, window, dtype):
     """Least time of one call on an H100 SXM, in ms: 4 D operations (two
-    products) per live (q, k) pair and head at the bf16 tensor-core peak,
-    or q, k, v read once and o written once, whichever is longer; and the
-    operations at the f32 peak outside the tensor cores, the ceiling of an
-    FFMA kernel.  Returns (bound ms, bound_by, f32 ms)."""
+    products) per live (q, k) pair and head at the bf16 tensor-core peak
+    (f32: six bf16 products for each, the f32 kernel's arithmetic, the same
+    tensor time as three TF32 ones), or q, k, v read once and o written
+    once, whichever is longer; and the operations at the f32 peak outside
+    the tensor cores, the ceiling of an FFMA kernel.  Returns (bound ms,
+    bound_by, f32 ms)."""
+    f32 = dtype == torch.float32
     ops = 4 * B * Hq * D * flash_live_pairs(Sq, Skv, causal, window)
-    nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
-    t_ops, t_bytes = ops / H100_BF16_TC_FLOPS, nbytes / H100_SXM.mem_bw
+    nbytes = (4 if f32 else 2) * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+    t_ops = (6 if f32 else 1) * ops / H100_BF16_TC_FLOPS
+    t_bytes = nbytes / H100_SXM.mem_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             ops / H100_SXM.peak_flops * 1e3)
@@ -2077,8 +2092,6 @@ def flash_inputs(dev, dtype, B, Sq, Skv, Hq, Hkv, D, seed):
 
 def phase12(dev, card):
     import itertools
-
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2108,26 +2121,43 @@ def phase12(dev, card):
           f"tolerance bf16 {worst[torch.bfloat16]}, f32 "
           f"{worst[torch.float32]}")
 
-    row = None
-    for name, B, S, Hq, Hkv, D, window, softcap in FLASH_MODEL_SHAPES:
-        q, k, v = flash_inputs(dev, torch.bfloat16, B, S, S, Hq, Hkv, D,
-                               S + D)
-        kw = dict(causal=True, window=window, logit_softcap=softcap)
-        got = kflash.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want = kflash.flash_attention_plain(q, k, v, **kw)
-        r = flash_ratio(got, want)
-        err = (got.float() - want.float()).abs().max().item()
-        check(np.isfinite(r) and r <= 1.0, f"{name}: kernel disagrees with "
-              f"the plain version (error / tolerance {r})")
-        del got, want
-        ms = cuda_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
-        plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v,
-                                                                **kw), 1, 3)
-        bound_ms, bound_by, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True,
-                                                 window, 2)
-        tflops = 4 * B * Hq * D * flash_live_pairs(S, S, True, window) \
-            / (ms * 1e-3) / 1e12
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in FLASH_MODEL_SHAPES:
+            row = flash_model_shape(dev, card, dtype, *shape)
+            rows.setdefault(dtype, row)   # the global layer: the JSON rows
+    rows[torch.float32]["name"] = "flash_attention_f32"
+    return rows[torch.bfloat16], rows[torch.float32]
+
+
+def flash_model_shape(dev, card, dtype, name, B, S, Hq, Hkv, D, window,
+                      softcap):
+    """Phase 12 at one of the training path's shapes in one type: the
+    kernel against its plain version, their times, the bound, and
+    ``F.scaled_dot_product_attention`` beside the kernel without the softcap
+    where the window is 0; returns the shape's JSON row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    q, k, v = flash_inputs(dev, dtype, B, S, S, Hq, Hkv, D, S + D)
+    kw = dict(causal=True, window=window, logit_softcap=softcap)
+    got = kflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = kflash.flash_attention_plain(q, k, v, **kw)
+    r = flash_ratio(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    check(np.isfinite(r) and r <= 1.0, f"{name} {tag}: kernel disagrees with "
+          f"the plain version (error / tolerance {r})")
+    del got, want
+    ms = cuda_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
+    plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v, **kw),
+                       1, 3)
+    bound_ms, bound_by, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True,
+                                             window, dtype)
+    tflops = 4 * B * Hq * D * flash_live_pairs(S, S, True, window) \
+        / (ms * 1e-3) / 1e12
+    if dtype == torch.bfloat16:
         line = (f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, window "
                 f"{window}, softcap {softcap}, bf16: max|kernel - plain| "
                 f"{err} (error / tolerance {r}); kernel {ms} ms, plain "
@@ -2135,61 +2165,116 @@ def phase12(dev, card):
                 f"f32 FFMA peak {f32_ms} ms; kernel / bound {ms / bound_ms}, "
                 f"kernel / f32 bound {ms / f32_ms}; {tflops} TFLOP/s, "
                 f"{bound_ms / ms} of the bf16 tensor-core bound")
-        library_ms = None
-        if window == 0:
-            # SDPA has no softcap: time it, and the kernel, without one
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 3, 20)
-            bare_ms = cuda_ms(lambda: kflash.flash_attention(q, k, v), 3, 20)
-            sdpa = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
-            d_sdpa = (sdpa.float() - kflash.flash_attention(q, k, v).float()
-                      ).abs().max().item()
-            line += (f"; without the softcap, side by side: kernel "
-                     f"{bare_ms} ms, F.scaled_dot_product_attention "
-                     f"{library_ms} ms (max|kernel - SDPA| {d_sdpa}), "
-                     f"kernel / SDPA {bare_ms / library_ms}")
-            del sdpa
-        print(line + f" [{card}]")
-        if row is None:   # the training path's global layer: the JSON row
-            row = {"name": "flash_attention", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention.py:105",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
-        del q, k, v
+    else:
+        dev_ms = graph_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
+        line = (f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, window "
+                f"{window}, softcap {softcap}, f32 (split pass, then six "
+                f"bf16 products a product): max|kernel - plain| {err} "
+                f"(error / tolerance {r}); kernel {ms} ms (as a CUDA graph "
+                f"{dev_ms} ms), plain {plain_ms} ms; bound {bound_ms} ms "
+                f"({bound_by}; six bf16 products at the tensor-core peak), at "
+                f"the f32 FFMA peak {f32_ms} ms; kernel / bound "
+                f"{ms / bound_ms}, kernel / FFMA bound {ms / f32_ms}; "
+                f"{tflops} TFLOP/s of the attention's own operations")
+    library_ms = None
+    if window == 0:
+        # SDPA has no softcap: time it, and the kernel, without one
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-    # the f32 instances (FFMA; no model's path runs them) at the global
-    # layer's shape
-    name, B, S, Hq, Hkv, D, window, softcap = FLASH_MODEL_SHAPES[0]
-    q, k, v = flash_inputs(dev, torch.float32, B, S, S, Hq, Hkv, D, S + D)
-    kw = dict(causal=True, window=window, logit_softcap=softcap)
-    got = kflash.flash_attention(q, k, v, **kw)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        library_ms = cuda_ms(sdpa, 3, 20)
+        bare_ms = cuda_ms(lambda: kflash.flash_attention(q, k, v), 3, 20)
+        d_sdpa = (sdpa().transpose(1, 2).float()
+                  - kflash.flash_attention(q, k, v).float()).abs().max().item()
+        line += (f"; without the softcap, side by side: kernel {bare_ms} ms, "
+                 f"F.scaled_dot_product_attention {library_ms} ms (max|kernel "
+                 f"- SDPA| {d_sdpa}), kernel / SDPA {bare_ms / library_ms}")
+        if dtype == torch.float32:
+            ops = device_ops(sdpa)
+            line += (f"; SDPA f32 launches {len(ops)} kernels, its products "
+                     f"{sorted({o for o in ops if 'gemm' in o.lower()})}")
+    print(line + f" [{card}]")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:105",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# The f32 path's kernel route against its plain route (chunked attention):
+# both sum f32 products in different orders (the kernel within 2e-5 of max
+# |plain|, ~1e-6 in relative L2 at these shapes), carried through one
+# projection; a kernel wired wrongly differs by O(1).
+FLASH_PATH_REL_L2_TOL = 1e-5
+FLASH_PATH_GRAD_REL_L2_TOL = 1e-4
+
+
+def phase12_f32_path(dev, card):
+    """The f32 attention path: gemma2-2b's two attention blocks (its global
+    and its local layer) at full width with random f32 weights from a seed,
+    on f32 activations of batch 2 x 1024, forward and backward through
+    ``layers.attention_block(use_kernel=True)``, the entry the LM's layers
+    call (the LM itself runs bf16 activations).  Counts are zeroed just
+    before and read just after (flash: one launch a block; nothing else);
+    then the kernel route against the plain route from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import init_tree, tree_leaves
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import effective_window
+    cfg = get_config("gemma2-2b")
+    batch, seq = LM_BATCH, LM_SEQ
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_tree(layers.attn_specs(cfg), gen, dev, torch.float32)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev)
+    pos = torch.arange(seq, device=dev).expand(batch, seq)
+    windows = [effective_window(cfg, kind, False) for kind in
+               dict.fromkeys(cfg.block_pattern)]
+    leaves = [x.requires_grad_()] + [t.requires_grad_() for t in
+                                     tree_leaves(p)]
+
+    def run(uk):
+        outs, grads = [], []
+        for w in windows:
+            y, _ = layers.attention_block(p, x, cfg, pos, window=w,
+                                          use_kernel=uk)
+            grads.append(torch.autograd.grad(y.square().mean(), leaves))
+            outs.append((y - x).detach())
+        return outs, grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    out_k, grad_k = run(True)
     torch.cuda.synchronize()
-    r = flash_ratio(got, kflash.flash_attention_plain(q, k, v, **kw))
-    check(np.isfinite(r) and r <= 1.0, f"{name} f32: kernel disagrees with "
-          f"the plain version (error / tolerance {r})")
-    del got
-    ms = cuda_ms(lambda: kflash.flash_attention(q, k, v, **kw), 3, 20)
-    plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v, **kw),
-                       1, 3)
-    _, _, f32_ms = flash_bound(B, S, S, Hq, Hkv, D, True, window, 4)
-    f32_bytes = bytes_bound(4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 3, 20)
-    bare_ms = cuda_ms(lambda: kflash.flash_attention(q, k, v), 3, 20)
-    print(f"  {name}, Hq {Hq} Hkv {Hkv} D {D}, causal, softcap {softcap}, "
-          f"f32 (the FFMA instance): error / tolerance {r}; kernel {ms} ms, "
-          f"plain {plain_ms} ms; bound {max(f32_ms, f32_bytes)} ms "
-          f"(operations at the f32 FFMA peak; bytes {f32_bytes} ms); kernel "
-          f"/ bound {ms / max(f32_ms, f32_bytes)}; without the softcap "
-          f"kernel {bare_ms} ms, F.scaled_dot_product_attention f32 "
-          f"{sdpa_ms} ms [{card}]")
-    del q, k, v, qt, kt, vt
-    return row
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = len(windows)
+    check(counts == want, f"launches {counts}, want {want}")
+    out_p, grad_p = run(False)
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    rel = max(rel_l2(a, b) for a, b in zip(out_k, out_p))
+    rel_g = max(rel_l2(a, b) for ga, gb in zip(grad_k, grad_p)
+                for a, b in zip(ga, gb))
+    print(f"phase 12 (f32 path): {cfg.name}'s attention blocks (windows "
+          f"{windows}) at full width (d_model {cfg.d_model}, {cfg.num_heads} "
+          f"q / {cfg.num_kv_heads} kv heads of {cfg.head_dim}) on f32 "
+          f"activations of {batch} x {seq}, forward and backward through "
+          f"attention_block(use_kernel=True) in {wall} s: launches "
+          f"{ {k: n for k, n in counts.items() if n} }, every other kernel "
+          f"0; kernel vs plain route: attention output relative L2 {rel} "
+          f"(tolerance {FLASH_PATH_REL_L2_TOL}), worst gradient relative L2 "
+          f"{rel_g} (tolerance {FLASH_PATH_GRAD_REL_L2_TOL}) [{card}]")
+    check(rel <= FLASH_PATH_REL_L2_TOL, "kernel and plain route outputs "
+          "differ")
+    check(rel_g <= FLASH_PATH_GRAD_REL_L2_TOL, "kernel and plain route "
+          "gradients differ")
+    return counts["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -2418,11 +2503,21 @@ def _process_member(rank, world, init_file, results):
             out[fmt] = (counts, same, dt)
             del local, params, state, s_l, s_p
         results.put((rank, out, None))
+        code = 0
     except Exception:
         results.put((rank, None, traceback.format_exc()))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        code = 1
+    # the result is sent (the queue flushed); gloo's own teardown has
+    # aborted a rank under load after that ("terminate called without an
+    # active exception", tests/test_torch_dist.py), so a member that
+    # succeeded waits for the others, and every member leaves without it
+    results.close()
+    results.join_thread()
+    if code == 0:
+        dist.barrier()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def phase7(card):
@@ -2457,6 +2552,9 @@ def phase7(card):
             check(same, f"process member {rank} {fmt}: params"
                   f"{' or residual' if fmt == 'topk' else ''} differ from "
                   "the local mesh's")
+    for rank, p in enumerate(procs):
+        check(p.exitcode == 0, f"process member {rank} exited with code "
+              f"{p.exitcode}")
     for fmt in PROCESS_FORMATS:
         print(f"phase 7 ({fmt}): zero1 update of full-width VGG-A by {G} "
               f"processes on one card over gloo (messages staged through "
@@ -2499,8 +2597,10 @@ def instance_name(entry):
     import re
     if m := re.search(r"flash_tc_kernelILi(\d+)E", entry):
         return f"bf16 wgmma D {m.group(1)}"
-    if m := re.search(r"flash_kernelIfLi(\d+)E", entry):
-        return f"f32 FFMA D {m.group(1)}"
+    if m := re.search(r"flash_f32_kernelILi(\d+)E", entry):
+        return f"f32 bf16x6 wgmma D {m.group(1)}"
+    if m := re.search(r"split_kv_kernelILb(\d)E", entry):
+        return f"f32 K/V split, {'16-byte' if m.group(1) == '1' else '4-byte'} loads"
     if m := re.search(r"blocked_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)ELi"
                       r"(\d+)E", entry):
         kind = "f32 3xTF32" if m.group(1) == "f" else "bf16"
@@ -2554,7 +2654,8 @@ def main() -> int:
         lines = build_lines(build.BUILD_LOG.get(name, ""))
         for line in lines:
             print(f"  {name}: {line}")
-        if name in ("blocked_matmul", "conv2d"):   # the 3xTF32 wgmma kernels
+        if name in ("blocked_matmul", "conv2d", "flash_attention"):
+            # the wgmma kernels: no spill, no ptxas warning
             check(not any("warning" in x or "Performance Loss" in x or
                           (" 0 bytes spill stores" not in x and "spill" in x)
                           for x in lines),
@@ -2592,13 +2693,15 @@ def main() -> int:
     gemm["launches"], dnn_rs, dnn_ag = timed("11", phase11, card)
     print(f"CD-DNN zero1 path (phase 11): ring_reduce_scatter {dnn_rs}, "
           f"ring_all_gather {dnn_ag} launches")
-    flash = timed("12", phase12, dev, card)
+    flash, flash_f32 = timed("12", phase12, dev, card)
+    flash_f32["launches"] = timed("12 f32 path", phase12_f32_path, dev,
+                                  card)
     flash["launches"] = timed("13", phase13, card)
     hop["launches"] = timed("7", phase7, card)
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,
-                                  flash]}))
+                                  flash, flash_f32]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -117,7 +117,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 #define HK_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HK_F8(d, i) HK_F4(d, i), HK_F4(d, i + 4)
 #define HK_F16(d, i) HK_F4(d, i), HK_F4(d, i + 4), HK_F4(d, i + 8), HK_F4(d, i + 12)
+#define HK_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define HK_R16 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HK_R32                                                                              \
@@ -127,53 +129,41 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // 16-byte units) that are added inside the instruction's own asm block, so
 // that only the base descriptors stay live in registers.
 
-// d (64 x 64, f32) (+)= A (64 x 16, bf16, K-major in shared memory)
-//                        . B (16 x 64, bf16, K-major in shared memory)
-template <int OA, int OB>
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
-      "add.s64 da, %32, %35;\nadd.s64 db, %33, %36;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HK_R32
-      "}, da, db, p, 1, 1, 0, 0;\n}\n"
-      : HK_F16(d, 0), HK_F16(d, 16)
-      : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+// d (64 x N, f32) (+)= A (64 x 16, bf16, from registers)
+//                      . B (16 x N, bf16, MN-major in shared memory),
+// N = 32 or 64 (the flash kernels' P V); the product is added to d where
+// accumulate != 0, else it overwrites d
+template <int N, int OB>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+  static_assert(N == 32 || N == 64, "no such shape");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %21, 0;\n"
+        "add.s64 db, %20, %22;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HK_R16
+        "}, {%16, %17, %18, %19}, db, p, 1, 1, 1;\n}\n"
+        : HK_F16(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(OB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %37, 0;\n"
+        "add.s64 db, %36, %38;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HK_R32
+        "}, {%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
+        : HK_F16(d, 0), HK_F16(d, 16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(OB));
+  }
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16, from registers)
-//                     . B (16 x 64, bf16, MN-major in shared memory)
-template <int OB>
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %37, 0;\n"
-      "add.s64 db, %36, %38;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HK_R32
-      "}, {%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
-      : HK_F16(d, 0), HK_F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(OB));
-}
-
-// the same with N = 32
-template <int OB>
-__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
-                                                   uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %21, 0;\n"
-      "add.s64 db, %20, %22;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HK_R16
-      "}, {%16, %17, %18, %19}, db, p, 1, 1, 1;\n}\n"
-      : HK_F16(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(OB));
-}
-
-// The products of the blocked GEMM and the direct conv (gemm_tf32x3.cuh):
+// The products of the blocked GEMM and the direct conv (gemm_tf32x3.cuh)
+// and the flash kernels' S:
 // d (64 x N, f32) += A (64 x K, K-major in shared memory)
 //                  . B (K x N, K-major in shared memory),
 // K = 8 tf32 (f32 bits of which the instruction reads the top 19) or 16
-// bf16, N = 32, 64 or 128; the product is added to d where accumulate != 0,
-// else it overwrites d.
+// bf16, N = 32, 64 or 128 (bf16 also 16, for the 16-key tiles that
+// experiments/flash_f32_variants.py times); the product is added to d where
+// accumulate != 0, else it overwrites d.
 #define HK_R64                                                                              \
   HK_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
          "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
@@ -187,9 +177,12 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_
 template <int N, bool TF32, int OA, int OB>
 __device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], uint64_t a, uint64_t b,
                                                 int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "no such shape");
+  static_assert(N == 32 || N == 64 || N == 128 || (N == 16 && !TF32), "no such shape");
   // tf32 takes no transpose operands; bf16 takes two, both 0 (K-major)
-  if constexpr (N == 32 && TF32) {
+  if constexpr (N == 16) {
+    HK_WGMMA_SS("m64n16k16", "f32.bf16.bf16", ", 0, 0", HK_R8, "8", "9", "10", "11", "12")
+        : HK_F8(d, 0) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+  } else if constexpr (N == 32 && TF32) {
     HK_WGMMA_SS("m64n32k8", "f32.tf32.tf32", "", HK_R16, "16", "17", "18", "19", "20")
         : HK_F16(d, 0) : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
   } else if constexpr (N == 32) {
@@ -215,7 +208,9 @@ __device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], uint64_t a, u
 #undef HK_WGMMA_SS
 #undef HK_R64
 #undef HK_F4
+#undef HK_F8
 #undef HK_F16
+#undef HK_R8
 #undef HK_R16
 #undef HK_R32
 

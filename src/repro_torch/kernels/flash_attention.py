@@ -5,15 +5,18 @@ Port of ``repro.kernels.flash_attention.flash_attention``: causal,
 sliding-window, logit-softcapped GQA attention with an online softmax over
 KV blocks, so the (Sq, Skv) score matrix is never stored.  q: (B, Sq, Hq,
 D); k, v: (B, Skv, Hkv, D); bf16 or f32 in (one type for all three), q's
-type out, f32 inside.  bf16 runs on the tensor cores (wgmma, K and V fed by
-TMA), f32 on an FFMA kernel; the CUDA source, ``csrc/flash_attention.cu``,
-states both designs and the bound.  Unlike the TPU kernel it takes any Sq and Skv:
+type out, f32 inside.  Both types run on the tensor cores (wgmma, K and V
+fed by TMA): bf16 as it is, f32 as six products of bf16 pieces, after a
+first launch that splits K and V into scratch this wrapper allocates; the
+CUDA source, ``csrc/flash_attention.cu``, states both designs and the
+bound.  Unlike the TPU kernel it takes any Sq and Skv:
 it masks its ragged edges (the reference sends such shapes to
 ``attention_ref``).
 
 :func:`flash_attention` is the wrapper: on CPU tensors it computes the plain
 version (that is how the CPU tests run it); on CUDA tensors it launches the
-kernel or raises — it never falls back.
+kernel or raises — it never falls back.  ``launches`` counts calls, one a
+call whatever the kernels inside (two for f32).
 :func:`flash_attention_plain` repeats the TPU kernel's arithmetic block by
 block; the kernel is checked against it.
 :func:`attention` is what ``attention_block(use_kernel=True)`` calls, the
@@ -25,10 +28,12 @@ JAX package has no backward kernel, so neither has the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import launch, load
 from repro_torch.kernels.ref import attention_ref
 
 NEG_INF = -1e30
@@ -152,14 +157,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "needs 16-byte-aligned tensors")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, Hq, Hkv, D, int(causal), int(window), float(logit_softcap),
-            float(scale), _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    # f32: the three bf16 pieces of K, then of V, that the first launch writes
+    planes = torch.empty(6 * k.numel(), dtype=torch.bfloat16,
+                         device=q.device) if q.dtype == torch.float32 else None
+    launch(_lib().flash_attention, q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), None if planes is None else planes.data_ptr(),
+           out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal), int(window),
+           float(logit_softcap), float(scale), _DTYPES[q.dtype])
     global launches
     launches += 1
     return out
@@ -192,12 +196,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Attention.apply(q, k, v, causal, window, logit_softcap)
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load
     lib = load("flash_attention")
-    fn = lib.flash_attention
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p] + [i] * 8 + [f, f, i, p]
-        fn.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention.argtypes = [p] * 5 + [i] * 8 + [f, f, i, p]
+    lib.flash_attention.restype = ctypes.c_int
     return lib
