@@ -126,18 +126,47 @@ Phase 13 the LM training path: gemma2-2b at full width and depth
          split into forward, backward and update, and, with the optimizer
          state freed, the kernel route against the plain route from the same
          params and batch, held to the network's own one-ulp sensitivity.
+Phase 14 the overlapped zero1 path (paper §3.1): ``compile_run`` with
+         ``CommConfig(overlap=True)``, every bucket's reduce issued inside
+         the backward pass on a side CUDA stream.  Full-width VGG-A, G = 4
+         members on the card, every forward conv on the kernel: 4 steps of
+         batch 64 in fp32 and 3 under int8, then full-width CD-DNN (6 steps
+         of batch 1024, every forward product on the kernel), each fit and
+         check under a deadline that ends the run (a stack dump, exit code
+         1) if a side-stream reduce hangs.  Launch counts are zeroed just
+         before each fit and read just after (VGG-A fp32: reduce-scatters
+         and all-gathers steps x 14, conv steps x 8; int8: 14 quantize and
+         42 hops a step instead of the reduce-scatters; CD-DNN: GEMM steps
+         x 8, reduce-scatters and gathers steps x 14; nothing else).  Then
+         one step split into forward, backward+reduce and exposed_reduce
+         (CUDA events), apply and broadcast, with the launch counts read
+         when ``autograd.grad`` returns (every reduce, no gather) and after
+         the step (the gathers); the strip state's layout and the
+         replication invariant; the monolithic and the overlapped step
+         alternating on one batch (step medians, peak memory);
+         ``torch.profiler``'s kernel timestamps (how much of the side
+         stream's kernel time ran beside the compute stream's kernels);
+         for fp32, one step with grad_clip=0 bitwise the monolithic step
+         from the same params, state and batch (3 times), and 3-step
+         losses against the monolithic run's.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
          ``ring_hop_accum``, ``ring_hop_int8`` or ``ring_hop_topk`` (counts
          zeroed just before, read just after: one hop per bucket, and one
          quantize per bucket under int8), and the params (and the top-k
-         residual) must equal a local mesh's bitwise.  A member that
+         residual) must equal a local mesh's bitwise.  Then one overlapped
+         zero1 step of full-width VGG-A (batch 8, grad_clip=0,
+         deterministic cuDNN) on the ProcessMesh, its hops issued inside
+         the backward (one ``ring_hop_accum`` per bucket), bitwise the same
+         step on a local mesh.  A member that
          succeeds waits for the other and leaves with ``os._exit(0)``,
          without gloo's teardown; every member must exit with code 0.  It
          runs last.
 
-The line before the last is a JSON object of per-kernel findings, the last
+The line before the last is a JSON object of per-kernel findings (each
+row's ``launches`` includes ``launches_overlap``, its launches on the
+overlapped path of phases 14 and 7), the last
 line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1822,10 +1851,10 @@ def _counts():
             "flash_attention": kflash.launches, **kring.launches}
 
 
-def _fit_dnn(spec, tag, card):
+def _fit_dnn(spec, tag, card, unit="frames", what="product"):
     """Compile ``spec`` on the kernel route, fit it with every count zeroed
-    just before and read just after; print the run's numbers and return
-    (run, history, counts)."""
+    just before and read just after; print the run's numbers (throughput in
+    ``unit``/s) and return (run, history, counts)."""
     from repro_torch.api import compile_run
     from repro_torch.launch.paper_cnn_training import use_kernel
     spans = SyncedSpans()
@@ -1837,7 +1866,7 @@ def _fit_dnn(spec, tag, card):
           + (f" ({run.mesh}, backend {run.comm.backend}, "
              f"{len(run.opt_state.velocity)} buckets)" if run.mesh else "")
           + f", compiled in {time.perf_counter() - t0:.2f} s; {spec.steps} "
-          f"steps of batch {spec.batch}, every forward product on the kernel")
+          f"steps of batch {spec.batch}, every forward {what} on the kernel")
     torch.cuda.reset_peak_memory_stats()
     _counts_zeroed()
     t0 = time.perf_counter()
@@ -1855,8 +1884,8 @@ def _fit_dnn(spec, tag, card):
     print(f"    {spec.steps} steps in {wall} s; launches "
           f"{ {k: v for k, v in counts.items() if v} }")
     print(f"    steps 2-{spec.steps}: "
-          f"{n_later / (sum(steps[1:]) + sum(waits[1:]))} frames/s with the "
-          f"data waits ({n_later / sum(steps[1:])} frames/s of step time "
+          f"{n_later / (sum(steps[1:]) + sum(waits[1:]))} {unit}/s with the "
+          f"data waits ({n_later / sum(steps[1:])} {unit}/s of step time "
           f"alone); step median {np.median(steps[1:]) * 1e3} ms; first step "
           f"{steps[0] * 1e3} ms; data_wait median "
           f"{np.median(waits[1:]) * 1e3} ms; peak memory {peak_gb} GB "
@@ -2445,10 +2474,375 @@ def phase13(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the overlapped zero1 path (paper §3.1)
+# ---------------------------------------------------------------------------
+# Every fit and check of this phase runs under a deadline: a reduce that
+# hangs on the side stream (the int8 kernels are cooperative launches,
+# which need every block of their grid resident at once, queued beside the
+# backward's kernels) ends the run with every thread's stack and exit code
+# 1 instead of hanging it.
+# (a) one fp32 step with grad_clip=0 from the same params, state and batch,
+# overlapped against monolithic, bitwise (no tolerance), 3 times: the taps
+# pack the same cotangents and reduce them with the same kernels, and the
+# side stream only moves when the ring reads them (a missing wait or
+# record_stream shows as wrong numbers only now and then).
+# (b) 3-step losses, overlapped vs monolithic from the same seed under
+# deterministic cuDNN: phase 6 (b)'s tolerance (the clip scales the
+# reduced strips, not the gradient, so the runs part by rounding).
+OVERLAP_DEADLINE_S = 300
+OVERLAP_AB_REPS = 9             # alternating step pairs; the first warms up
+
+
+@contextmanager
+def deadline(seconds):
+    """Dump every thread's stack and exit with code 1 if the block has not
+    ended after ``seconds``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _clone(tree):
+    from repro_torch.core.params import map_tree
+    return map_tree(lambda t: t.detach().clone(), tree)
+
+
+def _monolithic_step(run, grad_clip):
+    """The monolithic zero1 step of ``run``'s loss, optimizer and comm
+    (``overlap=False``): the same strip state layout as the run's."""
+    import dataclasses
+    from repro_torch.optim.dist import make_distributed_update
+    from repro_torch.train import make_train_step
+    _, update = make_distributed_update(
+        run.optimizer, run.mesh, run.mesh.axis_names,
+        dataclasses.replace(run.comm, overlap=False))
+    return make_train_step(run.loss_fn, run.optimizer, run.lr_schedule,
+                           grad_clip=grad_clip, dist_update=update)
+
+
+def _reduce_kernels(fmt, n_buckets, G):
+    return ({"int8_quantize": n_buckets,
+             "ring_hop_int8": n_buckets * (G - 1)} if fmt == "int8"
+            else {"ring_reduce_scatter": n_buckets})
+
+
+def _overlap_split(run, batch, fmt, card, reps=4):
+    """One overlapped step split into spans: forward, backward+reduce (the
+    tapped backward up to the stream join) and exposed_reduce (from the
+    compute stream's last backward kernel to the join), by CUDA events on
+    the compute stream; then apply and broadcast (spans ending in a device
+    sync).  The launch counts are read when ``autograd.grad`` returns and
+    after the step: every reduce is issued inside the backward, every
+    gather after it.  The first rep also checks the replication invariant."""
+    from repro_torch.comm.overlap import join_comm, make_overlap_grad
+    from repro_torch.comm.schedule import group_axes
+    from repro_torch.kernels import ring as kring
+    from repro_torch.optim.dist import UpdatePlan
+    from repro_torch.train.train_step import clip_strips
+    ev = {}
+
+    def timed_loss(p, b):
+        loss = run.loss_fn(p, b)
+        ev["forward"].record()
+        return loss
+
+    axes = run.mesh.axis_names
+    _, axis_arg, G = group_axes(run.mesh, axes)
+    grad = make_overlap_grad(timed_loss, run.mesh, axis_arg, run.comm, G)
+    up = UpdatePlan.build(run.optimizer, run.mesh, axes, run.comm)
+    plan, sched = up.buckets(run.params), up.schedule()
+    nb = plan.n_collectives
+    lr = run.lr_schedule(0)
+    want = _reduce_kernels(fmt, nb, G)
+    ms = {k: [] for k in ("forward", "backward+reduce", "exposed_reduce")}
+    split = SyncedSpans()
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "forward", "backward", "join")}
+        _counts_zeroed()
+        ev["start"].record()
+        _, strips = grad(run.params, batch, join=False)
+        ev["backward"].record()
+        at_backward = _counts()
+        join_comm(run.device)
+        ev["join"].record()
+        ev["join"].synchronize()
+        ms["forward"].append(ev["start"].elapsed_time(ev["forward"]))
+        ms["backward+reduce"].append(ev["forward"].elapsed_time(ev["join"]))
+        ms["exposed_reduce"].append(ev["backward"].elapsed_time(ev["join"]))
+        clip_strips(strips, run.mesh, axis_arg, run.spec.grad_clip)
+        with torch.no_grad():
+            with split.span("apply"):
+                new_p, run.opt_state = up.apply(sched, plan, run.params,
+                                                strips, run.opt_state, lr)
+            if rep == 0:
+                for ps in new_p:
+                    full = sched.broadcast(ps)
+                    check(all(torch.equal(full[0], full[i])
+                              for i in range(1, G)),
+                          "members' gathered buffers differ")
+                _counts_zeroed()
+                for k in kring.launches:       # the forward's are counted too
+                    check(at_backward[k] == want.get(k, 0), f"{fmt} overlap: "
+                          f"{at_backward[k]} {k} launches when the backward "
+                          f"returned, want {want.get(k, 0)} ({want})")
+            with split.span("broadcast"):
+                up.broadcast(sched, plan, run.params, new_p)
+            if rep == 0:
+                after = _counts()
+                check(after["ring_all_gather"] == nb and sum(after.values())
+                      == nb, f"after the step {after}, want {nb} gathers")
+    med = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    med.update({k: float(np.median(v[1:])) * 1e3
+                for k, v in split.samples.items()})
+    print(f"    launches when autograd.grad returned: {want} (every "
+          f"reduce issued inside the backward), all-gathers 0; after the "
+          f"step {nb} all-gathers; replication invariant: all {G} rows of "
+          f"each of the {nb} gathered buffers bitwise equal")
+    print(f"    one step by spans (median of {reps - 1} after one warm-up; "
+          f"CUDA events on the compute stream): forward {med['forward']} "
+          f"ms, backward+reduce {med['backward+reduce']} ms, "
+          f"exposed_reduce {med['exposed_reduce']} ms; then apply "
+          f"{med['apply']} ms, broadcast {med['broadcast']} ms (spans "
+          f"ending in a device sync) [{card}]")
+    return med
+
+
+def _step_ab(run, batch, card, reps=OVERLAP_AB_REPS):
+    """The monolithic and the overlapped step of ``run`` alternating on
+    its params, state and one batch: the median of each's step time (the
+    device synchronised before and after) over the reps after the first,
+    and each's peak memory."""
+    steps = {"monolithic": _monolithic_step(run, run.spec.grad_clip),
+             "overlap": run.train_step}
+    times = {k: [] for k in steps}
+    peak = dict.fromkeys(steps, 0)
+    for rep in range(reps):
+        names = list(steps) if rep % 2 == 0 else list(steps)[::-1]
+        for name in names:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run.params, run.opt_state, _ = steps[name](
+                run.params, run.opt_state, 0, batch)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+    med = {k: float(np.median(v[1:])) for k, v in times.items()}
+    print(f"    A/B, {reps - 1} alternating pairs after one warm-up, one "
+          f"batch: step median monolithic {med['monolithic']} ms, overlap "
+          f"{med['overlap']} ms (overlap / monolithic "
+          f"{med['overlap'] / med['monolithic']}); peak memory monolithic "
+          f"{peak['monolithic'] / 1e9} GB, overlap {peak['overlap'] / 1e9} "
+          f"GB [{card}]")
+    return med, peak
+
+
+def _stream_overlap(fn):
+    """Run ``fn`` under ``torch.profiler`` and read its kernels from the
+    trace: the side stream is the one the reduce kernels (the ring's fold,
+    the int8 wire kernel) ran on.  Returns, for all of the side stream's
+    kernels and for its cooperative int8 kernels alone, (kernels, those
+    that ran beside a kernel of another stream, their ms, the ms of that
+    which another stream's kernels covered); None when the trace has no
+    side-stream kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    ks = [(e.get("args", {}).get("stream"), e["ts"], e["ts"] + e["dur"],
+           e["name"]) for e in events
+          if e.get("cat") == "kernel" and "dur" in e]
+    side = {s for s, _, _, n in ks
+            if "fold_kernel" in n or "int8_wire_kernel" in n}
+    if not side:
+        return None
+    merged = []
+    for a, b in sorted((a, b) for s, a, b, _ in ks if s not in side):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    out = {"all": [0, 0, 0.0, 0.0], "int8": [0, 0, 0.0, 0.0]}
+    for s, a, b, n in ks:
+        if s not in side:
+            continue
+        cov = sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+        for key in ("all", "int8") if "int8_wire_kernel" in n else ("all",):
+            row = out[key]
+            row[0] += 1
+            row[1] += cov > 0
+            row[2] += (b - a) / 1e3
+            row[3] += cov / 1e3
+    return out
+
+
+def _print_stream_overlap(run, batch, fmt):
+    got = _stream_overlap(lambda: run.step(batch))
+    if got is None:
+        print("    torch.profiler: no side-stream kernel in the trace; "
+              "concurrency not measured")
+        return
+    n, beside, total, covered = got["all"]
+    print(f"    torch.profiler, one {fmt} step: {n} kernels on the side "
+          f"stream, {beside} of them ran beside a kernel of the compute "
+          f"stream; {total} ms of side-stream kernel time, {covered} ms of "
+          f"it beside the compute stream's kernels")
+    if got["int8"][0]:
+        n, beside, total, covered = got["int8"]
+        print(f"    of them the cooperative int8 kernels: {n}, {beside} "
+              f"beside a compute-stream kernel; {total} ms, {covered} ms "
+              f"of it beside the compute stream's kernels")
+
+
+def phase14(card):
+    from repro_torch.api import MeshSpec, RunSpec, compile_run
+    from repro_torch.comm import CommConfig
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.optim.dist import make_overlapped_update
+    from repro_torch.train import make_overlapped_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    G = 4
+    base = dict(arch="vgg-a", batch=64, lr=5e-3, schedule="constant", seed=0,
+                log_every=1, parallel="zero1",
+                mesh=MeshSpec(members_per_device=G))
+    print(f"phase 14: the overlapped zero1 path (paper §3.1): each bucket's "
+          f"reduce issued inside the backward pass on a side CUDA stream; "
+          f"G = {G} members on the card, pallas-ring, every fit and check "
+          f"under a {OVERLAP_DEADLINE_S} s deadline")
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for fmt, steps in (("fp32", 4), ("int8", 3)):
+        spec = RunSpec(**base, steps=steps,
+                       comm=CommConfig(backend="pallas-ring",
+                                       wire_format=fmt, overlap=True))
+        with deadline(OVERLAP_DEADLINE_S):
+            run, hist, counts = _fit_dnn(spec, f"VGG-A {fmt}, overlap", card,
+                                         unit="images", what="conv")
+            strips = run.opt_state.velocity
+            n_buckets, n_conv = len(strips), len(run.cfg.conv_layers())
+            check(n_buckets == 14 and all(
+                s.dim() == 2 and s.shape[0] == G for s in strips),
+                f"strip state {[tuple(s.shape) for s in strips]}")
+            want = dict.fromkeys(counts, 0)
+            want["conv2d_nhwc"] = steps * n_conv
+            want["ring_all_gather"] = steps * n_buckets
+            for k, v in _reduce_kernels(fmt, n_buckets, G).items():
+                want[k] = steps * v
+            check(counts == want, f"{fmt} overlap launches {counts}, want "
+                  f"{want}")
+            add(counts)
+            batch = next(run.data)
+            _overlap_split(run, batch, fmt, card)
+            _step_ab(run, batch, card)
+            _print_stream_overlap(run, batch, fmt)
+        if fmt == "fp32":
+            with deadline(OVERLAP_DEADLINE_S):
+                torch.backends.cudnn.deterministic = True
+                p0, s0 = _clone(run.params), _clone(run.opt_state)
+                mono = _monolithic_step(run, 0.0)
+                init_fn, local = make_overlapped_update(
+                    run.optimizer, run.mesh, run.mesh.axis_names, run.comm)
+                over = make_overlapped_train_step(
+                    run.loss_fn, run.lr_schedule, run.mesh,
+                    run.mesh.axis_names, run.comm, local, grad_clip=0.0)
+                for rep in range(3):
+                    pm, sm = _clone(p0), _clone(s0)
+                    mono(pm, sm, 0, batch)
+                    po, so = _clone(p0), _clone(s0)
+                    over(po, so, 0, batch)
+                    differ = [k for k in sorted(pm)
+                              if not torch.equal(pm[k], po[k])]
+                    differ += [f"state {i}" for i, (a, b) in enumerate(
+                        zip(sm.velocity, so.velocity))
+                        if not torch.equal(a, b)]
+                    check(not differ, f"(a) rep {rep}: overlapped and "
+                          f"monolithic steps differ at {differ}")
+                print(f"    (a) one step with grad_clip=0 from the same "
+                      f"params, state and batch, deterministic cuDNN: "
+                      f"overlapped bitwise equal to monolithic, all "
+                      f"{len(pm)} leaves and {len(sm.velocity)} state "
+                      f"strips, 3 times out of 3")
+                del p0, s0, pm, sm, po, so
+                run.close()
+                del run, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+                losses = {}
+                for mode in (True, False):
+                    s = spec.replace(steps=3, comm=CommConfig(
+                        backend="pallas-ring", overlap=mode))
+                    r = use_kernel(compile_run(s))
+                    losses[mode] = [h["loss"]
+                                    for h in r.fit(log_fn=lambda *_: None)]
+                    r.close()
+                    del r
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                torch.backends.cudnn.deterministic = False
+                worst = max(abs(a - b) / abs(b)
+                            for a, b in zip(losses[True], losses[False]))
+                print(f"    (b) 3 steps from seed 0, deterministic cuDNN: "
+                      f"overlap losses {losses[True]}, monolithic "
+                      f"{losses[False]}; worst relative difference {worst} "
+                      f"(tolerance {ZERO1_LOSS_REL_TOL})")
+                check(worst <= ZERO1_LOSS_REL_TOL,
+                      "overlapped and monolithic losses differ")
+        else:
+            run.close()
+            del run, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    spec = RunSpec(arch="cd-dnn", batch=DNN_BATCH, steps=DNN_STEPS,
+                   lr=DNN_LR, schedule="constant", seed=0, log_every=1,
+                   parallel="zero1", mesh=MeshSpec(members_per_device=G),
+                   comm=CommConfig(backend="pallas-ring", overlap=True))
+    with deadline(OVERLAP_DEADLINE_S):
+        run, hist, counts = _fit_dnn(spec, "CD-DNN fp32, overlap", card)
+        n_buckets = len(run.opt_state.velocity)
+        n_layers = run.cfg.num_hidden + 1
+        want = dict.fromkeys(counts, 0)
+        want["blocked_matmul"] = spec.steps * n_layers
+        want["ring_reduce_scatter"] = spec.steps * n_buckets
+        want["ring_all_gather"] = spec.steps * n_buckets
+        check(counts == want, f"CD-DNN overlap launches {counts}, want "
+              f"{want}")
+        add(counts)
+        batch = next(run.data)
+        _overlap_split(run, batch, "fp32", card)
+        _step_ab(run, batch, card)
+        _print_stream_overlap(run, batch, "fp32")
+        run.close()
+        del run, batch
+    print(f"  the overlapped path's launches in its fits: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
 PROCESS_FORMATS = ("fp32", "int8", "topk")
+PROCESS_OVERLAP_BATCH = 8
 
 
 def _process_member(rank, world, init_file, results):
@@ -2502,6 +2896,8 @@ def _process_member(rank, world, init_file, results):
                     for a, b in zip(s_p["residual"], s_l["residual"]))
             out[fmt] = (counts, same, dt)
             del local, params, state, s_l, s_p
+        out["overlap"] = _process_overlap_step(opt, p0, local_mesh, proc_mesh,
+                                               dev)
         results.put((rank, out, None))
         code = 0
     except Exception:
@@ -2518,6 +2914,50 @@ def _process_member(rank, world, init_file, results):
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(code)
+
+
+def _process_overlap_step(opt, p0, local_mesh, proc_mesh, dev):
+    """One overlapped zero1 step of full-width VGG-A (batch
+    ``PROCESS_OVERLAP_BATCH``, grad_clip=0, deterministic cuDNN) on the
+    ProcessMesh and on a LocalMesh from the same params and batch: (the
+    process step's launches, whether its params equal the local step's
+    bitwise, its seconds)."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring as kring
+    from repro_torch.models import cnn
+    from repro_torch.optim.dist import make_overlapped_update
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train import make_overlapped_train_step
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("vgg-a")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"images": torch.randn(PROCESS_OVERLAP_BATCH, cfg.image_size,
+                                   cfg.image_size, 3, generator=gen,
+                                   device=dev),
+             "labels": torch.randint(0, cfg.num_classes,
+                                     (PROCESS_OVERLAP_BATCH,), generator=gen,
+                                     device=dev)}
+    comm = CommConfig(backend="pallas-ring", overlap=True)
+    got = {}
+    for name, mesh in (("local", local_mesh), ("process", proc_mesh)):
+        init_fn, local_update = make_overlapped_update(opt, mesh, ("data",),
+                                                       comm)
+        step = make_overlapped_train_step(
+            lambda p, b: cnn.loss_fn(p, cfg, b), constant(5e-3), mesh,
+            ("data",), comm, local_update, grad_clip=0.0)
+        params = {k: v.clone() for k, v in p0.items()}
+        state = init_fn(params)
+        torch.cuda.synchronize()
+        kring.reset_launches()
+        t0 = time.perf_counter()
+        params, _, _ = step(params, state, 0, batch)
+        torch.cuda.synchronize()
+        got[name] = (params, dict(kring.launches), time.perf_counter() - t0)
+    same = all(torch.equal(got["process"][0][k], got["local"][0][k])
+               for k in p0)
+    return got["process"][1], same, got["process"][2]
 
 
 def phase7(card):
@@ -2542,7 +2982,8 @@ def phase7(card):
     hop = {"fp32": {"ring_hop_accum": n_buckets * (G - 1)},
            "int8": {"int8_quantize": n_buckets,
                     "ring_hop_int8": n_buckets * (G - 1)},
-           "topk": {"ring_hop_topk": n_buckets * (G - 1)}}
+           "topk": {"ring_hop_topk": n_buckets * (G - 1)},
+           "overlap": {"ring_hop_accum": n_buckets * (G - 1)}}
     for rank, out, err in got:
         check(err is None, f"process member {rank} failed:\n{err}")
         for fmt, (counts, same, dt) in out.items():
@@ -2551,7 +2992,7 @@ def phase7(card):
                   f"{counts}, want {want}")
             check(same, f"process member {rank} {fmt}: params"
                   f"{' or residual' if fmt == 'topk' else ''} differ from "
-                  "the local mesh's")
+                  f"the local mesh's{' overlapped step' if fmt == 'overlap' else ''}")
     for rank, p in enumerate(procs):
         check(p.exitcode == 0, f"process member {rank} exited with code "
               f"{p.exitcode}")
@@ -2564,7 +3005,16 @@ def phase7(card):
               f"equal to a local mesh's on every member; update "
               f"{[r[1][fmt][2] for r in got]} s per member (host-bound) "
               f"[{card}]")
-    return got[0][1]["fp32"][0]["ring_hop_accum"]
+    print(f"phase 7 (overlap): one overlapped zero1 step of full-width VGG-A "
+          f"(batch {PROCESS_OVERLAP_BATCH}, grad_clip=0, deterministic "
+          f"cuDNN) by {G} processes, each bucket's reduce issued inside the "
+          f"backward: each member launched "
+          f"{ {k: v for k, v in got[0][1]['overlap'][0].items() if v} }; "
+          f"params bitwise equal to a local mesh's overlapped step on every "
+          f"member; step {[r[1]['overlap'][2] for r in got]} s per member "
+          f"[{card}]")
+    return (got[0][1]["fp32"][0]["ring_hop_accum"],
+            got[0][1]["overlap"][0]["ring_hop_accum"])
 
 
 def _leaf_names(tree, prefix=""):
@@ -2697,7 +3147,14 @@ def main() -> int:
     flash_f32["launches"] = timed("12 f32 path", phase12_f32_path, dev,
                                   card)
     flash["launches"] = timed("13", phase13, card)
-    hop["launches"] = timed("7", phase7, card)
+    ov = timed("14", phase14, card)
+    hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
+    # the overlapped path's launches (phases 14 and 7) beside each row's
+    for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
+                      (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),
+                      (ag, "ring_all_gather"), *((w, w["name"]) for w in wire)):
+        row["launches_overlap"] = ov.get(name, 0)
+        row["launches"] += row["launches_overlap"]
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,

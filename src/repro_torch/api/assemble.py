@@ -11,7 +11,11 @@ and ``optim.dist.make_distributed_update`` over the G members of a local
 mesh (``MeshSpec.members_per_device``) on the run's device.  What is not
 ported yet raises before anything is allocated.  ``wire_format="topk"``
 takes the error-feedback update (``optim.dist.make_topk_ef_update``); int8
-rides the plain zero1 pipeline through the bound backend.
+rides the plain zero1 pipeline through the bound backend.  ``comm.overlap``
+takes the §3.1 backprop-overlapped step
+(``train.make_overlapped_train_step`` over ``optim.dist.
+make_overlapped_update``), under every wire format but top-k, which
+``RunSpec`` refuses with overlap.
 """
 from __future__ import annotations
 
@@ -35,9 +39,10 @@ from repro_torch.optim import (
 )
 from repro_torch.optim.dist import (
     make_distributed_update,
+    make_overlapped_update,
     make_topk_ef_update,
 )
-from repro_torch.train import make_train_step
+from repro_torch.train import make_overlapped_train_step, make_train_step
 
 #: the parallel modes compile_run assembles
 PORTED_MODES = ("serial", "zero1")
@@ -79,8 +84,6 @@ def _check_ported(spec: RunSpec) -> None:
         return
     if spec.comm == "auto":
         missing("comm='auto' (the collective autotuner)")
-    if spec.comm is not None and spec.comm.overlap:
-        missing("comm.overlap (the backprop-overlapped update)")
     if spec.mesh.model_ways > 1:
         missing(f"model_ways={spec.mesh.model_ways}")
     if spec.mesh.cluster:
@@ -106,23 +109,34 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
     params = family.init(cfg, spec.seed, dev)
     optimizer = _make_optimizer(spec, family)
     lr_schedule = _make_schedule(spec, 1 if mesh is None else mesh.size)
-    dist_update = comm = None
+    dist_update = comm = train_step = None
     if spec.parallel == "zero1":
         axes = mesh.axis_names
         comm = spec.comm if spec.comm is not None \
             else CommConfig(hierarchical=len(axes) == 2)
-        # the error-feedback residual of topk needs the state carry of the
-        # EF composition (spec validation pinned topk to monolithic zero1)
-        make_update = make_topk_ef_update if comm.wire_format == "topk" \
-            else make_distributed_update
-        init_fn, dist_update = make_update(optimizer, mesh, data_axes=axes,
-                                           comm=comm)
+        if comm.overlap:
+            # §3.1: each bucket's reduce is issued inside the backward pass
+            # (spec validation keeps topk off this path)
+            init_fn, dist_update = make_overlapped_update(
+                optimizer, mesh, data_axes=axes, comm=comm)
+            train_step = make_overlapped_train_step(
+                loss_fn, lr_schedule, mesh, axes, comm, dist_update,
+                grad_clip=spec.grad_clip)
+        else:
+            # the error-feedback residual of topk needs the state carry of
+            # the EF composition (spec validation pinned topk to monolithic
+            # zero1)
+            make_update = make_topk_ef_update \
+                if comm.wire_format == "topk" else make_distributed_update
+            init_fn, dist_update = make_update(optimizer, mesh,
+                                               data_axes=axes, comm=comm)
         opt_state = init_fn(params)
     else:
         opt_state = optimizer.init(params)
-    train_step = make_train_step(loss_fn, optimizer, lr_schedule,
-                                 grad_clip=spec.grad_clip,
-                                 dist_update=dist_update)
+    if train_step is None:
+        train_step = make_train_step(loss_fn, optimizer, lr_schedule,
+                                     grad_clip=spec.grad_clip,
+                                     dist_update=dist_update)
     return Run(spec=spec, cfg=cfg, family=family, device=dev,
                loss_fn=loss_fn, optimizer=optimizer, lr_schedule=lr_schedule,
                train_step=train_step, params=params, opt_state=opt_state,

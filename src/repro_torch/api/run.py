@@ -7,8 +7,9 @@ started prefetching ``data`` iterator, and ``fit()``.  The reference's
 ``jit_step`` (one jit cache, buffers donated) becomes the eager
 ``train_step``, which updates ``params`` and ``opt_state`` in place.
 Under ``parallel="zero1"`` the run carries its member ``mesh``, its
-``comm`` and the ``dist_update`` its train step calls, and ``opt_state``
-is the strip state.  Checkpoint restore is not ported yet.
+``comm`` and the ``dist_update`` its train step calls (under
+``comm.overlap`` the apply-and-broadcast ``local_update``), and
+``opt_state`` is the strip state.  Checkpoint restore is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class Run:
     opt_state: Any
     mesh: Optional[Any] = None      # launch.mesh.LocalMesh; None for serial
     comm: Optional[Any] = None      # the CommConfig of the zero1 update
-    dist_update: Optional[Callable] = None  # optim.dist update_fn (zero1)
+    dist_update: Optional[Callable] = None  # optim.dist update_fn (zero1;
+    #                                         local_update under overlap)
     telemetry: Optional[Any] = None  # recorder of the trainer's spans and
     #                                  counts; None = no-op
     _data: Optional[Prefetcher] = field(default=None, repr=False)

@@ -42,7 +42,8 @@ class CommConfig:
                    ``"bfloat16"``; f32 accumulate after every stage.
     hierarchical:  two-level in-pod + cross-pod schedule on ``("pod",
                    "data")``.
-    overlap:       reduce inside the backward pass (not ported yet).
+    overlap:       issue each bucket's part-reduce inside the backward
+                   pass, the paper's §3.1 schedule (``comm.overlap``).
     backend:       collective backend name (``comm.backends``): ``"lax"``
                    (the plain collectives) or ``"pallas-ring"`` (the §3.4
                    ring on the port's hand-written kernels).  Under the
@@ -113,6 +114,13 @@ class Bucket:
     size: int                  # payload elements (sum of slot sizes)
     padded_size: int           # size rounded up to a multiple of the group
 
+    @property
+    def trigger_index(self) -> int:
+        """The leaf (flat tree index) whose gradient completes this bucket,
+        in the reference's model that backprop delivers leaf gradients in
+        reverse tree order: the bucket's earliest leaf arrives last."""
+        return min(s.index for s in self.slots)
+
 
 @dataclass(frozen=True)
 class BucketPlan:
@@ -123,6 +131,14 @@ class BucketPlan:
     @property
     def n_collectives(self) -> int:
         return len(self.buckets)
+
+    @property
+    def backprop_order(self) -> Tuple[int, ...]:
+        """Bucket indices in the order the §3.1 overlap schedule issues
+        their part-reduces: descending trigger leaf, ties toward the later
+        bucket (the one rule, ``core.balance.issue_order``)."""
+        from repro_torch.core.balance import issue_order
+        return issue_order(tuple(b.trigger_index for b in self.buckets))
 
     @property
     def total_elements(self) -> int:

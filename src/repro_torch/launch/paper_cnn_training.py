@@ -17,7 +17,7 @@ import argparse
 from repro_torch.api import Run, RunSpec, compile_run
 from repro_torch.configs.base import DNNConfig, ModelConfig
 from repro_torch.models import cnn, dnn, transformer
-from repro_torch.train import make_train_step
+from repro_torch.train import make_overlapped_train_step, make_train_step
 
 
 def kernel_loss(cfg):
@@ -34,12 +34,18 @@ def kernel_loss(cfg):
 
 def use_kernel(run: Run) -> Run:
     """Swap ``run``'s loss for :func:`kernel_loss`; the rest of the
-    assembly (optimizer, schedule, data, trainer) is untouched."""
+    assembly (optimizer, schedule, data, trainer, the overlapped or
+    monolithic update) is untouched."""
     run.loss_fn = kernel_loss(run.cfg)
-    run.train_step = make_train_step(run.loss_fn, run.optimizer,
-                                     run.lr_schedule,
-                                     grad_clip=run.spec.grad_clip,
-                                     dist_update=run.dist_update)
+    if run.comm is not None and run.comm.overlap:
+        run.train_step = make_overlapped_train_step(
+            run.loss_fn, run.lr_schedule, run.mesh, run.mesh.axis_names,
+            run.comm, run.dist_update, grad_clip=run.spec.grad_clip)
+    else:
+        run.train_step = make_train_step(run.loss_fn, run.optimizer,
+                                         run.lr_schedule,
+                                         grad_clip=run.spec.grad_clip,
+                                         dist_update=run.dist_update)
     return run
 
 

@@ -1,5 +1,12 @@
-"""Optimizers and LR schedules of the port (``repro.optim``, serial part)."""
+"""Optimizers, LR schedules and the §3.4 distributed update of the port
+(``repro.optim``): the serial optimizers, and ``optim.dist``'s monolithic
+zero1 update and its backprop-overlapped composition."""
 from repro_torch.optim.adamw import AdamW, AdamWState  # noqa: F401
+from repro_torch.optim.dist import (  # noqa: F401
+    UpdatePlan,
+    make_distributed_update,
+    make_overlapped_update,
+)
 from repro_torch.optim.schedule import (  # noqa: F401
     constant,
     linear_scale_warmup,

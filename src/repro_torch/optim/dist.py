@@ -29,8 +29,10 @@ gradient.  The mesh decides the layout (``per_member``, ``replicated``,
 :func:`make_topk_ef_update` wraps the same pipeline for
 ``wire_format="topk"``: top-k sparsification with error feedback.  The int8
 wire format needs no update of its own: it rides
-:func:`make_distributed_update` through the bound backend.  Backprop
-overlap, stale-sync and gossip are not ported yet.
+:func:`make_distributed_update` through the bound backend.
+:func:`make_overlapped_update` is the apply and broadcast phases alone, for
+the §3.1 backprop-overlapped step, whose reduces the ``comm.overlap`` taps
+issue inside the backward pass.  Stale-sync and gossip are not ported yet.
 """
 from __future__ import annotations
 
@@ -186,6 +188,29 @@ def make_distributed_update(optimizer, mesh, data_axes=("data",),
         return up.broadcast(sched, plan, params, new_p_strips), new_state
 
     return up.init_fn, update_fn
+
+
+def make_overlapped_update(optimizer, mesh, data_axes=("data",),
+                           comm: Optional[CommConfig] = None):
+    """The backprop-overlapped composition: ``(init_fn, local_update)``,
+    where ``local_update(params, g_strips, opt_state, lr) -> (params,
+    opt_state)`` is the apply and broadcast phases alone.  It takes the
+    per-bucket mean-gradient strips already reduced inside the backward pass
+    by the ``comm.overlap`` taps (``train.make_overlapped_train_step``), and
+    advances the params and the state in place.  ``init_fn`` is the shared
+    strip init, so both paths' states have one layout."""
+    comm = DEFAULT_COMM if comm is None else comm
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+    sched = up.schedule()
+
+    @torch.no_grad()
+    def local_update(params, g_strips, opt_state, lr):
+        plan = up.buckets(params)
+        new_p_strips, new_state = up.apply(sched, plan, params, g_strips,
+                                           opt_state, lr)
+        return up.broadcast(sched, plan, params, new_p_strips), new_state
+
+    return up.init_fn, local_update
 
 
 def topk_ef_reduce(up: UpdatePlan, sched: Schedule, plan: BucketPlan, grads,

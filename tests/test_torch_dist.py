@@ -275,11 +275,10 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
     dict(parallel="dp"), dict(parallel="zero1-gspmd"),
     dict(parallel="stale-sync"), dict(parallel="gossip"),
     dict(parallel="zero1", comm="auto"),
-    dict(parallel="zero1", comm=CommConfig(overlap=True)),
     dict(parallel="zero1", mesh=MeshSpec(model_ways=2)),
     dict(parallel="zero1", mesh=MeshSpec(cluster=True))],
-    ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "overlap",
-         "model_ways", "cluster"])
+    ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "model_ways",
+         "cluster"])
 def test_unported_modes_raise_before_allocating(kw, monkeypatch):
     def no_device(*a, **k):
         raise AssertionError("compile_run reached the device")
