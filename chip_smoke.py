@@ -149,6 +149,35 @@ Phase 14 the overlapped zero1 path (paper §3.1): ``compile_run`` with
          for fp32, one step with grad_clip=0 bitwise the monolithic step
          from the same params, state and batch (3 times), and 3-step
          losses against the monolithic run's.
+Phase 15 checkpoints, resume and the cluster (after phase 14).  (a) In
+         this process, full-width VGG-A zero1 at G = 4 members on the card
+         (``pallas-ring``, every forward conv on the kernel, batch 64,
+         deterministic cuDNN), each fit under a ``faulthandler`` deadline:
+         4 uninterrupted steps against 2 steps, a checkpoint, a fresh
+         ``compile_run`` and 2 more (auto-resumed by ``Run.fit``), params
+         and strips bitwise; counts zeroed just before each fit and read
+         just after (per step 8 convs, 14 reduce-scatters, 14 all-gathers,
+         nothing else); the checkpoint's bytes and its write and restore
+         seconds; then the same checkpoint resumed at G = 2 (strips
+         re-planned) against an uninterrupted G = 2 run, final loss within
+         1e-5 of the loss, and a control whose world meta misreads the
+         owner order must miss it.  (b) ``python -m
+         repro_torch.launch.cluster --processes 2 --use-kernel`` at full
+         width on the card (gloo, since the ranks share it; ``pallas-ring``
+         in and across pods, f32, batch 64, 6 steps, a checkpoint every 2,
+         worker 1 killed at step 3, ``--verify``, ``--trace-dir``) in a
+         session killed whole at its timeout: exit 0, world 2, the chaos
+         kill of worker 1 (exit code -9) the one failed attempt, the
+         relaunch at world 1 resuming from the step-2 checkpoint,
+         |cluster - one process| within 1e-5 of the loss, a dropped rank's
+         final loss (emulated in this process) 10 times outside it, the
+         ``step``, ``data_wait``, ``first_step`` and ``ckpt_write`` spans in
+         the merged Chrome trace; then a world-2 run of 6 steps without a
+         kill or a checkpoint for its step times and each rank's launches
+         (its trace's ``launches/<kernel>`` counters: 14 ``ring_hop_accum``
+         and 8 convs a step); then ``python -m repro_torch.launch.train``
+         once (zero1, 2 steps, a checkpoint).  The attempts, the per-step
+         seconds of each world and the wall seconds.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -159,14 +188,17 @@ Phase 7  the process path on the same card: two processes over gloo, one
          zero1 step of full-width VGG-A (batch 8, grad_clip=0,
          deterministic cuDNN) on the ProcessMesh, its hops issued inside
          the backward (one ``ring_hop_accum`` per bucket), bitwise the same
-         step on a local mesh.  A member that
-         succeeds waits for the other and leaves with ``os._exit(0)``,
+         step on a local mesh.  The plain reduce-scatter of card buffers
+         over gloo must refuse (it would sum them in host memory).  A
+         member that succeeds waits for the other and leaves with ``os._exit(0)``,
          without gloo's teardown; every member must exit with code 0.  It
          runs last.
 
 The line before the last is a JSON object of per-kernel findings (each
 row's ``launches`` includes ``launches_overlap``, its launches on the
-overlapped path of phases 14 and 7), the last
+overlapped path of phases 14 and 7, and the conv's and ring rows'
+``launches_resume`` and ``launches_cluster``, their launches on phase 15a's
+resumed fit and on one rank of phase 15b's world-2 run), the last
 line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1829,26 +1861,14 @@ DNN_GRAD_REL_L2_TOL = 1e-4
 
 
 def _counts_zeroed():
-    from repro_torch.kernels import blocked_matmul as kmm
-    from repro_torch.kernels import conv2d as kconv
-    from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import paged_attn
-    from repro_torch.kernels import ring as kring
-    kring.reset_launches()
-    kmm.launches = kconv.launches = paged_attn.launches = 0
-    kflash.launches = 0
+    from repro_torch.kernels import reset_launch_counts
+    reset_launch_counts()
 
 
 def _counts():
     """Every kernel's launches since :func:`_counts_zeroed`."""
-    from repro_torch.kernels import blocked_matmul as kmm
-    from repro_torch.kernels import conv2d as kconv
-    from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import paged_attn
-    from repro_torch.kernels import ring as kring
-    return {"blocked_matmul": kmm.launches, "conv2d_nhwc": kconv.launches,
-            "paged_decode_attention": paged_attn.launches,
-            "flash_attention": kflash.launches, **kring.launches}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _fit_dnn(spec, tag, card, unit="frames", what="product"):
@@ -2838,6 +2858,412 @@ def phase14(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: checkpoints, resume across world sizes, and the cluster CLI
+# ---------------------------------------------------------------------------
+# (a) in this process, full-width VGG-A zero1 at G = 4 on the card,
+# pallas-ring, every forward conv on the kernel, deterministic cuDNN.  2
+# steps, a checkpoint, a fresh compile_run and 2 more steps must be bitwise
+# the 4 uninterrupted steps, params and strips: the checkpoint holds the
+# same f32 bits, the resumed stream skips the same batches, and every kernel
+# and cuDNN call repeats.  Resumed at G = 2 (the strips re-planned) its
+# final loss must lie within RESUME_REL_TOL of an uninterrupted G = 2 run's:
+# in general another G sums the members' gradients in another order (on a
+# local mesh the G rows are equal, and the ring's mean of 2 or 4 equal rows
+# is exact, phase 6 (a), so here the two may agree bitwise).  A control
+# resumes the same checkpoint with its world meta rewritten as hierarchical
+# [2, 2]: the re-plan then undoes an owner permutation the save never
+# applied (rows 1 and 2 of every strip swapped), and it must miss the
+# tolerance.
+# (b) the cluster CLI as a user runs it: 2 processes on the card over gloo
+# (they share it), worker 1 killed at step 3, the run resumed at world 1
+# from the step-2 checkpoint; --verify trains one process in the
+# supervisor, and the final losses must agree within RESUME_REL_TOL of the
+# loss, while a dropped rank must miss that by CONTROL_MISS times.  A
+# world-2 run without a kill or a checkpoint gives that world's step time
+# and each rank's launches (the "launches/<kernel>" counters of its
+# trace).  Then the training CLI once.  Every CLI runs in a session of its
+# own, killed whole at its timeout.
+CKPT_G = 4
+CKPT_RESUME_G = 2
+CKPT_DEADLINE_S = 300          # each fit of phase 15a; ~3 s alone
+RESUME_REL_TOL = 1e-5
+CONTROL_MISS = 10.0
+CLUSTER_TIMEOUT_S = 420
+CLUSTER_STEPS = 6
+CLUSTER_W2_STEPS = 6
+TRAIN_CLI_STEPS = 2
+
+
+def _ckpt_spec(G, steps, **kw):
+    from repro_torch.api import MeshSpec, RunSpec
+    from repro_torch.comm import CommConfig
+    return RunSpec(arch="vgg-a", batch=64, lr=5e-3, schedule="constant",
+                   seed=0, log_every=1, steps=steps, parallel="zero1",
+                   comm=CommConfig(backend="pallas-ring"),
+                   mesh=MeshSpec(members_per_device=G), **kw)
+
+
+def _ckpt_fit(spec, tag, spans=None, wrap_restore=None):
+    """compile_run of ``spec`` with every forward conv on the kernel, and
+    its fit under a deadline, every count zeroed just before ``fit`` and
+    read just after; returns (run, history, counts, lines)."""
+    from repro_torch.api import compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    run = use_kernel(compile_run(spec, recorder=spans))
+    if wrap_restore is not None:
+        run.restore = wrap_restore(run.restore)
+    lines = []
+    torch.cuda.synchronize()
+    _counts_zeroed()
+    with deadline(CKPT_DEADLINE_S):
+        hist = run.fit(log_fn=lambda line: (lines.append(line),
+                                            print(f"    {tag}: {line}")))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts().items() if v}
+    check(hist and all(np.isfinite(h["loss"]) for h in hist),
+          f"{tag} history {hist}")
+    return run, hist, counts, lines
+
+
+def _host_state(run):
+    from repro_torch.checkpoint.ckpt import leaves_with_paths
+    return ({k: v.detach().cpu() for k, v in run.params.items()},
+            [(p, v.cpu() if isinstance(v, torch.Tensor) else v)
+             for p, v in leaves_with_paths(run.opt_state)])
+
+
+def _drop(run):
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _per_step(n_buckets, steps):
+    return {"conv2d_nhwc": 8 * steps, "ring_reduce_scatter": n_buckets * steps,
+            "ring_all_gather": n_buckets * steps}
+
+
+def _misread_owner_order(src, dst, step):
+    """A copy of checkpoint ``step`` of ``src`` in ``dst`` whose world meta
+    says hierarchical [2, 2]: a re-plan from it un-permutes rows that the
+    flat save never permuted."""
+    import shutil
+    from repro_torch.checkpoint.replan import world_meta
+    os.makedirs(dst)
+    name = f"ckpt_{step:08d}"
+    with open(os.path.join(src, name + ".json")) as f:
+        manifest = json.load(f)
+    flat = manifest["meta"]["zero1"]
+    check(flat["axes_sizes"] == [CKPT_G] and not flat["hierarchical"],
+          f"phase 15a saved {flat}, want a flat world of {CKPT_G}")
+    manifest["meta"]["zero1"] = world_meta([2, 2], True,
+                                           flat["bucket_bytes"])
+    with open(os.path.join(dst, name + ".json"), "w") as f:
+        json.dump(manifest, f)
+    shutil.copy(os.path.join(src, name + ".npz"), dst)
+
+
+def phase15a(card):
+    import shutil
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    n_buckets = vgg_buckets(CKPT_G).n_collectives
+    d = tempfile.mkdtemp(prefix="ckpt15-")
+    try:
+        print(f"phase 15a: full-width VGG-A zero1, G = {CKPT_G} members on "
+              f"the card, pallas-ring, forward convs on the kernel, batch "
+              f"64, deterministic cuDNN: 4 uninterrupted steps against 2 + "
+              f"checkpoint + fresh compile_run + 2 [{card}]")
+        whole, _, counts, _ = _ckpt_fit(_ckpt_spec(CKPT_G, 4), "whole")
+        want = _per_step(n_buckets, 4)
+        check(counts == want, f"uninterrupted launches {counts}, want {want}")
+        want_p, want_s = _host_state(whole)
+        n_params = sum(p.numel() for p in whole.params.values())
+        _drop(whole)
+
+        spans = SyncedSpans()
+        first, _, _, _ = _ckpt_fit(_ckpt_spec(CKPT_G, 2, ckpt_every=2,
+                                              ckpt_dir=d), "first", spans)
+        _drop(first)
+        write_s = spans.seconds["ckpt_write"]
+        nbytes = os.path.getsize(os.path.join(d, "ckpt_00000002.npz"))
+        payload = sum(t.numel() * t.element_size()
+                      for t in [*want_p.values(), *(v for _, v in want_s)])
+        restore_s = []
+
+        def timed(restore):
+            def run_timed(step):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                restore(step)
+                torch.cuda.synchronize()
+                restore_s.append(time.perf_counter() - t0)
+            return run_timed
+        resumed, hist, counts, lines = _ckpt_fit(
+            _ckpt_spec(CKPT_G, 4, ckpt_dir=d), "resumed", wrap_restore=timed)
+        check(any("resuming from checkpoint step 2" in x for x in lines),
+              f"no resume line in {lines}")
+        check([h["step"] for h in hist] == [3, 4], f"resumed {hist}")
+        want = _per_step(n_buckets, 2)
+        check(counts == want, f"resumed launches {counts}, want {want}")
+        resumed_counts = counts
+        got_p, got_s = _host_state(resumed)
+        _drop(resumed)
+        check(all(torch.equal(got_p[k], want_p[k]) for k in want_p),
+              "resumed params differ from the uninterrupted run's")
+        check(len(got_s) == len(want_s) and all(
+            a[0] == b[0] and torch.equal(a[1], b[1])
+            for a, b in zip(got_s, want_s)),
+            "resumed strips differ from the uninterrupted run's")
+        print(f"  checkpoint of step 2: {nbytes} bytes on disk ({payload} "
+              f"bytes of arrays: {n_params} params and {len(want_s)} strip "
+              f"tensors, f32); written in {write_s} s (ckpt_write span, "
+              f"gather + host copy + npz), restored in {restore_s[0]} s "
+              f"[{card}]")
+        print(f"  resumed at G = {CKPT_G}: params and strips bitwise the "
+              f"uninterrupted run's; launches {resumed_counts} = 2 steps x "
+              f"(8 convs, {n_buckets} reduce-scatters, {n_buckets} gathers)")
+
+        # the same checkpoint resumed at another world size, and misread
+        def final(spec, tag):
+            run, hist, counts, lines = _ckpt_fit(spec, tag)
+            p, _ = _host_state(run)
+            _drop(run)
+            return hist[-1]["loss"], p, counts, lines
+        loss, s_p, counts, lines = final(
+            _ckpt_spec(CKPT_RESUME_G, 4, ckpt_dir=d), f"G={CKPT_RESUME_G} "
+            "resumed")
+        check(any("resuming from checkpoint step 2" in x for x in lines),
+              f"no resume line in {lines}")
+        small_buckets = vgg_buckets(CKPT_RESUME_G).n_collectives
+        want = _per_step(small_buckets, 2)
+        check(counts == want, f"G={CKPT_RESUME_G} resumed launches {counts},"
+              f" want {want}")
+        ref_loss, r_p, _, _ = final(_ckpt_spec(CKPT_RESUME_G, 4),
+                                    f"G={CKPT_RESUME_G} whole")
+        wrong_dir = os.path.join(d, "misread")
+        _misread_owner_order(d, wrong_dir, 2)
+        bad_loss, _, _, _ = final(_ckpt_spec(CKPT_RESUME_G, 4,
+                                             ckpt_dir=wrong_dir),
+                                  f"G={CKPT_RESUME_G} misread owner order")
+        tol = RESUME_REL_TOL * abs(ref_loss)
+        diff, bad = abs(loss - ref_loss), abs(bad_loss - ref_loss)
+        worst = max(float((s_p[k] - r_p[k]).abs().max()) for k in r_p)
+        check(diff <= tol, f"G={CKPT_RESUME_G} resume: final loss {loss} vs "
+              f"{ref_loss}, |diff| {diff} > {tol}")
+        check(bad > tol, f"the misread owner order's final loss {bad_loss} "
+              f"lies within {tol} of {ref_loss}: the resume gate is blind")
+        print(f"  resumed at G = {CKPT_RESUME_G} from the G = {CKPT_G} "
+              f"checkpoint (strips re-planned): final loss {loss} vs "
+              f"{ref_loss} uninterrupted, |diff| {diff} <= tol {tol} "
+              f"({RESUME_REL_TOL} of the loss); max |param diff| {worst}"
+              f"{' (bitwise)' if worst == 0 else ''}; launches {counts}; "
+              f"the control with the owner order misread (hierarchical "
+              f"[2, 2] meta): final loss {bad_loss}, |diff| {bad} = "
+              f"{bad / tol} x tol [{card}]")
+        return resumed_counts
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+
+
+def _trace_events(path):
+    from repro_torch.telemetry import read_jsonl
+    return read_jsonl(path)
+
+
+def _trace_steps(path):
+    """Durations (s) of the ``step`` spans in one worker's JSONL trace."""
+    return [e["dur"] for e in _trace_events(path)
+            if e.get("kind") == "step" and e.get("ph") == "span"]
+
+
+def _trace_launches(path):
+    """The ``launches/<kernel>`` counters of a trace's closing metrics."""
+    metrics = [e for e in _trace_events(path) if e.get("kind") == "metrics"]
+    check(metrics, f"no closing metrics in {path}")
+    return {k.split("/", 1)[1]: v for k, v in metrics[-1]["counters"].items()
+            if k.startswith("launches/")}
+
+
+def _cli(module, argv, env):
+    """``python -m module argv`` as a user runs it, in a session of its
+    own that is killed whole after CLUSTER_TIMEOUT_S: its CompletedProcess
+    and wall seconds; its stdout is printed under cli:."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CLUSTER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"chip smoke failed: {module} ran past "
+                           f"{CLUSTER_TIMEOUT_S} s:\n{out}\n{err}") from None
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"    cli: {line}")
+    check(proc.returncode == 0, f"{module} exit {proc.returncode}:\n"
+          f"{err[-6000:]}")
+    return subprocess.CompletedProcess(proc.args, 0, out, err), wall
+
+
+def _dropped_rank_loss(argv, steps):
+    """The final loss of the verify's one-process run had rank 1's gradient
+    been dropped: steps 1..steps-1 train on rank 0's rows of each batch
+    alone (under the clip, whose norm the gradient far exceeds, that is the
+    update of a mean over ranks missing rank 1's term), and the last step's
+    loss is taken over the whole batch, as the group mean is."""
+    import argparse
+    from repro_torch.data.pipeline import make_placer
+    from repro_torch.launch.cluster import make_parser, resolve_comm_backends
+    from repro_torch.launch.train import compile_from_args
+    args = make_parser().parse_args(argv)
+    resolve_comm_backends(args)
+    run = compile_from_args(argparse.Namespace(**dict(
+        vars(args), ckpt_dir=None, ckpt_every=0, trace_dir=None)))
+    stream = run.family.stream(run.cfg, run.spec.batch, run.spec.seq,
+                               run.spec.seed)
+    whole, rank0 = make_placer(run.device), make_placer(run.device, (0, 2))
+    with deadline(CKPT_DEADLINE_S):
+        for i in range(steps - 1):
+            run.step(rank0(next(stream)), i)
+        loss = float(run.step(whole(next(stream)), steps - 1)["loss"])
+    _drop(run)
+    return loss
+
+
+def phase15b(card):
+    import ast
+    import re
+    import shutil
+    d = tempfile.mkdtemp(prefix="cluster15-")
+    trace = os.path.join(d, "trace")
+    # the cross-pod level takes the cluster's default, pallas-ring
+    argv = ["--processes", "2", "--arch", "vgg-a", "--parallel", "zero1",
+            "--comm-backend", "pallas-ring", "--batch", "64", "--steps",
+            str(CLUSTER_STEPS), "--schedule", "constant", "--ckpt-every", "2",
+            "--ckpt-dir", d, "--run-dir", d, "--chaos-kill-step", "3",
+            "--trace-dir", trace, "--use-kernel", "--verify"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        out, wall = _cli("repro_torch.launch.cluster", argv, env)
+        for want in ("2 processes over gloo", "cross_backend='pallas-ring'",
+                     "kernel=True", "chaos: SIGKILL worker 1 at step",
+                     "attempt 1: world=1", "resuming from checkpoint step 2",
+                     "verify:", "OK"):
+            check(want in out.stdout, f"no {want!r} in:\n{out.stdout[-4000:]}")
+        # the one failure must be the chaos kill: any other death would be
+        # recovered from the same way and hide a fault.  Worker 1 ends by
+        # SIGKILL (-9); worker 0 may also exit, with an error, on losing its
+        # peer before the supervisor looks
+        failed = re.findall(r"\[elastic\] attempt (\d+) failed: (\w+) "
+                            r"\(dead workers: [^;]*; exit codes ([^)]*)\)",
+                            out.stdout)
+        check(len(failed) == 1 and failed[0][:2] == ("0", "exit"),
+              f"failed attempts {failed}, want attempt 0's only")
+        codes = ast.literal_eval(failed[0][2])
+        check(codes.get(1) == -9 and all(c > 0 for w, c in codes.items()
+                                         if w != 1),
+              f"dead workers' exit codes {codes}: want worker 1 SIGKILLed "
+              f"(-9), any other an error exit after it")
+        attempts = re.findall(r"\[elastic\] (attempt \d+[^\n]*)", out.stdout)
+        check([a.split(":")[0] for a in attempts] == [
+            "attempt 0", "attempt 0 failed", "attempt 1"]
+            and "world=2" in attempts[0] and "world=1" in attempts[2],
+            f"attempts {attempts}: want world 2, the kill, world 1")
+        with open(os.path.join(trace, "trace.json")) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"}
+        want_spans = {"step", "data_wait", "first_step", "ckpt_write"}
+        check(want_spans <= spans, f"merged trace spans {spans}, want "
+              f"{want_spans} among them")
+        # attempt 1's worker 0 rewrote trace_p0 (world 1, steps 3-6)
+        w1 = _trace_steps(os.path.join(trace, "trace_p0.jsonl"))
+        verify = re.search(r"\[cluster\] verify: cluster=(\S+) single=(\S+) "
+                           r"\|diff\|=(\S+) tol=(\S+)", out.stdout)
+        cluster_loss, single = float(verify.group(1)), float(verify.group(2))
+        tol = RESUME_REL_TOL * abs(single)
+        diff = abs(cluster_loss - single)
+        check(diff <= tol, f"cluster final loss {cluster_loss} vs one "
+              f"process {single}: |diff| {diff} > {tol}")
+        print(f"phase 15b: python -m repro_torch.launch.cluster "
+              f"{' '.join(argv).replace(d, 'D')} on the card, f32 (TF32 off, "
+              f"compile_run's hold_f32): exit 0 in {wall} s; {attempts}; "
+              f"{verify.group(0)}; |cluster - single| {diff} <= {tol} "
+              f"({RESUME_REL_TOL} of the loss); merged Chrome trace spans "
+              f"{sorted(spans)} [{card}]")
+
+        # what the gate would see of a dropped rank
+        dropped = _dropped_rank_loss(argv, CLUSTER_STEPS)
+        miss = abs(dropped - single)
+        check(miss >= CONTROL_MISS * tol,
+              f"a dropped rank's final loss {dropped} lies within "
+              f"{CONTROL_MISS} x {tol} of the one-process run's {single}: "
+              f"the verify gate is blind")
+        print(f"  a dropped rank (rank 0's rows alone in steps 1-"
+              f"{CLUSTER_STEPS - 1}, in this process): final loss {dropped} "
+              f"against {single}, |diff| {miss} = {miss / tol} x tol; the "
+              f"cluster's own |diff| {diff}")
+
+        # world 2 without a kill or a checkpoint: step times and launches
+        trace2 = os.path.join(d, "trace2")
+        argv2 = ["--processes", "2", "--arch", "vgg-a", "--batch", "64",
+                 "--steps", str(CLUSTER_W2_STEPS), "--schedule", "constant",
+                 "--run-dir", os.path.join(d, "w2"), "--trace-dir", trace2,
+                 "--use-kernel"]
+        out2, wall2 = _cli("repro_torch.launch.cluster", argv2, env)
+        check("attempts=1" in out2.stdout and "world=2" in out2.stdout,
+              f"the world-2 run did not finish in its first attempt:\n"
+              f"{out2.stdout[-3000:]}")
+        w2 = [_trace_steps(os.path.join(trace2, f"trace_p{r}.jsonl"))
+              for r in range(2)]
+        check(all(len(w) == CLUSTER_W2_STEPS for w in w2),
+              f"world-2 step spans {w2}")
+        n_buckets = vgg_buckets(2).n_collectives
+        rank_counts = [_trace_launches(os.path.join(trace2,
+                                                    f"trace_p{r}.jsonl"))
+                       for r in range(2)]
+        for r, c in enumerate(rank_counts):
+            check(c.get("ring_hop_accum") == n_buckets * CLUSTER_W2_STEPS
+                  and c.get("conv2d_nhwc") == 8 * CLUSTER_W2_STEPS,
+                  f"rank {r} launched {c}: want ring_hop_accum "
+                  f"{n_buckets} and conv2d_nhwc 8 a step")
+        med2 = [float(np.median(w[1:])) for w in w2]
+        print(f"  world 2 (its own run, {CLUSTER_W2_STEPS} steps, exit 0 in "
+              f"{wall2} s): each rank's launches {rank_counts} = "
+              f"{CLUSTER_W2_STEPS} steps x ({n_buckets} hops, 8 convs)")
+        print(f"  step seconds (step spans, each ending in a device sync; f32): "
+              f"world 2 worker 0 {w2[0]}, worker 1 {w2[1]}, medians of "
+              f"steps 2-{CLUSTER_W2_STEPS} {med2}; world 1 (the chaos run's "
+              f"attempt 1, steps 3-{CLUSTER_STEPS}) {w1}, median of steps "
+              f"4-{CLUSTER_STEPS} "
+              f"{float(np.median(w1[1:])) if len(w1) > 1 else None} [{card}]")
+
+        # the training CLI, once
+        trace3 = os.path.join(d, "trace3")
+        argv3 = ["--arch", "vgg-a", "--parallel", "zero1", "--pods", "2",
+                 "--comm-backend", "pallas-ring", "--cross-backend",
+                 "pallas-ring", "--batch", "64", "--steps",
+                 str(TRAIN_CLI_STEPS), "--schedule", "constant",
+                 "--ckpt-dir", os.path.join(d, "train"), "--ckpt-every",
+                 str(TRAIN_CLI_STEPS), "--trace-dir", trace3, "--use-kernel"]
+        out3, wall3 = _cli("repro_torch.launch.train", argv3, env)
+        check("final loss" in out3.stdout, f"train CLI:\n{out3.stdout}")
+        c3 = _trace_launches(os.path.join(trace3, "trace_p0.jsonl"))
+        check(c3.get("conv2d_nhwc") == 8 * TRAIN_CLI_STEPS,
+              f"train CLI launches {c3}: want 8 convs a step")
+        print(f"  python -m repro_torch.launch.train "
+              f"{' '.join(argv3).replace(d, 'D')}: exit 0 in {wall3} s, "
+              f"launches {c3} [{card}]")
+        return rank_counts[0]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -2898,6 +3324,15 @@ def _process_member(rank, world, init_file, results):
             del local, params, state, s_l, s_p
         out["overlap"] = _process_overlap_step(opt, p0, local_mesh, proc_mesh,
                                                dev)
+        # the plain reduce-scatter of card buffers over gloo would sum them
+        # in host memory: it must refuse, not fall back
+        from repro_torch.core.collectives import part_reduce
+        try:
+            part_reduce(torch.ones(2 * world, device=dev), proc_mesh, "data")
+            raise RuntimeError("the plain reduce-scatter summed card buffers "
+                               "over gloo instead of refusing")
+        except NotImplementedError:
+            pass
         results.put((rank, out, None))
         code = 0
     except Exception:
@@ -3148,6 +3583,8 @@ def main() -> int:
                                   card)
     flash["launches"] = timed("13", phase13, card)
     ov = timed("14", phase14, card)
+    resume = timed("15a", phase15a, card)
+    cluster = timed("15b", phase15b, card)
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
@@ -3155,6 +3592,13 @@ def main() -> int:
                       (ag, "ring_all_gather"), *((w, w["name"]) for w in wire)):
         row["launches_overlap"] = ov.get(name, 0)
         row["launches"] += row["launches_overlap"]
+    # the resumed path's launches (phase 15a) and one cluster rank's
+    # (phase 15b's world-2 run, rank 0) beside each row's
+    for row, name in ((conv, "conv2d_nhwc"), (hop, "ring_hop_accum"),
+                      (rs, "ring_reduce_scatter"), (ag, "ring_all_gather")):
+        row["launches_resume"] = resume.get(name, 0)
+        row["launches_cluster"] = cluster.get(name, 0)
+        row["launches"] += row["launches_resume"] + row["launches_cluster"]
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,

@@ -11,6 +11,13 @@
                               comm=CommConfig(backend="pallas-ring"),
                               mesh=MeshSpec(members_per_device=4)))
 
+    # one member a process of the gloo group that ``python -m
+    # repro_torch.launch.cluster --processes N`` starts; a ckpt_dir run
+    # checkpoints and resumes, at another world size too
+    run = compile_run(RunSpec(arch="vgg-a", parallel="zero1",
+                              mesh=MeshSpec(cluster=True),
+                              ckpt_every=2, ckpt_dir="/tmp/ckpt"))
+
     from repro_torch.api import ServeSpec, compile_serve
     server = compile_serve(ServeSpec(arch="llama3-8b"))     # on the GPU
     rid = server.submit([1, 2, 3]); done = server.drain()
@@ -31,4 +38,5 @@ from repro_torch.api.spec import (  # noqa: F401
     ModeCaps,
     RunSpec,
     ServeSpec,
+    TelemetrySpec,
 )

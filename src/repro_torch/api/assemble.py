@@ -3,13 +3,23 @@
 happens.
 
 Training resolves, in the reference's order: arch id -> config (optionally
-its smoke variant) -> family adapter -> mesh (none for ``serial``) -> params
+its smoke variant) -> family adapter -> recorder (``telemetry.
+make_recorder(spec.telemetry)``) -> mesh (none for ``serial``) -> params
 on the device -> optimizer and LR schedule -> update path -> train step.
 The update path is the serial ``optimizer.update`` or, for
-``parallel="zero1"``, the explicit bucketed §3.4 pipeline of ``repro_torch.comm``
-and ``optim.dist.make_distributed_update`` over the G members of a local
-mesh (``MeshSpec.members_per_device``) on the run's device.  What is not
-ported yet raises before anything is allocated.  ``wire_format="topk"``
+``parallel="zero1"``, the explicit bucketed §3.4 pipeline of
+``repro_torch.comm`` and ``optim.dist.make_distributed_update`` over the G
+members of a local mesh (``MeshSpec.members_per_device``) on the run's
+device, or, under ``MeshSpec(cluster=True)``, over the ranks of the live
+``torch.distributed`` group, one member a process
+(``launch.mesh.make_cluster_mesh``; each rank trains on its rows of the
+batch, and ``comm=None`` is hierarchical over the ``("pod", "data")`` axes,
+as the reference's cluster CLI makes it, with the pallas-ring backend at
+both levels: over gloo the plain reduce-scatter would sum a card's
+buffers in host memory, and ``core.collectives.part_reduce`` refuses
+that).  On a card the run holds f32 (``device.hold_f32``: no TF32 in
+cuDNN or cuBLAS).  What is not ported yet raises before anything is
+allocated.  ``wire_format="topk"``
 takes the error-feedback update (``optim.dist.make_topk_ef_update``); int8
 rides the plain zero1 pipeline through the bound backend.  ``comm.overlap``
 takes the §3.1 backprop-overlapped step
@@ -26,8 +36,8 @@ from repro_torch.api.spec import RunSpec, ServeSpec
 from repro_torch.comm.bucketer import CommConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, smoke_variant
-from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.device import hold_f32, resolve_device
+from repro_torch.launch.mesh import make_cluster_mesh, make_local_mesh
 from repro_torch.models import transformer
 from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.optim import (
@@ -42,6 +52,7 @@ from repro_torch.optim.dist import (
     make_overlapped_update,
     make_topk_ef_update,
 )
+from repro_torch.telemetry import make_recorder
 from repro_torch.train import make_overlapped_train_step, make_train_step
 
 #: the parallel modes compile_run assembles
@@ -75,45 +86,59 @@ def _make_schedule(spec: RunSpec, data_ways: int = 1):
 
 def _check_ported(spec: RunSpec) -> None:
     """Raise for what the port does not run yet, before any allocation."""
-    def missing(what):
-        raise NotImplementedError(f"{what} is not ported yet: the port runs "
+    def missing(what, item):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                                  f"Queue A item {item}): the port runs "
                                   f"parallel in {PORTED_MODES}")
     if spec.parallel not in PORTED_MODES:
-        missing(f"parallel={spec.parallel!r}")
+        missing(f"parallel={spec.parallel!r}",
+                6 if spec.parallel in ("stale-sync", "gossip") else 9)
     if spec.parallel == "serial":
         return
     if spec.comm == "auto":
-        missing("comm='auto' (the collective autotuner)")
+        missing("comm='auto' (the collective autotuner)", 7)
     if spec.mesh.model_ways > 1:
-        missing(f"model_ways={spec.mesh.model_ways}")
-    if spec.mesh.cluster:
-        missing("mesh.cluster (compile_run over processes)")
+        missing(f"model_ways={spec.mesh.model_ways}", 9)
 
 
 def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
     """Assemble a ready-to-train :class:`Run` from ``spec``.
 
-    ``device`` defaults to the GPU and raises when none is visible; pass
-    ``device="cpu"`` to run on the CPU.  ``recorder`` receives the
-    trainer's spans and counts (None: no-op).
+    ``device`` defaults to the GPU (under ``cluster``, rank r's
+    ``cuda:(r % cards)``) and raises when none is visible; pass
+    ``device="cpu"`` to run on the CPU.  On a card it turns TF32 off for
+    the process (``device.hold_f32``).  ``recorder`` receives the
+    trainer's spans and counts; None builds ``make_recorder(spec.
+    telemetry)``.
     """
     _check_ported(spec)
     dev = resolve_device(device)
     cfg = _resolve_config(spec)
     family = adapter_for(cfg)
     loss_fn = family.make_loss(cfg)
+    if recorder is None:
+        recorder = make_recorder(spec.telemetry)
     mesh = None
     if spec.parallel != "serial":
-        mesh = make_local_mesh(spec.mesh.members_per_device,
-                               pods=spec.mesh.pods, device=dev)
+        if spec.mesh.cluster:
+            mesh = make_cluster_mesh(spec.mesh.model_ways, device=device)
+            dev = mesh.device
+        else:
+            mesh = make_local_mesh(spec.mesh.members_per_device,
+                                   pods=spec.mesh.pods, device=dev)
+    hold_f32(dev)
     params = family.init(cfg, spec.seed, dev)
     optimizer = _make_optimizer(spec, family)
     lr_schedule = _make_schedule(spec, 1 if mesh is None else mesh.size)
     dist_update = comm = train_step = None
     if spec.parallel == "zero1":
         axes = mesh.axis_names
-        comm = spec.comm if spec.comm is not None \
-            else CommConfig(hierarchical=len(axes) == 2)
+        comm = spec.comm
+        if comm is None and spec.mesh.cluster:
+            comm = CommConfig(hierarchical=True, backend="pallas-ring",
+                              cross_backend="pallas-ring")
+        elif comm is None:
+            comm = CommConfig(hierarchical=len(axes) == 2)
         if comm.overlap:
             # §3.1: each bucket's reduce is issued inside the backward pass
             # (spec validation keeps topk off this path)

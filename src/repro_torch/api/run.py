@@ -1,5 +1,5 @@
 """The executable product of ``compile_run`` (``repro.api.run``): params,
-state, step, data, fit.
+state, step, data, fit, checkpoints.
 
 A :class:`Run` owns what a training loop needs, already assembled and on
 its device: the ``train_step``, the ``params`` and ``opt_state``, a lazily
@@ -9,15 +9,24 @@ started prefetching ``data`` iterator, and ``fit()``.  The reference's
 Under ``parallel="zero1"`` the run carries its member ``mesh``, its
 ``comm`` and the ``dist_update`` its train step calls (under
 ``comm.overlap`` the apply-and-broadcast ``local_update``), and
-``opt_state`` is the strip state.  Checkpoint restore is not ported yet.
+``opt_state`` is the strip state.
+
+A run with a ``ckpt_dir`` writes a checkpoint every ``ckpt_every`` steps
+and resumes from the latest one there (``fit``), in the reference's file
+format (``checkpoint.ckpt``): a checkpoint saved at another world size is
+re-planned (``checkpoint.replan``), whichever package wrote it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+import numpy as np
+
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.core.params import map_tree, tree_leaves
 from repro_torch.data.pipeline import Prefetcher, make_placer
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -36,24 +45,42 @@ class Run:
     train_step: Callable            # (params, opt_state, step, batch) -> ...
     params: Any
     opt_state: Any
-    mesh: Optional[Any] = None      # launch.mesh.LocalMesh; None for serial
+    mesh: Optional[Any] = None      # launch.mesh LocalMesh or ProcessMesh;
+    #                                 None for serial
     comm: Optional[Any] = None      # the CommConfig of the zero1 update
     dist_update: Optional[Callable] = None  # optim.dist update_fn (zero1;
     #                                         local_update under overlap)
     telemetry: Optional[Any] = None  # recorder of the trainer's spans and
-    #                                  counts; None = no-op
+    #                                  counts (telemetry.make_recorder);
+    #                                  listeners (the cluster heartbeat,
+    #                                  the JSONL sink) ride its events;
+    #                                  None = no-op
     _data: Optional[Prefetcher] = field(default=None, repr=False)
     _warm: bool = field(default=False, repr=False)  # train_step ran once
+
+    def _make_data(self, skip: int = 0) -> Prefetcher:
+        """A fresh prefetcher over the family's seeded stream, ``skip``
+        batches drawn and dropped on the host first (a resumed run takes up
+        the stream where the interrupted one left it), each batch then
+        placed on the run's device, a process mesh's rank keeping its
+        rows."""
+        s = self.spec
+        stream = self.family.stream(self.cfg, s.batch, s.seq, s.seed)
+        for _ in range(skip):
+            try:
+                next(stream)
+            except StopIteration:
+                break
+        shard = None if self.mesh is None else self.mesh.batch_shard
+        return Prefetcher(stream, place=make_placer(self.device, shard))
 
     @property
     def data(self) -> Prefetcher:
         """Background-prefetching batch iterator over the family's seeded
-        stream, each batch placed on the run's device.  Created on first
-        access (so compiling a Run never starts threads)."""
+        stream.  Created on first access (so compiling a Run never starts
+        threads)."""
         if self._data is None:
-            s = self.spec
-            stream = self.family.stream(self.cfg, s.batch, s.seq, s.seed)
-            self._data = Prefetcher(stream, place=make_placer(self.device))
+            self._data = self._make_data()
         return self._data
 
     def step(self, batch, step_idx: int = 0):
@@ -64,16 +91,169 @@ class Run:
         self._warm = True
         return metrics
 
+    # -- checkpoints ---------------------------------------------------
+    def _zero1_world(self):
+        """This run's zero1 world layout (``checkpoint.replan``'s meta
+        record), or None when the run has no strip state."""
+        if self.comm is None or self.mesh is None:
+            return None
+        from repro_torch.checkpoint.replan import world_meta
+        return world_meta([self.mesh.shape[a] for a in self.mesh.axis_names],
+                          self.comm.hierarchical, self.comm.bucket_bytes)
+
+    def _ckpt_meta(self):
+        world = self._zero1_world()
+        return {"zero1": world} if world is not None else None
+
+    def _ckpt_gather(self):
+        """ckpt.save's gather: every member's rows of the strip state."""
+        if self.mesh is None:
+            return None
+        return {"opt_state": self.mesh.gather_members}
+
+    def _state_template(self, state):
+        """``state`` as the checkpoint holds it: on a process mesh every
+        tensor leaf gains the leading member dimension of G (a zero-copy
+        stand-in carrying the shape and dtype)."""
+        if self.mesh is None or self.mesh.member_dims:
+            return state
+        G = self.mesh.size
+
+        def one(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return np.broadcast_to(np.zeros((), ckpt_lib.np_dtype(x.dtype)),
+                                   (G, *x.shape))
+        return map_tree(one, state)
+
+    def _ef_wrapped(self) -> bool:
+        """True when this run's opt_state is the top-k error-feedback dict
+        around the inner zero1 strip state."""
+        return (isinstance(self.opt_state, dict)
+                and set(self.opt_state) == {"residual", "zero1"})
+
+    def _reinit_residual(self, inner):
+        """A restored inner strip state wrapped for a top-k run with a zero
+        residual (this world's bucket shapes): the carried mass of a bare or
+        other-world checkpoint has no owner here."""
+        tpl = self._state_template(self.opt_state)["residual"]
+        return {"residual": [np.zeros(*ckpt_lib.leaf_meta(r)) for r in tpl],
+                "zero1": inner}
+
+    def _restore_replan(self, step: int, template):
+        """The strict restore failed on shape: the checkpoint was saved at
+        another world size.  Re-plan the strip state for this world
+        (``checkpoint.replan``: exact); params are replicated, so they
+        restore strictly.  ``template`` is the opt_state to restore into,
+        in the checkpoint's layout."""
+        from repro_torch.checkpoint.replan import replan_strip_state
+        from repro_torch.comm.bucketer import plan_buckets
+        wrap = None
+        if isinstance(template, dict) and set(template) == {"residual",
+                                                            "zero1"}:
+            # the top-k residual is member-local unsent gradient mass sized
+            # by the old world's buckets, with no exact conversion: re-plan
+            # the inner strips (keeping the opt_state:zero1/... keys) and
+            # restart the residual at zero
+            template = {"zero1": template["zero1"]}
+            wrap = self._reinit_residual
+        new_world = self._zero1_world()
+        old_world = ckpt_lib.read_manifest(
+            self.spec.ckpt_dir, step)["meta"].get("zero1")
+        if new_world is None or old_world is None:
+            raise ValueError(
+                f"checkpoint step {step} does not match this run's shapes "
+                "and carries no zero1 world meta to re-plan from")
+        trees, _ = ckpt_lib.restore(self.spec.ckpt_dir, step,
+                                    params=self.params)
+        old_leaves = ckpt_lib.restore_loose(self.spec.ckpt_dir, step,
+                                            "opt_state", template)
+        plan = plan_buckets(self.params, new_world["G"],
+                            self.comm.bucket_bytes)
+        trees["opt_state"] = replan_strip_state(
+            template, old_leaves, plan, old_world, new_world)
+        if wrap is not None:
+            trees["opt_state"] = wrap(trees["opt_state"]["zero1"])
+        return trees
+
+    @torch.no_grad()
+    def _place(self, cur, host, members: bool):
+        """Copy the host tree ``host`` (the checkpoint's layout) into the
+        run's tree ``cur`` in place; ``members``: a process mesh's rank
+        takes its row of each tensor (``mesh.own``).  Int leaves (AdamW's
+        count) are replaced."""
+        it = iter(tree_leaves(host))
+        own = members and self.mesh is not None
+
+        def put(c):
+            a = next(it)
+            if not isinstance(c, torch.Tensor):
+                return int(a)
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            if own:
+                src = self.mesh.own(src, self.mesh.per_member(lambda m: m))
+            return c.copy_(src)
+        return map_tree(put, cur)
+
+    def restore(self, step: int):
+        """Load checkpoint ``step`` of ``spec.ckpt_dir`` into the run's
+        params and opt_state, in place.  A zero1 checkpoint saved at
+        another world size is re-planned (``checkpoint.replan``) rather
+        than rejected: the elastic shrink-and-resume path.  A top-k run
+        also takes a bare zero1 checkpoint (the strips' layouts are the
+        same): the inner state restores and the residual restarts at
+        zero."""
+        opt_tpl = self._state_template(self.opt_state)
+        wrap = False
+        if self._ef_wrapped():
+            keys = ckpt_lib.read_manifest(
+                self.spec.ckpt_dir, step)["trees"].get("opt_state", ())
+            if not any(k.startswith("opt_state:zero1/") for k in keys):
+                opt_tpl, wrap = opt_tpl["zero1"], True
+        try:
+            trees, _ = ckpt_lib.restore(self.spec.ckpt_dir, step,
+                                        params=self.params,
+                                        opt_state=opt_tpl)
+        except ValueError:
+            trees = self._restore_replan(step, opt_tpl)
+        if wrap:
+            trees["opt_state"] = self._reinit_residual(trees["opt_state"])
+        self.params = self._place(self.params, trees["params"], False)
+        self.opt_state = self._place(self.opt_state, trees["opt_state"],
+                                     True)
+
     def fit(self, start_step: Optional[int] = None, log_fn=print):
-        """Train from ``start_step`` (default 0) to ``spec.steps``; returns
-        the metrics history (the first and the final step always log)."""
+        """Train for ``spec.steps`` steps; returns the metrics history (the
+        first and the final step always log).
+
+        ``start_step=None`` (the default) resumes from the latest
+        checkpoint in ``spec.ckpt_dir`` when there is one: params and
+        opt_state are restored and the seeded data stream is fast-forwarded
+        one batch per completed step, so the trajectory goes on where the
+        interrupted run left it.  ``start_step=0`` forces a fresh run."""
         s = self.spec
-        tcfg = TrainerConfig(total_steps=s.steps, log_every=s.log_every,
-                             ckpt_every=s.ckpt_every, ckpt_dir=s.ckpt_dir,
-                             recorder=self.telemetry)
-        start_step = 0 if start_step is None else start_step
+        if start_step is None:
+            start_step = 0
+            if s.ckpt_dir:
+                latest = ckpt_lib.latest_step(s.ckpt_dir)
+                if latest is not None:
+                    self.restore(latest)
+                    start_step = latest
+                    log_fn(f"resuming from checkpoint step {latest} "
+                           f"({s.ckpt_dir})")
+                    if latest < s.steps:
+                        # rebuild the stream, skipping the completed steps'
+                        # batches on the host
+                        if self._data is not None:
+                            self._data.close()
+                        self._data = self._make_data(skip=latest)
         if start_step >= s.steps:
             return []
+        tcfg = TrainerConfig(total_steps=s.steps, log_every=s.log_every,
+                             ckpt_every=s.ckpt_every, ckpt_dir=s.ckpt_dir,
+                             ckpt_meta=self._ckpt_meta(),
+                             ckpt_gather=self._ckpt_gather(),
+                             recorder=self.telemetry)
         trainer = Trainer(self.train_step, tcfg, warm=self._warm)
         self.params, self.opt_state, history = trainer.fit(
             self.params, self.opt_state, self.data, start_step=start_step,
@@ -85,9 +265,20 @@ class Run:
         return history
 
     def close(self):
+        """Stop the data thread and finalize the recorder; a traced
+        single-process run merges its Chrome trace here (a cluster's
+        supervisor merges its workers' traces)."""
         if self._data is not None:
             self._data.close()
             self._data = None
+        rec = self.telemetry
+        if rec is not None and getattr(rec, "enabled", False):
+            rec.close()
+            if rec.trace_dir:
+                from repro_torch.cluster.spec import in_worker
+                if not in_worker():
+                    from repro_torch.telemetry import merge_process_traces
+                    merge_process_traces(rec.trace_dir)
 
     def __enter__(self) -> "Run":
         return self

@@ -49,6 +49,30 @@ SCHEDULES = ("warmup_cosine", "constant", "linear-scale-warmup")
 
 
 @dataclass(frozen=True)
+class TelemetrySpec:
+    """Telemetry knobs of a run (``RunSpec.telemetry``).
+
+    trace_dir:       write per-process JSONL event files here (one
+                     ``trace_p<i>.jsonl`` per cluster process) and a merged
+                     Chrome trace ``trace.json`` at ``Run.close`` (by the
+                     supervisor for cluster runs).  ``None`` keeps the
+                     events in memory: listeners (the cluster heartbeat)
+                     still see them, nothing touches the disk.
+    autotune_reps:   timed repetitions per probe buffer when
+                     ``RunSpec.comm="auto"`` measures the collectives
+                     (validated here; the autotuner is not ported yet, and
+                     ``comm="auto"`` raises in ``compile_run``).
+    """
+    trace_dir: Optional[str] = None
+    autotune_reps: int = 2
+
+    def __post_init__(self):
+        if self.autotune_reps < 1:
+            raise ValueError(
+                f"autotune_reps must be >= 1, got {self.autotune_reps}")
+
+
+@dataclass(frozen=True)
 class MeshSpec:
     """Member topology of the data-parallel modes: axes ``("pod", "data")``
     when ``pods > 1``, ``("data",)`` otherwise.
@@ -62,8 +86,12 @@ class MeshSpec:
     pods:               pods of the hierarchical schedule.
     model_ways:         model-parallel ways (not ported yet: > 1 raises in
                         ``compile_run``).
-    cluster:            one member per process of a ``torch.distributed``
-                        group (not ported yet in ``compile_run``).
+    cluster:            one member per process of the live
+                        ``torch.distributed`` group
+                        (``launch.mesh.make_cluster_mesh``): the pod axis is
+                        the process boundary, ``(world, 1)`` members, one
+                        member a process; at world 1 a one-member local
+                        mesh.  ``members_per_device`` is then unused.
     """
     pods: int = 1
     model_ways: int = 1
@@ -96,6 +124,10 @@ class RunSpec:
                 yet).
     optimizer:  ``"adamw"`` / ``"sgd"``; ``None`` = family default (momentum
                 SGD for the paper's CNNs).
+    ckpt_every / ckpt_dir: a checkpoint every ``ckpt_every`` steps into
+                ``ckpt_dir`` (``checkpoint.ckpt``); ``Run.fit`` resumes
+                from the latest one there.
+    telemetry:  a ``TelemetrySpec``, a trace-dir string, or ``None``.
     """
     arch: Union[str, Any]
     smoke: bool = False
@@ -118,6 +150,7 @@ class RunSpec:
     log_every: int = 5
     ckpt_every: int = 0                    # 0 = disabled
     ckpt_dir: Optional[str] = None
+    telemetry: Union[TelemetrySpec, str, None] = None
 
     def __post_init__(self):
         if self.parallel not in PARALLEL_MODES:
@@ -132,6 +165,15 @@ class RunSpec:
         if self.steps < 1:
             raise ValueError(f"steps must be >= 1, got {self.steps}")
         caps = MODE_CAPS[self.parallel]
+        if isinstance(self.telemetry, str):
+            # a bare trace-dir string is the common hand-written case
+            object.__setattr__(self, "telemetry",
+                               TelemetrySpec(trace_dir=self.telemetry))
+        elif self.telemetry is not None and not isinstance(self.telemetry,
+                                                           TelemetrySpec):
+            raise ValueError(
+                "telemetry must be a TelemetrySpec, a trace-dir string or "
+                f"None, got {type(self.telemetry).__name__}")
         if isinstance(self.comm, str):
             if self.comm != "auto":
                 raise ValueError(

@@ -52,6 +52,8 @@ from repro_torch.core.collectives import (
     axis_size,
     flat_group_index,
     flatten_pad,
+    gloo_stages,
+    staged_for,
     unflatten,
 )
 from repro_torch.kernels import ref as kref
@@ -61,15 +63,15 @@ from repro_torch.kernels import ring as kring
 def _exchange(send: torch.Tensor, recv: torch.Tensor, mesh,
               axes) -> None:
     """Send ``send`` to the next member of this rank's group ring and
-    receive the previous member's message into ``recv``.  gloo moves host
-    memory, so over gloo a card's messages are staged through it (the way
-    ranks that share one card talk: NCCL takes one rank per card)."""
+    receive the previous member's message into ``recv``, both staged
+    through host memory where the group is gloo's
+    (``core.collectives.staged_for``)."""
     import torch.distributed as dist
     pg, ranks = mesh.group(axes)
     i, G = ranks.index(mesh.rank), len(ranks)
-    staged = send.is_cuda and dist.get_backend(pg) == "gloo"
+    staged = gloo_stages(send, pg)
     out = torch.empty(recv.shape, dtype=recv.dtype) if staged else recv
-    ops = [dist.P2POp(dist.isend, send.cpu() if staged else send,
+    ops = [dist.P2POp(dist.isend, staged_for(send, pg),
                       ranks[(i + 1) % G], group=pg),
            dist.P2POp(dist.irecv, out, ranks[(i - 1) % G], group=pg)]
     for req in dist.batch_isend_irecv(ops):

@@ -68,6 +68,21 @@ def _check_1d(x: torch.Tensor, mesh) -> None:
             f"{tuple(x.shape)}. Flatten first (flatten_pad).")
 
 
+def gloo_stages(buf: torch.Tensor, pg) -> bool:
+    """True when process group ``pg`` moves ``buf`` through host memory:
+    gloo takes host tensors, so a card's buffer is staged (the way ranks
+    that share one card talk: NCCL takes one rank per card)."""
+    import torch.distributed as dist
+    return buf.is_cuda and dist.get_backend(pg) == "gloo"
+
+
+def staged_for(buf: torch.Tensor, pg) -> torch.Tensor:
+    """``buf`` as process group ``pg`` takes it: its host copy when
+    :func:`gloo_stages`, else ``buf`` itself.  The one staging of the
+    port's process collectives, the ring's hops among them."""
+    return buf.cpu() if gloo_stages(buf, pg) else buf
+
+
 def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
     """Reduce-scatter each member's buffer over the group: member i of the
     group receives the group sum of chunk i.  Paper Fig. 1."""
@@ -80,10 +95,17 @@ def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
 
     def over_ranks(buf):
         import torch.distributed as dist
-        out = buf.new_empty(buf.shape[0] // G)
-        dist.reduce_scatter_tensor(out, buf.contiguous(),
-                                   group=mesh.group(axes)[0])
-        return out
+        pg = mesh.group(axes)[0]
+        if G > 1 and gloo_stages(buf, pg):
+            raise NotImplementedError(
+                "the plain reduce-scatter of a card's buffers over gloo "
+                "would sum them in host memory: take the pallas-ring "
+                "backend, whose hops add on the card (NCCL, which sums on "
+                "the card, takes one rank per card)")
+        src = staged_for(buf, pg).contiguous()
+        out = src.new_empty(buf.shape[0] // G)
+        dist.reduce_scatter_tensor(out, src, group=pg)
+        return out.to(buf.device)
 
     return mesh.collective(x, axes, lambda rows: rows.sum(0).reshape(G, -1),
                            over_ranks)
@@ -99,10 +121,11 @@ def part_broadcast(x: torch.Tensor, mesh, axis_name: AxisNames
 
     def over_ranks(buf):
         import torch.distributed as dist
-        out = buf.new_empty(G * buf.shape[0])
-        dist.all_gather_into_tensor(out, buf.contiguous(),
-                                    group=mesh.group(axes)[0])
-        return out
+        pg = mesh.group(axes)[0]
+        src = staged_for(buf, pg).contiguous()
+        out = src.new_empty(G * buf.shape[0])
+        dist.all_gather_into_tensor(out, src, group=pg)
+        return out.to(buf.device)
 
     return mesh.collective(
         x, axes, lambda rows: rows.reshape(1, -1).expand(G, -1), over_ranks)

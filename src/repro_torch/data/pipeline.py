@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -141,8 +141,24 @@ class Prefetcher:
         self._t.join(timeout=5.0)
 
 
-def make_placer(device) -> Callable:
-    """numpy batch -> dict of tensors on ``device`` (one device: the port's
-    serial slice has no mesh)."""
+def make_placer(device, shard: Optional[Tuple[int, int]] = None
+                ) -> Callable:
+    """numpy batch -> dict of tensors on ``device``.  ``shard = (r, G)``
+    (a process mesh's ``batch_shard``) keeps rows ``[r*B/G, (r+1)*B/G)`` of
+    every array, as the reference shards the batch over its data axes
+    (``make_placer``'s ``"batch"`` rule): every rank draws the same seeded
+    global batch and keeps its own rows.  A ``G`` that does not divide the
+    batch raises."""
     dev = torch.device(device)
-    return lambda b: {k: t.to(dev) for k, t in _to_tensors(b).items()}
+
+    def place(batch):
+        if shard is not None:
+            r, G = shard
+            B = len(next(iter(batch.values())))
+            if B % G:
+                raise ValueError(f"a batch of {B} rows does not split over "
+                                 f"{G} ranks")
+            batch = {k: v[r * B // G:(r + 1) * B // G]
+                     for k, v in batch.items()}
+        return {k: t.to(dev) for k, t in _to_tensors(batch).items()}
+    return place

@@ -16,3 +16,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run on the CPU")
     return dev
+
+
+def hold_f32(dev: torch.device) -> None:
+    """Make f32 mean f32 on a card: cuDNN's convolutions and cuBLAS's
+    products would take TF32 (a 10-bit mantissa) by PyTorch's default.
+    Process-wide, as the flags are; a no-op off the card."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -14,10 +14,19 @@ G forced host devices.  The port has two kinds of mesh with the same axes,
                       member dimension.
 
 Which layout a member tensor has is the mesh's one decision: the
-collectives, backends, schedules and ``optim.dist.UpdatePlan`` are written
-once against the methods below (``member_dims``, ``per_member``,
-``replicated``, ``own``, ``one``, ``map_members`` and ``collective``), which
-each mesh implements for its layout.
+collectives, backends, schedules, ``optim.dist.UpdatePlan``, the data
+placer and the checkpoints are written once against the methods below
+(``member_dims``, ``per_member``, ``replicated``, ``own``, ``one``,
+``map_members``, ``collective``, ``gather_members`` and ``batch_shard``),
+which each mesh implements for its layout.  A local mesh's members all see
+the full batch; a process mesh's rank sees its rows of it.
+
+:func:`make_cluster_mesh` is the mesh of a cluster run
+(``MeshSpec(cluster=True)``): one member a process, the pod axis the
+process boundary.
+
+A mesh's device defaults to the GPU (``device.resolve_device``): pass
+``device="cpu"`` to hold the members on the CPU.
 
 Model ways (the reference's ``"model"`` axis) are not ported: a
 ``model_ways > 1`` raises.
@@ -28,6 +37,8 @@ import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.device import resolve_device
 
 
 def _axes_for(pods: int) -> Tuple[str, ...]:
@@ -111,6 +122,12 @@ class LocalMesh(_Mesh):
         """``fn`` on each member's tensor."""
         return torch.stack([fn(r) for r in x])
 
+    def gather_members(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(G, ...)`` tensor of every member's rows: ``x`` itself."""
+        return x
+
+    batch_shard = None     # every member sees the whole batch
+
     def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
                    stacked: Collective, over_ranks: Collective
                    ) -> torch.Tensor:
@@ -134,8 +151,7 @@ class LocalMesh(_Mesh):
         self.shape = dict(zip(self.axis_names,
                               (pods, members // pods) if pods > 1
                               else (members,)))
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
 
     def __repr__(self) -> str:
         return f"LocalMesh({self.shape}, device={self.device})"
@@ -160,8 +176,7 @@ class ProcessMesh(_Mesh):
                               (pods, world // pods) if pods > 1
                               else (world,)))
         self.rank = dist.get_rank()
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
         self._groups = {}
         subsets = [self.axis_names] + ([(a,) for a in self.axis_names]
                                        if pods > 1 else [])
@@ -192,6 +207,25 @@ class ProcessMesh(_Mesh):
     def map_members(self, x: torch.Tensor, fn: Collective) -> torch.Tensor:
         return fn(x)
 
+    def gather_members(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(G, ...)`` tensor of every rank's ``x`` (rank order = flat
+        member order), on every rank: a collective.  Over gloo a card's
+        tensor is staged through host memory and the result stays there."""
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import staged_for
+        pg, ranks = self.group(self.axis_names)
+        x = staged_for(x, pg).contiguous()
+        out = x.new_empty(len(ranks) * x.numel())
+        dist.all_gather_into_tensor(out, x.reshape(-1), group=pg)
+        return out.view(len(ranks), *x.shape)
+
+    @property
+    def batch_shard(self) -> Tuple[int, int]:
+        """(this rank, G): the rank keeps rows ``[r*B/G, (r+1)*B/G)`` of each
+        global batch (``data.pipeline.make_placer``)."""
+        return self.rank, self.size
+
     def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
                    stacked: Collective, over_ranks: Collective
                    ) -> torch.Tensor:
@@ -206,12 +240,36 @@ class ProcessMesh(_Mesh):
 
 def make_local_mesh(members: int, pods: int = 1, model_ways: int = 1,
                     device=None) -> LocalMesh:
-    """``members`` data-parallel members on ``device``, in ``pods`` pods."""
+    """``members`` data-parallel members on ``device`` (default: the GPU),
+    in ``pods`` pods."""
     return LocalMesh(members, pods, model_ways, device)
 
 
 def make_process_mesh(pods: int = 1, model_ways: int = 1,
                       device=None) -> ProcessMesh:
     """One member per rank of the initialised ``torch.distributed`` group,
-    in ``pods`` pods of consecutive ranks."""
+    in ``pods`` pods of consecutive ranks, on ``device`` (default: the
+    GPU)."""
     return ProcessMesh(pods, model_ways, device)
+
+
+def make_cluster_mesh(model_ways: int = 1, device=None):
+    """The mesh of a cluster run (``repro.launch.mesh.make_cluster_mesh``):
+    the pod axis is the process boundary, one member a process, so axes
+    ``("pod", "data")`` = ``(world, 1)`` over the live process group, and
+    the reference's zero1 world layout for the same world.  With one
+    process (no group, or a group of one) it is a one-member local mesh, as
+    the reference falls back to the host mesh.
+
+    ``device`` defaults to the GPU: rank r takes ``cuda:(r % cards)``; pass
+    ``device="cpu"`` for CPU ranks."""
+    import torch.distributed as dist
+    _check_extents(1, 1, model_ways)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    if world == 1:
+        return LocalMesh(1, device=dev)
+    return ProcessMesh(pods=world, device=dev)

@@ -32,7 +32,10 @@ wire format needs no update of its own: it rides
 :func:`make_distributed_update` through the bound backend.
 :func:`make_overlapped_update` is the apply and broadcast phases alone, for
 the §3.1 backprop-overlapped step, whose reduces the ``comm.overlap`` taps
-issue inside the backward pass.  Stale-sync and gossip are not ported yet.
+issue inside the backward pass.  The monolithic constructors' ``update_fn``
+is a :class:`DistUpdate`, callable whole or in its reduce and apply halves
+(a process mesh's train step clips between them).  Stale-sync and gossip
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -164,6 +167,50 @@ class UpdatePlan:
         return params
 
 
+class DistUpdate:
+    """The ``update_fn`` of :func:`make_distributed_update` and
+    :func:`make_topk_ef_update`: callable as the whole update,
+
+        update_fn(params, grads, opt_state, lr, step=0)
+            -> (params, opt_state),
+
+    and in its two halves, for the train step of a process mesh whose ranks
+    hold gradients of their own batch rows: there the norm and the clip can
+    only be taken from the reduced strips, between the halves
+    (``train.make_train_step``)::
+
+        g_strips = update_fn.reduce(params, grads, opt_state, step)
+        params, opt_state = update_fn.local(params, g_strips, opt_state, lr,
+                                            step)
+
+    ``plan`` is the :class:`UpdatePlan` (mesh, group axes, G, comm);
+    ``reduce_fn(sched, buckets, grads, opt_state) -> g_strips`` and
+    ``apply_fn(sched, buckets, params, g_strips, opt_state, lr) -> (params,
+    opt_state)`` are the composition's two halves."""
+
+    def __init__(self, plan: UpdatePlan, reduce_fn, apply_fn):
+        self.plan = plan
+        self._reduce = reduce_fn
+        self._apply = apply_fn
+
+    @torch.no_grad()
+    def __call__(self, params, grads, opt_state, lr, step=0):
+        buckets, sched = self.plan.buckets(params), self.plan.schedule(step)
+        g_strips = self._reduce(sched, buckets, grads, opt_state)
+        return self._apply(sched, buckets, params, g_strips, opt_state, lr)
+
+    @torch.no_grad()
+    def reduce(self, params, grads, opt_state, step=0):
+        return self._reduce(self.plan.schedule(step),
+                            self.plan.buckets(params), grads, opt_state)
+
+    @torch.no_grad()
+    def local(self, params, g_strips, opt_state, lr, step=0):
+        return self._apply(self.plan.schedule(step),
+                           self.plan.buckets(params), params, g_strips,
+                           opt_state, lr)
+
+
 def make_distributed_update(optimizer, mesh, data_axes=("data",),
                             comm: Optional[CommConfig] = DEFAULT_COMM):
     """Build ``(init_fn, update_fn)`` realizing the paper's update over
@@ -178,16 +225,15 @@ def make_distributed_update(optimizer, mesh, data_axes=("data",),
     """
     up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
 
-    @torch.no_grad()
-    def update_fn(params, grads, opt_state, lr, step=0):
-        plan = up.buckets(params)
-        sched = up.schedule(step)
-        g_strips = up.reduce(sched, plan, grads)
+    def reduce(sched, plan, grads, opt_state):
+        return up.reduce(sched, plan, grads)
+
+    def apply(sched, plan, params, g_strips, opt_state, lr):
         new_p_strips, new_state = up.apply(sched, plan, params, g_strips,
                                            opt_state, lr)
         return up.broadcast(sched, plan, params, new_p_strips), new_state
 
-    return up.init_fn, update_fn
+    return up.init_fn, DistUpdate(up, reduce, apply)
 
 
 def make_overlapped_update(optimizer, mesh, data_axes=("data",),
@@ -267,15 +313,13 @@ def make_topk_ef_update(optimizer, mesh, data_axes=("data",),
             for b in up.buckets(params).buckets]
         return {"residual": residual, "zero1": up.init_fn(params)}
 
-    @torch.no_grad()
-    def update_fn(params, grads, opt_state, lr, step=0):
-        plan = up.buckets(params)
-        sched = up.schedule(step)
-        g_strips = topk_ef_reduce(up, sched, plan, grads,
-                                  opt_state["residual"])
+    def reduce(sched, plan, grads, opt_state):
+        return topk_ef_reduce(up, sched, plan, grads, opt_state["residual"])
+
+    def apply(sched, plan, params, g_strips, opt_state, lr):
         new_p_strips, inner = up.apply(sched, plan, params, g_strips,
                                        opt_state["zero1"], lr)
         return (up.broadcast(sched, plan, params, new_p_strips),
                 {"residual": opt_state["residual"], "zero1": inner})
 
-    return init_fn, update_fn
+    return init_fn, DistUpdate(up, reduce, apply)

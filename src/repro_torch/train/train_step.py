@@ -8,6 +8,14 @@ PyTorch runs eagerly, so there is no jit and no buffer donation: the step
 computes the gradients with ``torch.autograd.grad`` over the param tree's
 leaves (flat for the CNN and DNN, nested for the transformer) and the
 optimizer updates the params and its state in place.
+
+On a local mesh every member computes the whole batch's loss and gradient
+(the reference's monolithic step hands each member the same global
+gradient).  On a process mesh (``launch.mesh.ProcessMesh``) each rank
+computes its own rows of the batch (``data.pipeline.make_placer``), as the
+reference's ranks do under ``bspec = P(axis)``: its gradient is its rows',
+so the step reduces first and takes the norm and the clip from the reduced
+strips (:func:`clip_strips`), and its loss is the group mean.
 """
 from __future__ import annotations
 
@@ -39,13 +47,16 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
     ``optim.dist.make_distributed_update``, in place of the serial
     ``optimizer.update``: the clipped gradients go through the bucketed
     part-reduce, the strip optimizer and the part-broadcast.  The matching
-    ``opt_state`` comes from the ``init_fn`` of the same call."""
+    ``opt_state`` comes from the ``init_fn`` of the same call.  On a process
+    mesh the clip moves between the update's reduce and its apply (module
+    docstring)."""
+    up = getattr(dist_update, "plan", None)
+    if up is not None and up.mesh.batch_shard is not None:
+        return _sharded_train_step(loss_fn, lr_schedule, grad_clip,
+                                   dist_update)
 
     def train_step(params, opt_state, step_idx, batch):
-        leaves = [p.requires_grad_() for p in tree_leaves(params)]
-        loss = loss_fn(params, batch)
-        it = iter(torch.autograd.grad(loss, leaves))
-        grads = map_tree(lambda _: next(it), params)
+        loss, grads = _loss_and_grads(loss_fn, params, batch)
         gnorm = global_norm(grads)
         if grad_clip > 0:
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -60,6 +71,39 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
             params, opt_state = optimizer.update(grads, opt_state, params,
                                                  lr)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _loss_and_grads(loss_fn, params, batch):
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss = loss_fn(params, batch)
+    it = iter(torch.autograd.grad(loss, leaves))
+    return loss, map_tree(lambda _: next(it), params)
+
+
+def group_mean(loss: torch.Tensor, mesh, axis_arg, G: int) -> torch.Tensor:
+    """The group mean of the ranks' losses of their own batch rows (the
+    reference's ``psum(loss) / G``)."""
+    return mesh.one(coll.psum(loss.detach(), mesh, axis_arg)) / G
+
+
+def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update):
+    """The monolithic zero1 step of a process mesh: loss and gradient of
+    this rank's batch rows, the update's reduce, the norm and the clip of
+    the reduced strips, then the update's apply and broadcast."""
+    up = dist_update.plan
+
+    def train_step(params, opt_state, step_idx, batch):
+        loss, grads = _loss_and_grads(loss_fn, params, batch)
+        g_strips = dist_update.reduce(params, grads, opt_state, step_idx)
+        gnorm = clip_strips(g_strips, up.mesh, up.axis_arg, grad_clip)
+        lr = lr_schedule(step_idx)
+        params, opt_state = dist_update.local(params, g_strips, opt_state,
+                                              lr, step_idx)
+        metrics = {"loss": group_mean(loss, up.mesh, up.axis_arg, up.G),
+                   "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 
     return train_step
@@ -97,15 +141,19 @@ def make_overlapped_train_step(loss_fn: Callable, lr_schedule, mesh,
     gradient norm comes from the reduced strips and the clip scales them
     (:func:`clip_strips`); ``local_update`` (``optim.dist.
     make_overlapped_update``, the same ``comm``) applies and broadcasts.
-    Every member computes the full batch's loss and gradient, as in the
-    monolithic step, so with ``grad_clip=0`` the two steps feed the same
-    bytes to the same kernels.
+    On a local mesh every member computes the full batch's loss and
+    gradient, as in the monolithic step, so with ``grad_clip=0`` the two
+    steps feed the same bytes to the same kernels.  On a process mesh each
+    rank computes its own batch rows and reports the group-mean loss.
     """
     _, axis_arg, G = group_axes(mesh, data_axes)
     overlap_grad = make_overlap_grad(loss_fn, mesh, axis_arg, comm, G)
+    sharded = mesh.batch_shard is not None
 
     def train_step(params, opt_state, step_idx, batch):
         loss, g_strips = overlap_grad(params, batch)
+        if sharded:
+            loss = group_mean(loss, mesh, axis_arg, G)
         gnorm = clip_strips(g_strips, mesh, axis_arg, grad_clip)
         lr = lr_schedule(step_idx)
         params, opt_state = local_update(params, g_strips, opt_state, lr)

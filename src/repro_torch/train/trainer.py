@@ -1,25 +1,33 @@
-"""Training loop (``repro.train.trainer``): metrics, timing, logging.
+"""Training loop (``repro.train.trainer``): metrics, timing, logging and
+periodic checkpoints.
 
 The data pipeline prefetches on a background thread (``data/pipeline.py``);
-the train step runs eagerly.  Checkpoints are not ported yet: a config that
-asks for them raises."""
+the train step runs eagerly; checkpoints are written on the host
+(``checkpoint.ckpt``) under a ``ckpt_write`` span."""
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.telemetry.events import NULL_RECORDER
 
 
-def _batch_items(batch) -> int:
-    """Samples in one batch (the CNN batches carry no token tensor)."""
+def _batch_items(batch) -> Tuple[int, str]:
+    """(count, unit) of the work in one batch, for throughput: an LM batch
+    counts its tokens (``tokens``, or an audio LM's ``codebook_labels``)
+    and reports tok/s; the paper's vision and ASR batches carry no token
+    tensor and count rows (samples/s)."""
+    for key in ("tokens", "codebook_labels"):
+        if key in batch:
+            return int(batch[key].numel()), "tok"
     for v in batch.values():
         if v.dim():
-            return int(v.shape[0])
-    return 0
+            return int(v.shape[0]), "samples"
+    return 0, "samples"
 
 
 def _block(t: torch.Tensor) -> None:
@@ -32,17 +40,19 @@ def _block(t: torch.Tensor) -> None:
 class TrainerConfig:
     total_steps: int = 100
     log_every: int = 10
-    ckpt_every: int = 0            # 0 = disabled; checkpoints not ported yet
+    ckpt_every: int = 0            # 0 = disabled
     ckpt_dir: Optional[str] = None
+    ckpt_meta: Optional[dict] = None   # stored in the checkpoint manifest
+    #                                    (the zero1 world layout, for a
+    #                                    re-plan at another world size:
+    #                                    checkpoint.replan)
+    ckpt_gather: Optional[Dict[str, Callable]] = None  # per tree name, the
+    #                                    collective that makes a leaf's
+    #                                    global value (ckpt.save's gather)
     recorder: Optional[Any] = None     # span/count recorder; every phase of
     #                                    the loop becomes a span (step,
-    #                                    data_wait, first_step).  None =
-    #                                    NULL_RECORDER (no-op).
-
-    def __post_init__(self):
-        if self.ckpt_every or self.ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints (ckpt_every / ckpt_dir) are not ported yet")
+    #                                    data_wait, first_step, ckpt_write).
+    #                                    None = NULL_RECORDER (no-op).
 
 
 @dataclass
@@ -60,7 +70,7 @@ class Trainer:
         sync = getattr(rec, "sync", False)
         t0 = time.perf_counter()
         t_first = 0.0
-        items_seen = 0
+        items_seen, unit = 0, "samples"
         for step in range(start_step, self.cfg.total_steps):
             try:
                 with rec.span("data_wait", step=step + 1):
@@ -77,7 +87,7 @@ class Trainer:
                 if first:
                     # the first step builds the kernels and the libraries'
                     # handles: wait for it, report it apart, and restart the
-                    # throughput clock so samples/s counts later steps only
+                    # throughput clock so items/s counts later steps only
                     with rec.span("first_step", step=step + 1):
                         _block(metrics["loss"])
                 elif sync:
@@ -88,9 +98,9 @@ class Trainer:
                 t_first = time.perf_counter() - t0
                 t0 = time.perf_counter()
             else:
-                n = _batch_items(batch)
+                n, unit = _batch_items(batch)
                 items_seen += n
-                rec.count("items_samples", n)
+                rec.count(f"items_{unit}", n)
             rec.count("steps")
             # the FINAL step always logs, so history[-1] is the end state
             if ((step + 1) % self.cfg.log_every == 0 or step == start_step
@@ -100,10 +110,17 @@ class Trainer:
                 dt = time.perf_counter() - t0
                 rate = items_seen / dt if dt > 0 else 0.0
                 tail = (f"first step {t_first:6.1f} s" if first
-                        else f"{rate:9.0f} samples/s")
+                        else f"{rate:9.0f} {unit}/s")
                 log_fn(f"step {step + 1:5d}  loss {loss:8.4f}  "
                        f"gnorm {gnorm:7.3f}  "
                        f"lr {float(metrics['lr']):.2e}  {tail}")
                 history.append(dict(step=step + 1, loss=loss,
                                     grad_norm=gnorm))
+            if (self.cfg.ckpt_every and self.cfg.ckpt_dir
+                    and (step + 1) % self.cfg.ckpt_every == 0):
+                with rec.span("ckpt_write", step=step + 1):
+                    ckpt_lib.save(self.cfg.ckpt_dir, step + 1,
+                                  meta=self.cfg.ckpt_meta,
+                                  gather=self.cfg.ckpt_gather,
+                                  params=params, opt_state=opt_state)
         return params, opt_state, history

@@ -185,7 +185,7 @@ def test_owner_layout_is_the_schedules_owner_index(hier, sizes):
     from repro_torch.optim import MomentumSGD
     from repro_torch.optim.dist import UpdatePlan
     mesh = make_local_mesh(int(np.prod(sizes)), pods=sizes[0]
-                           if len(sizes) == 2 else 1)
+                           if len(sizes) == 2 else 1, device="cpu")
     up = UpdatePlan.build(MomentumSGD(), mesh, mesh.axis_names,
                           CommConfig(hierarchical=hier))
     perm = up.owner_layout()
@@ -194,7 +194,7 @@ def test_owner_layout_is_the_schedules_owner_index(hier, sizes):
 
 
 def test_unported_backend_pieces_raise():
-    mesh = make_local_mesh(4)
+    mesh = make_local_mesh(4, device="cpu")
     x = torch.zeros(4, 8)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_backend("gossip")
@@ -269,7 +269,8 @@ def test_backends_match_reference_on_a_local_mesh(reference_backends,
                                                   mesh_name, bname, dt,
                                                   kind):
     shape, axes = MESHES[mesh_name]
-    mesh = make_local_mesh(4, pods=shape[0] if len(shape) == 2 else 1)
+    mesh = make_local_mesh(4, pods=shape[0] if len(shape) == 2 else 1,
+                           device="cpu")
     assert mesh.axis_names == axes
     ax = axes if len(axes) > 1 else axes[0]
     tdt = torch.float32 if dt == "f32" else torch.bfloat16

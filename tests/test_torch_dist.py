@@ -156,7 +156,7 @@ def _ref_leaves(reference, tag):
 
 
 def _mesh(hier):
-    return make_local_mesh(4, pods=2 if hier else 1), \
+    return make_local_mesh(4, pods=2 if hier else 1, device="cpu"), \
         (("pod", "data") if hier else ("data",))
 
 
@@ -276,7 +276,7 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
     dict(parallel="stale-sync"), dict(parallel="gossip"),
     dict(parallel="zero1", comm="auto"),
     dict(parallel="zero1", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="zero1", mesh=MeshSpec(cluster=True))],
+    dict(parallel="zero1", mesh=MeshSpec(cluster=True, model_ways=2))],
     ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "model_ways",
          "cluster"])
 def test_unported_modes_raise_before_allocating(kw, monkeypatch):
@@ -313,7 +313,7 @@ from repro_torch.optim import MomentumSGD
 from repro_torch.optim.dist import make_distributed_update
 z = np.load(tmp + "/inputs.npz")
 out = {}
-mesh = make_process_mesh()
+mesh = make_process_mesh(device="cpu")
 for dt in ("f32", "bf16"):
     x = torch.tensor(z[f"x/{dt}"][rank]).to(getattr(torch, {
         "f32": "float32", "bf16": "bfloat16"}[dt]))
@@ -325,7 +325,7 @@ for dt in ("f32", "bf16"):
 tree = lambda n: params_from_numpy(
     {k: z[f"{n}/{k}"] for k in ("b", "v", "w")}, "cpu")
 for hier in ([False, True] if world == 4 else [False]):
-    m = make_process_mesh(pods=2) if hier else mesh
+    m = make_process_mesh(pods=2, device="cpu") if hier else mesh
     axes = ("pod", "data") if hier else ("data",)
     for be in ("lax", "pallas-ring"):
         init_fn, upd = make_distributed_update(
@@ -370,7 +370,7 @@ def test_gloo_process_mesh_matches_local_mesh(world, tmp_path):
     xs = {"x/f32": x,
           "x/bf16": torch.tensor(x).bfloat16().float().numpy()}
     ranks = _gloo_run(world, tmp_path, xs)
-    local = make_local_mesh(world)
+    local = make_local_mesh(world, device="cpu")
     for dt, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         xt = torch.tensor(xs[f"x/{dt}"]).to(tdt)
         for name, b in (("lax", LaxBackend()), ("ring", RingBackend())):
@@ -387,7 +387,8 @@ def test_gloo_process_mesh_matches_local_mesh(world, tmp_path):
                         np.testing.assert_allclose(got, want, rtol=tol,
                                                    atol=tol)
     for hier in ([False, True] if world == 4 else [False]):
-        mesh, axes = (make_local_mesh(4, pods=2), ("pod", "data")) if hier \
+        mesh, axes = (make_local_mesh(4, pods=2, device="cpu"),
+                          ("pod", "data")) if hier \
             else (local, ("data",))
         for be in ("lax", "pallas-ring"):
             init_fn, upd = make_distributed_update(

@@ -241,7 +241,7 @@ def _ref_leaves(reference, tag):
 
 
 def _mesh(hier):
-    return make_local_mesh(4, pods=2 if hier else 1), \
+    return make_local_mesh(4, pods=2 if hier else 1, device="cpu"), \
         (("pod", "data") if hier else ("data",))
 
 
@@ -677,7 +677,7 @@ from repro_torch.train import make_overlapped_train_step
 z = np.load(tmp + "/inputs.npz")
 cfg = smoke_variant(get_config("vgg-a"))
 loss_fn = lambda p, b: cnn.loss_fn(p, cfg, b)
-mesh = make_process_mesh()
+mesh = make_process_mesh(device="cpu")
 out = {}
 for wire in ("fp32", "int8"):
     comm = CommConfig(bucket_bytes=1 << 12, backend="pallas-ring",
@@ -735,7 +735,7 @@ def _gloo_check(world, cfg, p0, batches, tmp_path):
     for wire in ("fp32", "int8"):
         comm = CommConfig(bucket_bytes=1 << 12, backend="pallas-ring",
                           wire_format=wire, overlap=True)
-        mesh = make_local_mesh(world)
+        mesh = make_local_mesh(world, device="cpu")
         init_fn, local_update = make_overlapped_update(
             MomentumSGD(momentum=0.9), mesh, ("data",), comm)
         step = make_overlapped_train_step(

@@ -8,6 +8,7 @@ bitwise the same batches from the seeded image stream.  Tolerance per
 logged step: 1e-5 of the reference's loss and grad norm — f32 layers in
 another summation order, carried through a few momentum-SGD steps.
 """
+import os
 import threading
 
 import numpy as np
@@ -182,11 +183,21 @@ def test_unported_pieces_raise():
 @pytest.mark.parametrize("kw", [dict(ckpt_dir="ckpts"),
                                 dict(ckpt_every=2, ckpt_dir="ckpts")])
 def test_fit_with_checkpoints_raises(kw, tmp_path):
+    """Checkpoints are ported: a fit writes one every ``ckpt_every`` steps
+    (none without it), and a run whose tree does not match the checkpoint
+    it would resume from raises instead of training on."""
     kw = {**kw, "ckpt_dir": str(tmp_path / kw["ckpt_dir"])}
     with _torch_run(**kw) as run:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run.fit(log_fn=_quiet)
-    assert not (tmp_path / "ckpts").exists()
+        run.fit(log_fn=_quiet)
+    saved = sorted(os.listdir(kw["ckpt_dir"])) \
+        if os.path.isdir(kw["ckpt_dir"]) else []
+    every = kw.get("ckpt_every", 0)
+    assert saved == [f"ckpt_{s:08d}.{ext}" for s in range(every, 6, every)
+                     for ext in ("json", "npz")] if every else saved == []
+    if every:
+        with _torch_run(**kw, optimizer="adamw") as other:
+            with pytest.raises(KeyError, match="tree structure"):
+                other.fit(log_fn=_quiet)
 
 
 def test_compile_run_without_a_gpu_raises(monkeypatch):

@@ -175,7 +175,7 @@ def _ref_leaves(reference, tag):
 
 
 def _mesh(hier):
-    return make_local_mesh(G, pods=2 if hier else 1), \
+    return make_local_mesh(G, pods=2 if hier else 1, device="cpu"), \
         (("pod", "data") if hier else ("data",))
 
 
@@ -363,8 +363,8 @@ z = np.load(tmp + "/inputs.npz")
 out = {}
 tree = lambda n: params_from_numpy(
     {k: z[f"{n}/{k}"] for k in ("b", "v", "w")}, "cpu")
-flat = make_process_mesh()
-pods = make_process_mesh(pods=2) if world == 4 else None
+flat = make_process_mesh(device="cpu")
+pods = make_process_mesh(pods=2, device="cpu") if world == 4 else None
 for fmt in ("int8", "topk"):
     make = make_topk_ef_update if fmt == "topk" else make_distributed_update
     for hier in ([False, True] if world == 4 else [False]):
@@ -418,8 +418,9 @@ def test_gloo_wire_formats_match_local_mesh_bitwise(world, tmp_path):
         make = make_topk_ef_update if fmt == "topk" \
             else make_distributed_update
         for hier in ([False, True] if world == 4 else [False]):
-            mesh, axes = (make_local_mesh(4, pods=2), ("pod", "data")) \
-                if hier else (make_local_mesh(world), ("data",))
+            mesh, axes = (make_local_mesh(4, pods=2, device="cpu"),
+                          ("pod", "data")) \
+                if hier else (make_local_mesh(world, device="cpu"), ("data",))
             for be in ("lax", "pallas-ring"):
                 init_fn, upd = make(
                     MomentumSGD(momentum=0.9), mesh, data_axes=axes,
