@@ -178,6 +178,32 @@ Phase 15 checkpoints, resume and the cluster (after phase 14).  (a) In
          and 8 convs a step); then ``python -m repro_torch.launch.train``
          once (zero1, 2 steps, a checkpoint).  The attempts, the per-step
          seconds of each world and the wall seconds.
+Phase 16 the stale-sync and gossip update modes and ``comm="auto"`` (after
+         phase 15), full-width VGG-A at batch 64, G = 4 members on the card,
+         every forward conv on the kernel, deterministic cuDNN.  (a)
+         stale-sync on ``pallas-ring``, 4 steps (counts zeroed just before
+         the fit and read just after: per step 8 convs, 14 reduce-scatters,
+         14 all-gathers, nothing else); three full-width gradients [g0, g1,
+         g2] through the update bitwise the serial optimizer on [g0, g0,
+         g1]; its first train step bitwise zero1's from the same params and
+         batch.  (b) gossip (shifts 1, 2, 3, 1): the member-batched pair add
+         (``ring_hop_accum_members``, the fold kernel) bitwise its plain
+         version at the 14 bucket shapes, each shift, on 4 distinct random
+         partials, and its summed time; ``GossipBackend.part_reduce`` on the
+         same rows bitwise the pair sum written out member by member; 4
+         steps (per step 8 convs, 14 folds, 14 all-gathers, no
+         reduce-scatter); the replication invariant; the losses against
+         zero1's on the same batches; each mode's median step.  (c)
+         ``python -m repro_torch.launch.cluster --parallel stale-sync``
+         and ``--parallel gossip``, 2 gloo processes each on the card
+         (the two runs at once), full width, 3 steps, ``--verify`` within
+         1e-5 of the loss.  (d)
+         ``comm="auto"``: every (backend, wire format) pair probed and
+         fitted on its own, every probe's time, each pair's SWlat and BW and
+         the chosen bucket size, backend and wire format, labelled as one
+         card's device memory traffic; 2 steps with the plan bitwise a run
+         given it, their launches those the plan's backend, wire format and
+         collectives require.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -198,7 +224,9 @@ The line before the last is a JSON object of per-kernel findings (each
 row's ``launches`` includes ``launches_overlap``, its launches on the
 overlapped path of phases 14 and 7, and the conv's and ring rows'
 ``launches_resume`` and ``launches_cluster``, their launches on phase 15a's
-resumed fit and on one rank of phase 15b's world-2 run), the last
+resumed fit and on one rank of phase 15b's world-2 run, and
+``launches_modes``, on phase 16's stale-sync, gossip and ``comm="auto"``
+fits), the last
 line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3264,6 +3292,383 @@ def phase15b(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the stale-sync and gossip update modes, and comm="auto"
+# ---------------------------------------------------------------------------
+# Full-width VGG-A at batch 64, G = 4 members on the card, every forward
+# conv on the kernel, deterministic cuDNN (the bitwise checks compare two
+# runs' gradients).
+# (a) stale-sync on pallas-ring: 4 steps, launches per step 8 convs, 14
+# reduce-scatters, 14 all-gathers, nothing else.  Then three full-width
+# gradients g0, g1, g2 through the update land where the serial optimizer
+# lands on [g0, g0, g1]: bitwise, by phase 6 (a)'s argument (the ring's
+# mean of G equal rows is the gradient bitwise, and the carry applies those
+# bits a step late).  Its first train step is bitwise zero1's from the same
+# params and batch (an empty carry applies the step's own reduce).
+# (b) gossip (shifts 1, 2, 3, 1 at G = 4): the member-batched pair add
+# bitwise its plain version at all 14 bucket shapes, each shift, on G
+# distinct random partials, and ``GossipBackend.part_reduce`` on the same
+# rows bitwise the pair sum of members p and p - s written out member by
+# member; 4 steps, launches per step 8 convs, 14 folds
+# (``ring_hop_accum``), 14 all-gathers, no reduce-scatter; the replication
+# invariant; the loss history against zero1's on the same batches within
+# ZERO1_LOSS_REL_TOL (on a local mesh every member holds the same gradient,
+# so the pair mean of equal rows is the group mean: (g + g) * 2 / 4 is g
+# exactly, and the histories may agree bitwise).
+# (c) the cluster CLI, --parallel stale-sync and --parallel gossip, each 2
+# gloo processes on the card, full width, 3 steps, --verify, the two at
+# once; the final losses within RESUME_REL_TOL of the one-process run's.
+# (d) comm="auto" on the G = 4 local mesh: every (backend, wire format)
+# pair's probes and fitted SWlat and BW (device memory traffic of the
+# collective kernels on one card, not a link), the chosen plan; 2 steps with
+# it bitwise a run given that plan, launching what the plan requires.
+MODES_G = 4
+MODES_STEPS = 4
+MODES_CLI_STEPS = 3
+AUTO_STEPS = 2
+
+
+def _modes_spec(parallel, steps, **kw):
+    from repro_torch.api import MeshSpec, RunSpec
+    from repro_torch.comm import CommConfig
+    if "comm" not in kw and parallel != "gossip":
+        kw["comm"] = CommConfig(backend="pallas-ring")
+    return RunSpec(arch="vgg-a", batch=64, lr=5e-3, schedule="constant",
+                   seed=0, log_every=1, steps=steps, parallel=parallel,
+                   mesh=MeshSpec(members_per_device=MODES_G), **kw)
+
+
+def _raw_grads(run, batch):
+    keys = sorted(run.params)
+    leaves = [run.params[k].requires_grad_() for k in keys]
+    loss = run.loss_fn(run.params, batch)
+    return dict(zip(keys, torch.autograd.grad(loss, leaves)))
+
+
+# each mode's step times over its fit's steps 2-N (synced "step" spans),
+# filled by phases 16a and 16b and printed by phase 16
+MODE_STEP_MS = {}
+
+
+def _modes_fit(parallel, tag):
+    """``_ckpt_fit`` of ``parallel``'s phase-16 spec with synced spans; its
+    median step over steps 2-N goes to ``MODE_STEP_MS``."""
+    spans = SyncedSpans()
+    out = _ckpt_fit(_modes_spec(parallel, MODES_STEPS), tag, spans=spans)
+    MODE_STEP_MS[parallel] = float(np.median(spans.samples["step"][1:])) * 1e3
+    return out
+
+
+def _sum_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase16a(card):
+    from repro_torch.optim.dist import (make_distributed_update,
+                                        make_stale_sync_update)
+    from repro_torch.train import make_train_step
+    n_buckets = vgg_buckets(MODES_G).n_collectives
+    print(f"phase 16a: full-width VGG-A stale-sync, G = {MODES_G} members "
+          f"on the card, pallas-ring, forward convs on the kernel, batch 64, "
+          f"deterministic cuDNN, {MODES_STEPS} steps [{card}]")
+    run, hist, counts, _ = _modes_fit("stale-sync", "stale-sync")
+    want = _per_step(n_buckets, MODES_STEPS)
+    check(counts == want, f"stale-sync launches {counts}, want {want}")
+    st = run.opt_state
+    check(set(st) == {"stale", "synced", "zero1"} and int(st["synced"]) == 1
+          and len(st["stale"]) == n_buckets
+          and all(s.shape[0] == MODES_G for s in st["stale"]),
+          f"stale-sync state {set(st)}")
+    print(f"  launches {counts} = {MODES_STEPS} steps x (8 convs, "
+          f"{n_buckets} reduce-scatters, {n_buckets} all-gathers); the carry: "
+          f"{n_buckets} strips (G, n/G), synced = 1")
+
+    # [g0, g1, g2] through the update against the serial optimizer on
+    # [g0, g0, g1]
+    grads = [_raw_grads(run, next(run.data)) for _ in range(3)]
+    keys = sorted(run.params)
+    lr = run.lr_schedule(0)
+    with torch.no_grad():
+        p0 = {k: v.detach().clone() for k, v in run.params.items()}
+        p_st = {k: v.clone() for k, v in p0.items()}
+        p_ser = {k: v.clone() for k, v in p0.items()}
+        init_fn, upd = make_stale_sync_update(
+            run.optimizer, run.mesh, run.mesh.axis_names, run.comm)
+        state = init_fn(p_st)
+        for t, g in enumerate(grads):
+            upd(p_st, g, state, lr, t)
+        s_ser = run.optimizer.init(p_ser)
+        for g in (grads[0], grads[0], grads[1]):
+            run.optimizer.update(g, s_ser, p_ser, lr)
+        differ = [k for k in keys if not torch.equal(p_st[k], p_ser[k])]
+        worst = max(((p_st[k] - p_ser[k]).norm()
+                     / (p_ser[k] - p0[k]).norm().clamp(min=1e-30)).item()
+                    for k in keys)
+    same = len(keys) - len(differ)
+    print(f"  [g0, g1, g2] through stale-sync vs the serial optimizer on "
+          f"[g0, g0, g1] (three full-width gradients): {same} of "
+          f"{len(keys)} leaves bitwise equal (required: all); worst relative "
+          f"L2 of the difference to the updates {worst}")
+    check(not differ, f"stale-sync [g0, g1, g2] and serial [g0, g0, g1] "
+          f"differ at {differ}")
+    del grads, p_st, p_ser, s_ser, state
+
+    # the first train step: stale-sync's bitwise zero1's
+    batch = next(run.data)
+    out = []
+    for make in (make_stale_sync_update, make_distributed_update):
+        p = {k: v.clone() for k, v in p0.items()}
+        init_fn, upd = make(run.optimizer, run.mesh, run.mesh.axis_names,
+                            run.comm)
+        step = make_train_step(run.loss_fn, run.optimizer, run.lr_schedule,
+                               grad_clip=run.spec.grad_clip,
+                               dist_update=upd)
+        p, _, m = step(p, init_fn(p), 0, batch)
+        out.append(({k: v.detach() for k, v in p.items()}, float(m["loss"])))
+    differ = [k for k in keys if not torch.equal(out[0][0][k], out[1][0][k])]
+    check(not differ and out[0][1] == out[1][1],
+          f"stale-sync's first step differs from zero1's at {differ}")
+    print(f"  first train step from the same params and batch: stale-sync "
+          f"bitwise zero1 ({len(keys)} leaves, loss {out[0][1]})")
+    _drop(run)
+    return counts
+
+
+def phase16b(dev, card):
+    from repro_torch.comm.backends.gossip import GossipBackend, shift_of
+    from repro_torch.kernels import ring as kring
+    from repro_torch.launch.mesh import make_local_mesh
+    G = MODES_G
+    mesh = make_local_mesh(G, device=dev)
+    plan = vgg_buckets(G)
+    n_buckets = plan.n_collectives
+    shifts = [shift_of(t, G) for t in range(MODES_STEPS)]
+    print(f"phase 16b: gossip, G = {G}, shifts {shifts} over steps "
+          f"0-{MODES_STEPS - 1}: the pair add (one fold launch a bucket for "
+          f"all members) vs plain at VGG-A's {n_buckets} bucket shapes, "
+          f"each shift, on {G} distinct random partials, bitwise [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    m = torch.arange(G, device=dev)
+    k_ms = p_ms = 0.0
+    nbytes = 0
+    for b in plan.buckets:
+        x = torch.randn(G, b.padded_size, generator=gen, device=dev)
+        for s in sorted(set(shifts)):
+            recv = x.view(G, G, -1)[(m - s) % G, m]
+            got = kring.ring_hop_accum_members(x, recv)
+            want = kring.ring_hop_accum_members_plain(x, recv)
+            check(torch.equal(got, want), f"pair add at bucket "
+                  f"{b.padded_size}, shift {s}: kernel != plain")
+            # the backend on the same distinct rows against the pair sum
+            # written out member by member: member p's chunk p plus member
+            # (p - s)'s, times G / 2
+            n = b.padded_size // G
+            pair = torch.stack([x[(p - s) % G, p * n:(p + 1) * n]
+                                + x[p, p * n:(p + 1) * n] for p in range(G)])
+            got = GossipBackend(step=s - 1).part_reduce(x, mesh, "data")
+            check(torch.equal(got, pair * (G / 2.0)), f"gossip part_reduce "
+                  f"at bucket {b.padded_size}, shift {s} != the pair sum "
+                  f"of members p and p - {s}")
+            del pair
+        k_ms += cuda_ms(lambda: kring.ring_hop_accum_members(x, recv),
+                        warmup=2, reps=5)
+        p_ms += cuda_ms(lambda: kring.ring_hop_accum_members_plain(x, recv),
+                        warmup=2, reps=5)
+        nbytes += 3 * recv.numel() * recv.element_size()
+        del x, recv, got, want
+    print(f"  pair add bitwise its plain version at all {n_buckets} bucket "
+          f"shapes x shifts {sorted(set(shifts))}, and GossipBackend."
+          f"part_reduce bitwise the member-by-member pair sum of p and p - s "
+          f"times G / 2 there; one call a bucket (CUDA "
+          f"events, median of 5): kernel {k_ms} ms summed over the buckets, "
+          f"plain {p_ms} ms, byte bound {bytes_bound(nbytes)} ms [{card}]")
+
+    run, hist, counts, _ = _modes_fit("gossip", "gossip")
+    check(run.comm.backend == "gossip" and not run.comm.hierarchical,
+          f"gossip comm {run.comm}")
+    want = {"conv2d_nhwc": 8 * MODES_STEPS,
+            "ring_hop_accum": n_buckets * MODES_STEPS,
+            "ring_all_gather": n_buckets * MODES_STEPS}
+    check(counts == want, f"gossip launches {counts}, want {want}")
+    # the replication invariant: one more update, every member's gathered
+    # buffer the same
+    up = run.dist_update.plan
+    bplan, sched = up.buckets(run.params), up.schedule(MODES_STEPS)
+    grads = _raw_grads(run, next(run.data))
+    with torch.no_grad():
+        g_strips = up.reduce(sched, bplan, grads)
+        new_p, _ = up.apply(sched, bplan, run.params, g_strips, run.opt_state,
+                            run.lr_schedule(0))
+        for ps in new_p:
+            full = sched.broadcast(ps)
+            check(all(torch.equal(full[0], full[i]) for i in range(1, G)),
+                  "gossip: members' gathered buffers differ")
+    losses = [h["loss"] for h in hist]
+    _drop(run)
+    del grads, g_strips, new_p
+    zrun, zhist, _, _ = _modes_fit("zero1", "zero1 (for gossip)")
+    _drop(zrun)
+    zl = [h["loss"] for h in zhist]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, zl))
+    print(f"  launches {counts} = {MODES_STEPS} steps x (8 convs, "
+          f"{n_buckets} folds, {n_buckets} all-gathers), no reduce-scatter; "
+          f"replication invariant: all {G} rows of each gathered buffer "
+          f"bitwise equal; losses {losses} vs zero1 {zl} on the same "
+          f"batches, worst relative difference {worst} (tolerance "
+          f"{ZERO1_LOSS_REL_TOL})")
+    check(worst <= ZERO1_LOSS_REL_TOL, "gossip and zero1 losses differ")
+    return counts
+
+
+def phase16c(card):
+    import re
+    import shutil
+    d = tempfile.mkdtemp(prefix="modes16-")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def argv(mode):
+        return ["--processes", "2", "--arch", "vgg-a", "--parallel", mode,
+                "--batch", "64", "--steps", str(MODES_CLI_STEPS),
+                "--schedule", "constant", "--run-dir",
+                os.path.join(d, mode), "--use-kernel", "--verify"]
+    try:
+        modes = ("stale-sync", "gossip")
+        with ThreadPoolExecutor(len(modes)) as pool:
+            outs = list(pool.map(
+                lambda mode: _cli("repro_torch.launch.cluster", argv(mode),
+                                  env), modes))
+        for mode, (out, wall) in zip(modes, outs):
+            for want in ("2 processes over gloo", f"parallel={mode}",
+                         "attempts=1", "world=2", "verify:", "OK"):
+                check(want in out.stdout, f"{mode}: no {want!r} in:\n"
+                      f"{out.stdout[-4000:]}")
+            v = re.search(r"\[cluster\] verify: cluster=(\S+) single=(\S+) "
+                          r"\|diff\|=(\S+) tol=(\S+)", out.stdout)
+            cluster_loss, single = float(v.group(1)), float(v.group(2))
+            tol = RESUME_REL_TOL * abs(single)
+            diff = abs(cluster_loss - single)
+            check(diff <= tol, f"{mode}: cluster final loss {cluster_loss} "
+                  f"vs one process {single}: |diff| {diff} > {tol}")
+            print(f"phase 16c: python -m repro_torch.launch.cluster "
+                  f"{' '.join(argv(mode)).replace(d, 'D')} on the card (the "
+                  f"two modes' runs at once): exit 0 in {wall} s; "
+                  f"{v.group(0)}; |cluster - single| {diff} <= {tol} "
+                  f"({RESUME_REL_TOL} of the loss) [{card}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _auto_want(plan, steps):
+    """The launches of ``steps`` steps at the autotuner's plan on the
+    G-member local mesh: the convs, and on pallas-ring per collective one
+    all-gather and either one reduce-scatter (fp32, bf16) or one quantize
+    and G - 1 int8 hops; the lax backend launches no ring kernel."""
+    n = plan["n_collectives"] * steps
+    want = {"conv2d_nhwc": 8 * steps}
+    if plan["chosen_backend"] == "pallas-ring":
+        want["ring_all_gather"] = n
+        if plan["chosen_wire_format"] == "int8":
+            want["int8_quantize"] = n
+            want["ring_hop_int8"] = n * (MODES_G - 1)
+        else:
+            want["ring_reduce_scatter"] = n
+    return want
+
+
+def phase16d(card):
+    from repro_torch.api import compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.telemetry import Recorder
+    print(f"phase 16d: comm='auto' on the G = {MODES_G} local mesh, "
+          f"full-width VGG-A zero1: every probe's time, the fitted SWlat and "
+          f"BW, the chosen plan (the fit is of the collective kernels' "
+          f"device memory traffic on one card, not of a link) [{card}]")
+    rec = Recorder()
+    spec = _modes_spec("zero1", AUTO_STEPS, comm="auto")
+    t0 = time.perf_counter()
+    auto = use_kernel(compile_run(spec, recorder=rec))
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    plan = [e for e in rec.events if e["kind"] == "autotune_plan"]
+    check(len(plan) == 1, f"autotune plan events {plan}")
+    plan = plan[0]
+    probes = [e for e in rec.events if e["kind"] == "collective"]
+    for pair, (lat, bw, pred) in sorted(plan["fits"].items()):
+        print(f"  fit {pair}: SWlat {lat} s, BW {bw} B/s of gradient bytes, "
+              f"predicted wire time a step at its own bucket {pred} s "
+              f"({plan['measured']}) [{card}]")
+    print(f"  fitted SWlat {plan['sw_latency_s']} s, BW "
+          f"{plan['link_bw_Bps']} B/s ({plan['measured']}); chosen "
+          f"bucket_bytes {plan['bucket_bytes']} ({plan['n_collectives']} "
+          f"collectives), backend {plan['chosen_backend']}, wire format "
+          f"{plan['chosen_wire_format']}, predicted wire time "
+          f"{plan['predicted_s']} s; {len(probes)} timed probes; "
+          f"compile_run with the autotuner {tune_s} s [{card}]")
+    check(auto.comm.bucket_bytes == plan["bucket_bytes"]
+          and auto.comm.backend == plan["chosen_backend"]
+          and auto.comm.wire_format == plan["chosen_wire_format"],
+          f"run comm {auto.comm} is not the plan {plan}")
+    torch.cuda.synchronize()
+    _counts_zeroed()
+    with deadline(CKPT_DEADLINE_S):
+        ha = auto.fit(log_fn=lambda line: print(f"    auto: {line}"))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts().items() if v}
+    want = _auto_want(plan, AUTO_STEPS)
+    check(counts == want, f"comm='auto' launches {counts}, want {want} for "
+          f"the plan {plan}")
+    pa = {k: v.detach().cpu() for k, v in auto.params.items()}
+    comm = auto.comm
+    _drop(auto)
+    fixed, hf, _, _ = _ckpt_fit(spec.replace(comm=comm), "fixed")
+    pf = {k: v.detach().cpu() for k, v in fixed.params.items()}
+    _drop(fixed)
+    differ = [k for k in pa if not torch.equal(pa[k], pf[k])]
+    la, lf = [h["loss"] for h in ha], [h["loss"] for h in hf]
+    check(not differ and la == lf, f"comm='auto' run vs fixed-comm run: "
+          f"losses {la} vs {lf}, params differ at {differ}")
+    print(f"  {AUTO_STEPS} steps with the plan: losses {la}, bitwise the "
+          f"fixed-comm run at that plan (params, all {len(pa)} leaves); "
+          f"launches {counts}, as the plan's backend, wire format and "
+          f"{plan['n_collectives']} collectives a step require")
+    return counts
+
+
+def phase16(dev, card):
+    """Phase 16's four parts; the launches of the modes' fits (a, b, d)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    walls = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    try:
+        a = part("16a", phase16a, card)
+        b = part("16b", phase16b, dev, card)
+        part("16c", phase16c, card)
+        d = part("16d", phase16d, card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    modes = _sum_counts(a, b, d)
+    print(f"  phase 16 wall seconds by part {walls}; the modes' fits "
+          f"launched {modes}")
+    print(f"  median step over steps 2-{MODES_STEPS} (synced spans, batch "
+          f"64, G = {MODES_G}): " + ", ".join(
+              f"{m} {ms} ms" for m, ms in MODE_STEP_MS.items())
+          + f"; stale-sync / zero1 "
+          f"{MODE_STEP_MS['stale-sync'] / MODE_STEP_MS['zero1']} [{card}]")
+    return modes
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -3585,6 +3990,7 @@ def main() -> int:
     ov = timed("14", phase14, card)
     resume = timed("15a", phase15a, card)
     cluster = timed("15b", phase15b, card)
+    modes = timed("16", phase16, dev, card)
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
@@ -3599,6 +4005,13 @@ def main() -> int:
         row["launches_resume"] = resume.get(name, 0)
         row["launches_cluster"] = cluster.get(name, 0)
         row["launches"] += row["launches_resume"] + row["launches_cluster"]
+    # and the stale-sync, gossip and comm="auto" fits' (phase 16; the plan
+    # comm="auto" picks decides which ring or wire kernels its fit runs)
+    for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
+                      (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),
+                      (ag, "ring_all_gather"), *((w, w["name"]) for w in wire)):
+        row["launches_modes"] = modes.get(name, 0)
+        row["launches"] += row["launches_modes"]
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,

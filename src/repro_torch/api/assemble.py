@@ -6,33 +6,50 @@ Training resolves, in the reference's order: arch id -> config (optionally
 its smoke variant) -> family adapter -> recorder (``telemetry.
 make_recorder(spec.telemetry)``) -> mesh (none for ``serial``) -> params
 on the device -> optimizer and LR schedule -> update path -> train step.
-The update path is the serial ``optimizer.update`` or, for
-``parallel="zero1"``, the explicit bucketed §3.4 pipeline of
-``repro_torch.comm`` and ``optim.dist.make_distributed_update`` over the G
-members of a local mesh (``MeshSpec.members_per_device``) on the run's
-device, or, under ``MeshSpec(cluster=True)``, over the ranks of the live
+The update path is the serial ``optimizer.update`` or, for the explicit
+bucketed modes, the §3.4 pipeline of ``repro_torch.comm`` and
+``optim.dist`` over the G members of a local mesh
+(``MeshSpec.members_per_device``) on the run's device, or, under
+``MeshSpec(cluster=True)``, over the ranks of the live
 ``torch.distributed`` group, one member a process
 (``launch.mesh.make_cluster_mesh``; each rank trains on its rows of the
-batch, and ``comm=None`` is hierarchical over the ``("pod", "data")`` axes,
-as the reference's cluster CLI makes it, with the pallas-ring backend at
-both levels: over gloo the plain reduce-scatter would sum a card's
-buffers in host memory, and ``core.collectives.part_reduce`` refuses
-that).  On a card the run holds f32 (``device.hold_f32``: no TF32 in
-cuDNN or cuBLAS).  What is not ported yet raises before anything is
-allocated.  ``wire_format="topk"``
-takes the error-feedback update (``optim.dist.make_topk_ef_update``); int8
-rides the plain zero1 pipeline through the bound backend.  ``comm.overlap``
-takes the §3.1 backprop-overlapped step
-(``train.make_overlapped_train_step`` over ``optim.dist.
-make_overlapped_update``), under every wire format but top-k, which
-``RunSpec`` refuses with overlap.
+batch):
+
+* ``zero1``: ``make_distributed_update``, the monolithic reduce, apply and
+  broadcast; ``wire_format="topk"`` takes the error-feedback update
+  (``make_topk_ef_update``), int8 rides the plain pipeline through the
+  bound backend, and ``comm.overlap`` the §3.1 backprop-overlapped step
+  (``train.make_overlapped_train_step`` over ``make_overlapped_update``),
+  under every wire format but top-k, which ``RunSpec`` refuses with
+  overlap;
+* ``stale-sync``: ``make_stale_sync_update``, the same pipeline with the
+  reduce applied one step late;
+* ``gossip``: ``make_distributed_update`` with the reduce phase on the
+  GossipGraD partner exchange (``MODE_CAPS["gossip"].default_backend``),
+  on a flat schedule by default, so that the rotation spans the whole
+  group.
+
+``comm=None`` takes the mode's default: hierarchical iff the mesh has a pod
+axis, and on a cluster mesh the pallas-ring backend at both levels, as the
+reference's cluster CLI makes it (over gloo the plain reduce-scatter would
+sum a card's buffers in host memory, and ``core.collectives.part_reduce``
+refuses that); gossip stays flat.  ``comm="auto"`` is resolved first, before
+``init_fn``, since the strip layout depends on the bucket plan: the
+autotuner (``telemetry.autotune``) times the real collectives on the live
+mesh and picks the bucket size, backend and wire format from the §3.2
+balance model with the measured constants.  On a card the run holds f32
+(``device.hold_f32``: no TF32 in cuDNN or cuBLAS).  What is not ported yet
+(``dp``, ``zero1-gspmd``, ``model_ways > 1``) raises before anything is
+allocated.
 """
 from __future__ import annotations
+
+import os
 
 from repro_torch.api.families import FamilyAdapter, adapter_for
 from repro_torch.api.run import Run
 from repro_torch.api.serve import Server
-from repro_torch.api.spec import RunSpec, ServeSpec
+from repro_torch.api.spec import MODE_CAPS, RunSpec, ServeSpec
 from repro_torch.comm.bucketer import CommConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, smoke_variant
@@ -50,13 +67,15 @@ from repro_torch.optim import (
 from repro_torch.optim.dist import (
     make_distributed_update,
     make_overlapped_update,
+    make_stale_sync_update,
     make_topk_ef_update,
 )
-from repro_torch.telemetry import make_recorder
+from repro_torch.telemetry import ENV_AUTOTUNE_CACHE, autotune_comm, \
+    make_recorder
 from repro_torch.train import make_overlapped_train_step, make_train_step
 
 #: the parallel modes compile_run assembles
-PORTED_MODES = ("serial", "zero1")
+PORTED_MODES = ("serial", "zero1", "stale-sync", "gossip")
 
 
 def _resolve_config(spec):
@@ -91,14 +110,46 @@ def _check_ported(spec: RunSpec) -> None:
                                   f"Queue A item {item}): the port runs "
                                   f"parallel in {PORTED_MODES}")
     if spec.parallel not in PORTED_MODES:
-        missing(f"parallel={spec.parallel!r}",
-                6 if spec.parallel in ("stale-sync", "gossip") else 9)
-    if spec.parallel == "serial":
-        return
-    if spec.comm == "auto":
-        missing("comm='auto' (the collective autotuner)", 7)
-    if spec.mesh.model_ways > 1:
+        missing(f"parallel={spec.parallel!r}", 9)
+    if spec.parallel != "serial" and spec.mesh.model_ways > 1:
         missing(f"model_ways={spec.mesh.model_ways}", 9)
+
+
+def default_comm(parallel: str, cluster: bool = False,
+                 two_level: bool = False) -> CommConfig:
+    """The ``CommConfig`` a run of ``parallel`` takes when its spec leaves
+    ``comm`` unset, and the base of ``comm="auto"``'s probes: gossip flat on
+    its own backend (a hierarchical schedule would scope the partner
+    rotation to each pod, and a cluster's in-pod group is one member); on a
+    cluster the two-level schedule with the pallas-ring backend at both
+    levels (module docstring); else the lax backend, two-level iff the mesh
+    has a pod axis (``two_level``)."""
+    if parallel == "gossip":
+        return CommConfig(backend=MODE_CAPS[parallel].default_backend,
+                          hierarchical=False)
+    if cluster:
+        return CommConfig(hierarchical=True, backend="pallas-ring",
+                          cross_backend="pallas-ring")
+    return CommConfig(hierarchical=two_level)
+
+
+def _resolve_comm(spec: RunSpec, params, mesh, recorder) -> CommConfig:
+    """The run's ``CommConfig``: the spec's, the mode's default for None,
+    or the autotuner's measured plan for ``"auto"`` (module docstring)."""
+    caps = MODE_CAPS[spec.parallel]
+    axes = mesh.axis_names
+    default = default_comm(spec.parallel, spec.mesh.cluster, len(axes) == 2)
+    if spec.comm is None:
+        return default
+    if spec.comm != "auto":
+        return spec.comm
+    reps = getattr(spec.telemetry, "autotune_reps", 2)
+    with recorder.span("autotune", mode=spec.parallel):
+        return autotune_comm(
+            params, mesh, axes, default, recorder=recorder,
+            backends=caps.backends, reps=reps,
+            wire_formats=caps.wire_formats,
+            cache_path=os.environ.get(ENV_AUTOTUNE_CACHE))
 
 
 def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
@@ -131,15 +182,13 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
     optimizer = _make_optimizer(spec, family)
     lr_schedule = _make_schedule(spec, 1 if mesh is None else mesh.size)
     dist_update = comm = train_step = None
-    if spec.parallel == "zero1":
+    if spec.parallel != "serial":
         axes = mesh.axis_names
-        comm = spec.comm
-        if comm is None and spec.mesh.cluster:
-            comm = CommConfig(hierarchical=True, backend="pallas-ring",
-                              cross_backend="pallas-ring")
-        elif comm is None:
-            comm = CommConfig(hierarchical=len(axes) == 2)
-        if comm.overlap:
+        comm = _resolve_comm(spec, params, mesh, recorder)
+        if spec.parallel == "stale-sync":
+            init_fn, dist_update = make_stale_sync_update(
+                optimizer, mesh, data_axes=axes, comm=comm)
+        elif comm.overlap:
             # §3.1: each bucket's reduce is issued inside the backward pass
             # (spec validation keeps topk off this path)
             init_fn, dist_update = make_overlapped_update(

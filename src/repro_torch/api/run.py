@@ -6,15 +6,18 @@ its device: the ``train_step``, the ``params`` and ``opt_state``, a lazily
 started prefetching ``data`` iterator, and ``fit()``.  The reference's
 ``jit_step`` (one jit cache, buffers donated) becomes the eager
 ``train_step``, which updates ``params`` and ``opt_state`` in place.
-Under ``parallel="zero1"`` the run carries its member ``mesh``, its
-``comm`` and the ``dist_update`` its train step calls (under
-``comm.overlap`` the apply-and-broadcast ``local_update``), and
-``opt_state`` is the strip state.
+Under the explicit bucketed modes (``zero1``, ``stale-sync``, ``gossip``)
+the run carries its member ``mesh``, its ``comm`` and the ``dist_update``
+its train step calls (under ``comm.overlap`` the apply-and-broadcast
+``local_update``), and ``opt_state`` is the strip state (under stale-sync
+and top-k, wrapped with its carry or residual).
 
 A run with a ``ckpt_dir`` writes a checkpoint every ``ckpt_every`` steps
 and resumes from the latest one there (``fit``), in the reference's file
 format (``checkpoint.ckpt``): a checkpoint saved at another world size is
-re-planned (``checkpoint.replan``), whichever package wrote it.
+re-planned (``checkpoint.replan``), whichever package wrote it.  A
+stale-sync or top-k run also resumes a bare zero1 checkpoint, its carry or
+residual restarting at zero.
 """
 from __future__ import annotations
 
@@ -47,9 +50,9 @@ class Run:
     opt_state: Any
     mesh: Optional[Any] = None      # launch.mesh LocalMesh or ProcessMesh;
     #                                 None for serial
-    comm: Optional[Any] = None      # the CommConfig of the zero1 update
-    dist_update: Optional[Callable] = None  # optim.dist update_fn (zero1;
-    #                                         local_update under overlap)
+    comm: Optional[Any] = None      # the CommConfig of the strip update
+    dist_update: Optional[Callable] = None  # optim.dist update_fn
+    #                                         (local_update under overlap)
     telemetry: Optional[Any] = None  # recorder of the trainer's spans and
     #                                  counts (telemetry.make_recorder);
     #                                  listeners (the cluster heartbeat,
@@ -106,25 +109,44 @@ class Run:
         return {"zero1": world} if world is not None else None
 
     def _ckpt_gather(self):
-        """ckpt.save's gather: every member's rows of the strip state."""
+        """ckpt.save's gather: every member's rows of the strip state (a
+        0-d leaf, the stale-sync flag, is the same on every member and is
+        written as it is)."""
         if self.mesh is None:
             return None
-        return {"opt_state": self.mesh.gather_members}
+        mesh = self.mesh
+        return {"opt_state":
+                lambda x: mesh.gather_members(x) if x.dim() else x}
 
     def _state_template(self, state):
         """``state`` as the checkpoint holds it: on a process mesh every
-        tensor leaf gains the leading member dimension of G (a zero-copy
-        stand-in carrying the shape and dtype)."""
+        tensor leaf of rank >= 1 gains the leading member dimension of G (a
+        zero-copy stand-in carrying the shape and dtype)."""
         if self.mesh is None or self.mesh.member_dims:
             return state
         G = self.mesh.size
 
         def one(x):
-            if not isinstance(x, torch.Tensor):
+            if not isinstance(x, torch.Tensor) or not x.dim():
                 return x
             return np.broadcast_to(np.zeros((), ckpt_lib.np_dtype(x.dtype)),
                                    (G, *x.shape))
         return map_tree(one, state)
+
+    def _stale_wrapped(self) -> bool:
+        """True when this run's opt_state is the stale-sync dict around the
+        inner zero1 strip state."""
+        return (isinstance(self.opt_state, dict)
+                and set(self.opt_state) == {"stale", "synced", "zero1"})
+
+    def _reinit_stale(self, inner):
+        """A restored inner strip state wrapped for a stale-sync run with an
+        empty carry (this world's bucket shapes) and ``synced = 0``, so
+        that the first resumed step applies its own reduce
+        (``optim.dist.make_stale_sync_update``)."""
+        tpl = self._state_template(self.opt_state)["stale"]
+        return {"stale": [np.zeros(*ckpt_lib.leaf_meta(r)) for r in tpl],
+                "synced": np.zeros((), np.int32), "zero1": inner}
 
     def _ef_wrapped(self) -> bool:
         """True when this run's opt_state is the top-k error-feedback dict
@@ -180,8 +202,8 @@ class Run:
     def _place(self, cur, host, members: bool):
         """Copy the host tree ``host`` (the checkpoint's layout) into the
         run's tree ``cur`` in place; ``members``: a process mesh's rank
-        takes its row of each tensor (``mesh.own``).  Int leaves (AdamW's
-        count) are replaced."""
+        takes its row of each tensor of rank >= 1 (``mesh.own``).  Int
+        leaves (AdamW's count) are replaced."""
         it = iter(tree_leaves(host))
         own = members and self.mesh is not None
 
@@ -189,8 +211,10 @@ class Run:
             a = next(it)
             if not isinstance(c, torch.Tensor):
                 return int(a)
-            src = torch.from_numpy(np.ascontiguousarray(a))
-            if own:
+            # ascontiguousarray makes a 0-d array 1-d: shape it back
+            src = torch.from_numpy(
+                np.ascontiguousarray(a).reshape(np.shape(a)))
+            if own and c.dim():
                 src = self.mesh.own(src, self.mesh.per_member(lambda m: m))
             return c.copy_(src)
         return map_tree(put, cur)
@@ -199,25 +223,30 @@ class Run:
         """Load checkpoint ``step`` of ``spec.ckpt_dir`` into the run's
         params and opt_state, in place.  A zero1 checkpoint saved at
         another world size is re-planned (``checkpoint.replan``) rather
-        than rejected: the elastic shrink-and-resume path.  A top-k run
-        also takes a bare zero1 checkpoint (the strips' layouts are the
-        same): the inner state restores and the residual restarts at
-        zero."""
+        than rejected: the elastic shrink-and-resume path; a stale-sync
+        checkpoint's carry, strips of the mean gradient in owner order, is
+        re-planned with it, as the reference's is.  A stale-sync or top-k
+        run also takes a bare zero1 checkpoint (the strips' layouts are the
+        same): the inner state restores, and the carry restarts empty
+        (``synced = 0``: the first resumed step is synchronous) or the
+        residual at zero."""
         opt_tpl = self._state_template(self.opt_state)
-        wrap = False
-        if self._ef_wrapped():
+        wrap = None
+        if self._stale_wrapped() or self._ef_wrapped():
             keys = ckpt_lib.read_manifest(
                 self.spec.ckpt_dir, step)["trees"].get("opt_state", ())
             if not any(k.startswith("opt_state:zero1/") for k in keys):
-                opt_tpl, wrap = opt_tpl["zero1"], True
+                opt_tpl = opt_tpl["zero1"]
+                wrap = (self._reinit_stale if self._stale_wrapped()
+                        else self._reinit_residual)
         try:
             trees, _ = ckpt_lib.restore(self.spec.ckpt_dir, step,
                                         params=self.params,
                                         opt_state=opt_tpl)
         except ValueError:
             trees = self._restore_replan(step, opt_tpl)
-        if wrap:
-            trees["opt_state"] = self._reinit_residual(trees["opt_state"])
+        if wrap is not None:
+            trees["opt_state"] = wrap(trees["opt_state"])
         self.params = self._place(self.params, trees["params"], False)
         self.opt_state = self._place(self.opt_state, trees["opt_state"],
                                      True)

@@ -4,8 +4,9 @@ serve.
 
 ``RunSpec`` accepts every parallel mode name of the reference and validates
 it, its ``MeshSpec`` and its ``CommConfig`` as the reference does
-(``MODE_CAPS``); ``compile_run`` assembles ``serial`` and ``zero1`` and
-raises "not ported yet" for the rest.
+(``MODE_CAPS``); ``compile_run`` assembles ``serial``, ``zero1``,
+``stale-sync`` and ``gossip``, and raises "not ported yet" for ``dp`` and
+``zero1-gspmd``.
 """
 from __future__ import annotations
 
@@ -59,9 +60,7 @@ class TelemetrySpec:
                      events in memory: listeners (the cluster heartbeat)
                      still see them, nothing touches the disk.
     autotune_reps:   timed repetitions per probe buffer when
-                     ``RunSpec.comm="auto"`` measures the collectives
-                     (validated here; the autotuner is not ported yet, and
-                     ``comm="auto"`` raises in ``compile_run``).
+                     ``RunSpec.comm="auto"`` measures the collectives.
     """
     trace_dir: Optional[str] = None
     autotune_reps: int = 2
@@ -114,14 +113,14 @@ class RunSpec:
 
     arch:       registry id or a concrete config object of a ported family.
     smoke:      reduce the config to the family's CPU-sized smoke variant.
-    parallel:   one of ``PARALLEL_MODES``; ``"serial"`` and ``"zero1"`` are
-                ported.
+    parallel:   one of ``PARALLEL_MODES``; ``"serial"``, ``"zero1"``,
+                ``"stale-sync"`` and ``"gossip"`` are ported.
     mesh:       member topology of the non-serial modes (ignored for
                 ``serial``).
     comm:       the explicit bucketed modes' communication knobs: a
                 ``CommConfig``, ``None`` (the mode's default: hierarchical
-                iff the mesh has a pod axis), or ``"auto"`` (not ported
-                yet).
+                iff the mesh has a pod axis, gossip flat), or ``"auto"``
+                (the measured plan of ``telemetry.autotune``).
     optimizer:  ``"adamw"`` / ``"sgd"``; ``None`` = family default (momentum
                 SGD for the paper's CNNs).
     ckpt_every / ckpt_dir: a checkpoint every ``ckpt_every`` steps into

@@ -24,8 +24,9 @@ The zero1 strip state is written as the reference writes it, one global
 already; on a process mesh each rank holds its own row, so ``save`` takes a
 ``gather`` per tree (``launch.mesh``'s ``gather_members``): a collective
 that every rank enters for the same leaves in the same order, after which
-only rank 0 writes.  It writes the manifest first and the ``.npz`` last,
-each to a temporary file moved into place with ``os.replace``: the
+only rank 0 writes, and every rank returns once it has written.  It
+writes the manifest first and the ``.npz`` last, each to a temporary file
+moved into place with ``os.replace``: the
 ``.npz`` is what :func:`latest_step` looks for, so a checkpoint exists
 whole or not at all, whenever a worker dies.
 """
@@ -107,7 +108,8 @@ def save(directory: str, step: int, meta: Optional[Dict[str, Any]] = None,
     and return the ``.npz`` path.  ``gather`` maps a tree name to a
     function that turns one of its tensor leaves into the leaf's global
     value (a collective on a process mesh: every rank calls ``save`` with
-    the same trees); only rank 0 then writes."""
+    the same trees); only rank 0 then writes, and in an initialised group
+    no rank returns before the checkpoint is committed."""
     payload: Dict[str, np.ndarray] = {}
     manifest: Dict[str, Any] = {"step": step, "trees": {},
                                 "meta": meta or {}}
@@ -122,18 +124,29 @@ def save(directory: str, step: int, meta: Optional[Dict[str, Any]] = None,
             keys.append(k)
         manifest["trees"][name] = keys
     path = _path(directory, step, "npz")
-    if not is_writer():
-        return path   # every rank gathered; one writes
-    os.makedirs(directory, exist_ok=True)
-    # manifest first, npz last: the .npz is what latest_step keys on, so
-    # its appearance commits the checkpoint
-    mpath = _path(directory, step, "json")
-    with open(mpath + ".tmp", "w") as f:
-        json.dump(manifest, f)
-    os.replace(mpath + ".tmp", mpath)
-    np.savez(path + ".tmp.npz", **payload)
-    os.replace(path + ".tmp.npz", path)
+    if is_writer():
+        os.makedirs(directory, exist_ok=True)
+        # manifest first, npz last: the .npz is what latest_step keys on, so
+        # its appearance commits the checkpoint
+        mpath = _path(directory, step, "json")
+        with open(mpath + ".tmp", "w") as f:
+            json.dump(manifest, f)
+        os.replace(mpath + ".tmp", mpath)
+        np.savez(path + ".tmp.npz", **payload)
+        os.replace(path + ".tmp.npz", path)
+    _committed()
     return path
+
+
+def _committed() -> None:
+    """Hold every rank of an initialised group until rank 0 has committed
+    the checkpoint: a rank that went on at once could look for it
+    (``latest_step``, a resume) before the ``.npz`` is in place, start
+    from step 0 while its peers resume, and pair its collectives with
+    theirs."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -11,7 +11,10 @@ port.  The relaunched workers re-plan the mesh and the bucket layout for
 the new world size themselves (``MeshSpec(cluster=True)`` sizes the pod
 axis from the live process group) and resume from the latest checkpoint:
 ``checkpoint.replan`` re-strips the zero1 optimizer state from the old
-world's layout, so nothing is lost beyond the last checkpoint.
+world's layout, so nothing is lost beyond the last checkpoint.  A change
+of world size also deletes the run's ``comm="auto"`` plan cache
+(``launcher.invalidate_autotune_cache``): its constants describe the old
+topology.
 
 The §3.4 update does not depend on G (the strip update equals the serial
 optimizer's), so a run that loses a member mid-flight follows the same
@@ -27,6 +30,7 @@ from typing import List, Optional, Sequence
 
 from repro_torch.cluster.launcher import (
     WorkerHandle,
+    invalidate_autotune_cache,
     kill_workers,
     result_path,
     sigkill,
@@ -156,8 +160,12 @@ def run_elastic(worker_argv: Sequence[str], run_dir: str,
         # re-form over the survivors (or back at full strength under
         # grow_back); a pure hang (no dead process) keeps the world size —
         # there is no one to exclude
-        world = num_processes if grow_back \
+        new_world = num_processes if grow_back \
             else max(1, world - len(fail["dead"]))
+        if new_world != world and invalidate_autotune_cache(run_dir):
+            log(f"[elastic] world {world} -> {new_world}: invalidated the "
+                "stale autotune plan cache")
+        world = new_world
     raise RuntimeError(
         f"elastic run failed after {max_restarts + 1} attempts: "
         f"{history}")

@@ -39,6 +39,7 @@ from dataclasses import dataclass
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 from repro_torch.cluster.spec import ClusterSpec
+from repro_torch.telemetry.autotune import ENV_AUTOTUNE_CACHE
 
 ENV_HEARTBEAT_FILE = "REPRO_HEARTBEAT_FILE"
 ENV_RESULT_FILE = "REPRO_RESULT_FILE"
@@ -171,18 +172,38 @@ class WorkerHandle:
 
 
 def _worker_env(spec: ClusterSpec, hb_file: str,
-                result_file: Optional[str]) -> dict:
+                result_file: Optional[str],
+                run_dir: Optional[str] = None) -> dict:
     env = dict(os.environ)
     env.update(spec.env())
     env[ENV_HEARTBEAT_FILE] = hb_file
     if result_file:
         env[ENV_RESULT_FILE] = result_file
+    if run_dir:
+        # every worker shares one comm="auto" plan cache a run; a relaunch
+        # at the same topology skips the probes (telemetry.autotune)
+        env[ENV_AUTOTUNE_CACHE] = autotune_cache_path(run_dir)
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     return env
 
 
 def result_path(run_dir: str) -> str:
     return os.path.join(run_dir, "result.json")
+
+
+def autotune_cache_path(run_dir: str) -> str:
+    return os.path.join(run_dir, "autotune_cache.json")
+
+
+def invalidate_autotune_cache(run_dir: str) -> bool:
+    """Drop the persisted comm="auto" plan (True if one was removed): the
+    elastic supervisor calls it whenever the world size changes, since the
+    cached constants describe the old topology."""
+    try:
+        os.remove(autotune_cache_path(run_dir))
+        return True
+    except OSError:
+        return False
 
 
 def spawn_workers(num_processes: int, worker_argv: Sequence[str],
@@ -202,7 +223,8 @@ def spawn_workers(num_processes: int, worker_argv: Sequence[str],
                            process_id=pid)
         hb = os.path.join(run_dir, f"hb_a{attempt}_w{pid}")
         env = _worker_env(spec, hb,
-                          result_path(run_dir) if pid == 0 else None)
+                          result_path(run_dir) if pid == 0 else None,
+                          run_dir)
         log = None
         out = None
         if pid != 0:

@@ -25,29 +25,35 @@ Backends, selected by name (``CommConfig.backend``):
     The paper's §3.4 ring on the port's hand-written CUDA kernels
     (``kernels/ring.py``).  It keeps the reference's name so that a
     ``CommConfig`` carries across unchanged.
-``gossip``
-    GossipGraD partner exchange: accepted by ``CommConfig``, not ported yet
-    (raises when built).
+``gossip`` (:class:`GossipBackend`)
+    GossipGraD partner exchange: one chunk-sized message a member per step
+    under the rotating pairing ``partner = (rank + step + 1) % G`` (the
+    shift ``1 + step % (G - 1)``) in place of the full ring reduction, the
+    pair add on the ring's fold kernel.  Not a drop-in ring replacement:
+    ``part_reduce`` delivers the rotating pair mean, a change of the
+    consistency model selected by ``parallel="gossip"``
+    (``api.spec.MODE_CAPS`` refuses it under the synchronous modes).  Its
+    partner rotation is step-scheduled: bind the train step with
+    ``bind_step`` / ``schedule.bind_step``.
 """
 from __future__ import annotations
 
 from typing import Union
 
 from repro_torch.comm.backends.base import CollectiveBackend  # noqa: F401
+from repro_torch.comm.backends.gossip import GossipBackend
 from repro_torch.comm.backends.lax_backend import LaxBackend
 from repro_torch.comm.backends.ring import RingBackend
 
 COLLECTIVE_BACKENDS = ("lax", "pallas-ring", "gossip")
 
-_FACTORIES = {"lax": LaxBackend, "pallas-ring": RingBackend}
+_FACTORIES = {"lax": LaxBackend, "pallas-ring": RingBackend,
+              "gossip": GossipBackend}
 
 
 def get_backend(backend: Union[str, CollectiveBackend]) -> CollectiveBackend:
     """Resolve a backend name to an instance; instances pass through."""
     if isinstance(backend, str):
-        if backend == "gossip":
-            raise NotImplementedError(
-                "the gossip backend is not ported yet")
         try:
             return _FACTORIES[backend]()
         except KeyError:

@@ -61,19 +61,19 @@ from repro_torch.kernels import ring as kring
 
 
 def _exchange(send: torch.Tensor, recv: torch.Tensor, mesh,
-              axes) -> None:
-    """Send ``send`` to the next member of this rank's group ring and
-    receive the previous member's message into ``recv``, both staged
-    through host memory where the group is gloo's
-    (``core.collectives.staged_for``)."""
+              axes, shift: int = 1) -> None:
+    """Send ``send`` to the member ``shift`` places on in this rank's group
+    ring (the next one by default) and receive the message of the member
+    ``shift`` places back into ``recv``, both staged through host memory
+    where the group is gloo's (``core.collectives.staged_for``)."""
     import torch.distributed as dist
     pg, ranks = mesh.group(axes)
     i, G = ranks.index(mesh.rank), len(ranks)
     staged = gloo_stages(send, pg)
     out = torch.empty(recv.shape, dtype=recv.dtype) if staged else recv
     ops = [dist.P2POp(dist.isend, staged_for(send, pg),
-                      ranks[(i + 1) % G], group=pg),
-           dist.P2POp(dist.irecv, out, ranks[(i - 1) % G], group=pg)]
+                      ranks[(i + shift) % G], group=pg),
+           dist.P2POp(dist.irecv, out, ranks[(i - shift) % G], group=pg)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     if staged:

@@ -83,6 +83,17 @@ def staged_for(buf: torch.Tensor, pg) -> torch.Tensor:
     return buf.cpu() if gloo_stages(buf, pg) else buf
 
 
+def refuses_plain_reduce(mesh, axis_name: AxisNames) -> bool:
+    """True where :func:`part_reduce` refuses the buffers of ``mesh``: a
+    process mesh on a card whose group over ``axis_name`` is more than one
+    rank over gloo (the test of :func:`gloo_stages`)."""
+    axes = axes_tuple(axis_name)
+    if mesh.member_dims or axis_size(mesh, axes) <= 1:
+        return False
+    return gloo_stages(torch.empty(0, device=mesh.device),
+                       mesh.group(axes)[0])
+
+
 def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
     """Reduce-scatter each member's buffer over the group: member i of the
     group receives the group sum of chunk i.  Paper Fig. 1."""

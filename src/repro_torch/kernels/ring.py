@@ -10,7 +10,10 @@ member's partial of a strip in the ring's order, in one launch.
 
 :func:`ring_hop_accum`       one hop of the distributed ring: ``recv +
                              chunks[c]`` (the process mesh's combine after
-                             each neighbour receive).
+                             each neighbour receive); its member-batched
+                             form :func:`ring_hop_accum_members` adds each
+                             member's own chunk to its message (the gossip
+                             pair add of a local mesh).
 :func:`ring_reduce_scatter`  the stacked single-device ring over a
                              ``(G, N)`` buffer, member p's partial in row p:
                              row p of the ``(G, N / G)`` result is the fully
@@ -145,6 +148,43 @@ def ring_hop_accum(chunks: torch.Tensor, recv: torch.Tensor,
     _launch_fold(recv, chunks, 0, chunks.stride(0), out,
                  c.data_ptr() if tensor_c else None, 0 if tensor_c else int(c),
                  G, 1, 1, n)
+    launches["ring_hop_accum"] += 1
+    return out
+
+
+def ring_hop_accum_members_plain(stacked: torch.Tensor,
+                                 recv: torch.Tensor) -> torch.Tensor:
+    """Row p: ``recv[p] + stacked[p, chunk p]`` in the input dtype."""
+    return recv + member_chunks(stacked, 0)
+
+
+def ring_hop_accum_members(stacked: torch.Tensor,
+                           recv: torch.Tensor) -> torch.Tensor:
+    """One hop of all G members of a local mesh in one launch of the fold:
+    member p adds its own chunk p of ``stacked`` (G, N) (row p, a member
+    stride of 0 included) to ``recv[p]``, the message it received; row p of
+    the ``(G, N // G)`` result is ``recv[p] + stacked[p, chunk p]``, bitwise
+    :func:`ring_hop_accum` of each member.  The gossip exchange's pair add
+    (``comm.backends.gossip``)."""
+    _check_rows("stacked", stacked)
+    _check_rows("recv", recv)
+    G, N = stacked.shape
+    if G < 1 or N % G or N == 0:
+        raise ValueError(f"buffer size {N} not divisible by group {G}")
+    n = N // G
+    if recv.dtype != stacked.dtype or recv.device != stacked.device:
+        raise ValueError(f"recv ({recv.dtype}, {recv.device}) must match "
+                         f"stacked ({stacked.dtype}, {stacked.device})")
+    if tuple(recv.shape) != (G, n) or recv.stride(0) != n:
+        raise ValueError(f"recv must be ({G}, {n}) with contiguous rows, "
+                         f"got {tuple(recv.shape)} strides {recv.stride()}")
+    if stacked.device.type == "cpu":
+        return ring_hop_accum_members_plain(stacked, recv)
+    out = torch.empty_like(recv)
+    # the fold of two rows a strip: recv[p], then x[p, p], reached as chunk
+    # p at a chunk stride of one member row plus one chunk (member stride 0)
+    _launch_fold(recv, stacked, 0, stacked.stride(0) + n, out, None, 0, G, 1,
+                 G, n)
     launches["ring_hop_accum"] += 1
     return out
 

@@ -22,6 +22,13 @@ One module, two roles, told apart by the cluster environment variables:
     python -m repro_torch.launch.cluster --processes 2 --arch vgg-a \\
         --smoke --steps 8 --ckpt-dir /tmp/vgg-cluster
 
+    # bounded staleness, and the gossip partner exchange, each held to one
+    # process by --verify
+    python -m repro_torch.launch.cluster --processes 2 --arch vgg-a \\
+        --smoke --steps 3 --parallel stale-sync --verify
+    python -m repro_torch.launch.cluster --processes 2 --arch vgg-a \\
+        --smoke --steps 3 --parallel gossip --verify
+
     # chaos: SIGKILL worker 1 at step 3 and watch the recovery, on the CPU
     python -m repro_torch.launch.cluster --processes 2 --arch vgg-a \\
         --smoke --steps 8 --ckpt-dir /tmp/vgg-chaos --chaos-kill-step 3 \\
@@ -59,14 +66,21 @@ VERIFY_TOL = 5e-3
 
 
 def resolve_comm_backends(args) -> None:
-    """The cluster's backends where the flags leave them unset: zero1 takes
-    the pallas-ring backend at both levels, whose hops add on the card (the
-    plain reduce-scatter over gloo would sum a card's buffers in host
-    memory, and ``core.collectives.part_reduce`` refuses it); the other
-    modes keep the one-process default."""
-    if args.parallel == "zero1":
-        args.comm_backend = args.comm_backend or "pallas-ring"
-        args.cross_backend = args.cross_backend or "pallas-ring"
+    """Fill the backend flags a cluster's command line leaves unset from
+    the mode's cluster default (``api.assemble.default_comm``) where that
+    default is the two-level schedule (zero1, stale-sync: pallas-ring at
+    both levels, whose hops add on the card; the plain reduce-scatter over
+    gloo would sum a card's buffers in host memory, and
+    ``core.collectives.part_reduce`` refuses it), so that explicit comm
+    flags keep the ring.  Gossip's flat default, and the whole config under
+    ``--comm auto``, are ``compile_run``'s."""
+    from repro_torch.api import MODE_CAPS
+    from repro_torch.api.assemble import default_comm
+    d = default_comm(args.parallel, cluster=True)
+    if (MODE_CAPS[args.parallel].comm and d.hierarchical
+            and getattr(args, "comm", None) != "auto"):
+        args.comm_backend = args.comm_backend or d.backend
+        args.cross_backend = args.cross_backend or d.cross_backend
     else:
         args.comm_backend = args.comm_backend or "lax"
 
@@ -77,15 +91,18 @@ def check_cluster_args(ap: argparse.ArgumentParser, args) -> None:
     and the supervisor would shrink the world until one process, which
     sums nothing, trains alone."""
     import torch
-    if (args.processes > 1 and args.parallel == "zero1"
+    from repro_torch.api import MODE_CAPS
+    from repro_torch.api.assemble import default_comm
+    if (args.processes > 1 and MODE_CAPS[args.parallel].comm
+            and default_comm(args.parallel, cluster=True).hierarchical
             and args.cross_backend == "lax"
             and args.wire_format not in ("int8", "topk")
             and torch.device(args.device or "cuda").type == "cuda"
             and ranks_share_cards(args.processes)):
         ap.error("--cross-backend lax would reduce-scatter the card's "
                  "buffers over gloo in host memory; when ranks share a card "
-                 "the cluster's zero1 takes --cross-backend pallas-ring (the "
-                 "default)")
+                 f"the cluster's {args.parallel} takes --cross-backend "
+                 "pallas-ring (the default)")
 
 
 def _leave(code: int, grouped: bool) -> None:

@@ -7,10 +7,9 @@ and their choices are the reference's, plus ``--device`` and
 ``--use-kernel`` (the family's forward on the port's Hopper kernel, as
 ``launch.paper_cnn_training`` has it; the reference's launcher keeps its
 XLA route); what the port
-does not run yet (``--parallel dp|zero1-gspmd|stale-sync|gossip``, ``--comm
-auto``, ``--model-ways > 1``) parses and then raises in ``compile_run``.
-``--parallel`` defaults to ``serial``, since the reference's default
-(``dp``) is not ported.
+does not run yet (``--parallel dp|zero1-gspmd``, ``--model-ways > 1``)
+parses and then raises in ``compile_run``.  ``--parallel`` defaults to
+``serial``, since the reference's default (``dp``) is not ported.
 
     # the paper's §3.4 strip update on the ring kernels, each bucket's
     # reduce issued inside backprop (one member a pod, on one card)
@@ -26,6 +25,15 @@ auto``, ``--model-ways > 1``) parses and then raises in ``compile_run``.
     # on the CPU (the kernels' plain versions)
     python -m repro_torch.launch.train --arch vgg-a --smoke --device cpu \\
         --parallel zero1 --pods 2 --comm-backend pallas-ring
+
+    # bounded staleness on the ring, the gossip partner exchange, and the
+    # measured comm plan (comm="auto")
+    python -m repro_torch.launch.train --arch vgg-a --smoke --device cpu \\
+        --parallel stale-sync --pods 2 --comm-backend pallas-ring
+    python -m repro_torch.launch.train --arch vgg-a --smoke --device cpu \\
+        --parallel gossip --pods 2
+    python -m repro_torch.launch.train --arch vgg-a --smoke --device cpu \\
+        --parallel zero1 --pods 2 --comm auto
 
 A ``--ckpt-dir`` run writes checkpoints and resumes: the same command again
 takes up from the latest saved step (params, optimizer strips and the data
@@ -117,10 +125,11 @@ def add_run_args(ap: argparse.ArgumentParser,
                          "data-parallel ways, gradual warmup from lr)")
     ap.add_argument("--parallel", default=parallel_default,
                     choices=list(PARALLEL_MODES),
-                    help="serial | zero1 (explicit bucketed §3.4 strips) "
-                         "run in the port; dp, zero1-gspmd, stale-sync and "
-                         "gossip parse and are not ported yet (default "
-                         f"{parallel_default})")
+                    help="serial | zero1 (explicit bucketed §3.4 strips) | "
+                         "stale-sync (the strips reduced a step earlier) | "
+                         "gossip (a rotating partner exchange) run in the "
+                         "port; dp and zero1-gspmd parse and are not ported "
+                         f"yet (default {parallel_default})")
     ap.add_argument("--pods", type=int, default=1,
                     help="pod axis extent (>1 adds the cross-pod "
                          "hierarchical hop)")
@@ -144,7 +153,8 @@ def add_run_args(ap: argparse.ArgumentParser,
                     help="issue each bucket's part-reduce inside the "
                          "backward pass (§3.1 bubble schedule) instead of "
                          "reducing after the backward (zero1)")
-    ring = (" (default under --parallel zero1: pallas-ring, so that the "
+    ring = (" (default under --parallel zero1 and stale-sync: pallas-ring, "
+            "so that the "
             "sums stay on the card; over gloo the plain reduce-scatter of a "
             "card's buffers would run in host memory, and is refused)"
             if cluster else " (default lax)")
@@ -160,8 +170,8 @@ def add_run_args(ap: argparse.ArgumentParser,
                     help="collective implementation for the CROSS-POD hop "
                          "of the hierarchical schedule" + ring)
     ap.add_argument("--comm", default=None, choices=["auto"],
-                    help="comm='auto': the measured bucket-size autotuner "
-                         "(not ported yet)")
+                    help="comm='auto': the measured bucket-size, backend "
+                         "and wire-format autotuner (telemetry.autotune)")
     ap.add_argument("--trace-dir", default=None,
                     help="write a per-process telemetry trace (JSONL) and a "
                          "merged Chrome trace (trace.json, load in "

@@ -32,10 +32,14 @@ wire format needs no update of its own: it rides
 :func:`make_distributed_update` through the bound backend.
 :func:`make_overlapped_update` is the apply and broadcast phases alone, for
 the §3.1 backprop-overlapped step, whose reduces the ``comm.overlap`` taps
-issue inside the backward pass.  The monolithic constructors' ``update_fn``
-is a :class:`DistUpdate`, callable whole or in its reduce and apply halves
-(a process mesh's train step clips between them).  Stale-sync and gossip
-are not ported yet.
+issue inside the backward pass.  :func:`make_stale_sync_update` moves the
+phases apart across steps: step t applies the strips reduced at step t - 1
+from a carried buffer (bounded staleness 1).  ``parallel="gossip"`` is
+:func:`make_distributed_update` with the reduce phase on the GossipGraD
+partner exchange (``comm.backends.gossip``; the schedule carries the step,
+so the partner rotation advances).  The monolithic constructors'
+``update_fn`` is a :class:`DistUpdate`, callable whole or in its reduce and
+apply halves (a process mesh's train step clips between them).
 """
 from __future__ import annotations
 
@@ -168,8 +172,9 @@ class UpdatePlan:
 
 
 class DistUpdate:
-    """The ``update_fn`` of :func:`make_distributed_update` and
-    :func:`make_topk_ef_update`: callable as the whole update,
+    """The ``update_fn`` of :func:`make_distributed_update`,
+    :func:`make_topk_ef_update` and :func:`make_stale_sync_update`:
+    callable as the whole update,
 
         update_fn(params, grads, opt_state, lr, step=0)
             -> (params, opt_state),
@@ -257,6 +262,74 @@ def make_overlapped_update(optimizer, mesh, data_axes=("data",),
         return up.broadcast(sched, plan, params, new_p_strips), new_state
 
     return up.init_fn, local_update
+
+
+def make_stale_sync_update(optimizer, mesh, data_axes=("data",),
+                           comm: Optional[CommConfig] = None):
+    """Bounded staleness 1 (``repro.optim.dist.make_stale_sync_update``):
+    step t applies the mean-gradient strips reduced at step t - 1 and
+    carries its own fresh reduce to step t + 1.  The reduce and apply
+    phases share no state, so the strip-owner layout lets them move apart
+    across steps; a full step of compute is then there to hide every byte
+    of the reduce (``core.balance.stale_sync_exposed_time``), at the price
+    of a one-step-old gradient.
+
+    opt_state wraps the zero1 strip state::
+
+        {"stale":  per bucket, the carried mean-gradient strips, f32:
+                   (G, n/G) in owner order on a local mesh (the
+                   reference's layout), this rank's (n/G,) row on a
+                   process mesh,
+         "synced": int32 scalar on the device, 0 until a reduce has been
+                   carried,
+         "zero1":  the inner strip state, zero1's layout (so a zero1
+                   checkpoint resumes here with the carry re-initialised:
+                   ``api.run``)}
+
+    While ``synced == 0`` (the first step, and the first after a
+    re-initialised carry) a step applies its own reduce rather than zeros.
+    The choice is a ``torch.where`` on the device: no host sync.  The
+    ``update_fn`` is a :class:`DistUpdate`: on a process mesh the train
+    step clips the fresh strips between its halves, so the carry holds
+    clipped means, as the reference's does.
+
+    update_fn(params, grads, opt_state, lr, step=0)
+        -> (params, opt_state), both advanced in place
+    """
+    comm = DEFAULT_COMM if comm is None else comm
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+
+    @torch.no_grad()
+    def init_fn(params):
+        dev = tree_leaves(params)[0].device
+        rows = (up.G,) if mesh.member_dims else ()
+        stale = [torch.zeros(*rows, b.padded_size // up.G,
+                             dtype=torch.float32, device=dev)
+                 for b in up.buckets(params).buckets]
+        return {"stale": stale,
+                "synced": torch.zeros((), dtype=torch.int32, device=dev),
+                "zero1": up.init_fn(params)}
+
+    def reduce(sched, plan, grads, opt_state):
+        return up.reduce(sched, plan, grads)
+
+    def apply(sched, plan, params, fresh, opt_state, lr):
+        synced = opt_state["synced"]
+        # consume last step's reduce; an empty carry (first step, or a
+        # resume that re-initialised it) takes this step's own
+        applied = [torch.where(synced > 0, c, f)
+                   for c, f in zip(opt_state["stale"], fresh)]
+        new_p_strips, inner = up.apply(sched, plan, params, applied,
+                                       opt_state["zero1"], lr)
+        synced.fill_(1)
+        # the fresh strips are this step's own tensors (the reduce
+        # allocates them): the carry takes them as they are, no copy, in
+        # the caller's state dict
+        opt_state["stale"] = list(fresh)
+        opt_state["zero1"] = inner
+        return up.broadcast(sched, plan, params, new_p_strips), opt_state
+
+    return init_fn, DistUpdate(up, reduce, apply)
 
 
 def topk_ef_reduce(up: UpdatePlan, sched: Schedule, plan: BucketPlan, grads,

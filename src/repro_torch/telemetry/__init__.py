@@ -1,7 +1,15 @@
 """Structured telemetry of the port (``repro.telemetry``): ``events``
 records spans and counts, ``sinks`` persists them (JSONL and a Chrome
-trace), ``metrics`` aggregates them.  The reference's ``autotune`` (the
-measured ``comm="auto"`` plan) is not ported yet."""
+trace), ``metrics`` aggregates them, and ``autotune`` fits the §3.2 comm
+constants on the live mesh for ``comm="auto"``."""
+from repro_torch.telemetry.autotune import (  # noqa: F401
+    ENV_AUTOTUNE_CACHE,
+    CommProbe,
+    autotune_comm,
+    choose_bucket_bytes,
+    fit_comm_model,
+    measured_hw,
+)
 from repro_torch.telemetry.events import (  # noqa: F401
     NULL_RECORDER,
     NullRecorder,

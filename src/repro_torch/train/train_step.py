@@ -90,9 +90,13 @@ def group_mean(loss: torch.Tensor, mesh, axis_arg, G: int) -> torch.Tensor:
 
 
 def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update):
-    """The monolithic zero1 step of a process mesh: loss and gradient of
-    this rank's batch rows, the update's reduce, the norm and the clip of
-    the reduced strips, then the update's apply and broadcast."""
+    """The monolithic step of a process mesh (zero1, stale-sync, gossip):
+    loss and gradient of this rank's batch rows, the update's reduce, the
+    norm and the clip of the reduced strips, then the update's apply and
+    broadcast.  Under stale-sync the clipped strips are this step's fresh
+    reduce, which the apply carries to the next step and applies then (the
+    reference's carry holds clipped means too); the reported norm is this
+    step's."""
     up = dist_update.plan
 
     def train_step(params, opt_state, step_idx, batch):

@@ -342,6 +342,39 @@ def test_process_mesh_step_matches_local_mesh(tmp_path):
         torch.set_num_threads(threads)
 
 
+COMMIT_WORKER = """
+import os, sys, time
+import numpy as np, torch, torch.distributed as dist
+rank, world, init, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
+    sys.argv[4]
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=world)
+from repro_torch.checkpoint import ckpt
+if rank == 0:
+    # the writer is slow: its peers must not go on before the file is there
+    real = np.savez
+    def slow(*a, **k):
+        time.sleep(1.0)
+        return real(*a, **k)
+    np.savez = slow
+ckpt.save(tmp + "/ckpt", 2, params={"w": torch.arange(4.0)})
+assert ckpt.latest_step(tmp + "/ckpt") == 2, rank
+dist.barrier()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
+"""
+
+
+def test_checkpoint_save_returns_once_committed_on_every_rank(tmp_path):
+    """A rank that left ``ckpt.save`` before rank 0 had committed the file
+    could resume from an older step than its peers and pair its collectives
+    with theirs (the cause of an intermittent failure of the same-world
+    resume in the test above): no rank returns before the ``.npz`` is in
+    place."""
+    run_ranks(COMMIT_WORKER, 2, tmp_path, SRC, RANKS_DEADLINE_S)
+
+
 # ---------------------------------------------------------------------------
 # the CLI, over gloo on the CPU
 # ---------------------------------------------------------------------------

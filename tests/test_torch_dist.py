@@ -271,10 +271,13 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
                                    rtol=1e-4, atol=1e-6)
 
 
+# stale-sync, gossip and comm="auto" are ported; with model ways (Queue A
+# item 9) they still raise before allocating
 @pytest.mark.parametrize("kw", [
     dict(parallel="dp"), dict(parallel="zero1-gspmd"),
-    dict(parallel="stale-sync"), dict(parallel="gossip"),
-    dict(parallel="zero1", comm="auto"),
+    dict(parallel="stale-sync", mesh=MeshSpec(model_ways=2)),
+    dict(parallel="gossip", mesh=MeshSpec(model_ways=2)),
+    dict(parallel="zero1", comm="auto", mesh=MeshSpec(model_ways=2)),
     dict(parallel="zero1", mesh=MeshSpec(model_ways=2)),
     dict(parallel="zero1", mesh=MeshSpec(cluster=True, model_ways=2))],
     ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "model_ways",

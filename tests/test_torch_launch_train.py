@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -82,8 +83,10 @@ def test_check_run_args_rejects_what_the_reference_rejects(argv):
             _parse(mod, argv)
 
 
+# --comm auto is ported: its case ("auto") now takes zero1-gspmd, which
+# still raises, so that every case of the test stays
 @pytest.mark.parametrize("argv", [
-    [], ["--parallel", "dp"], ["--parallel", "zero1", "--comm", "auto"],
+    [], ["--parallel", "dp"], ["--parallel", "zero1-gspmd"],
     ["--parallel", "zero1", "--model-ways", "2"]],
     ids=["default", "dp", "auto", "model_ways"])
 def test_unported_flags_parse_then_raise_in_compile_run(argv, monkeypatch):
@@ -95,13 +98,29 @@ def test_unported_flags_parse_then_raise_in_compile_run(argv, monkeypatch):
         # the port's default mode is serial, which it runs
         assert args.parallel == "serial"
         return
-    item = {"dp": 9, "auto": 7, "model_ways": 9}[
-        "auto" if "auto" in argv else "model_ways" if "--model-ways" in argv
-        else "dp"]
     with pytest.raises(NotImplementedError,
-                       match=rf"not ported yet \(ROADMAP.md Queue A item "
-                             rf"{item}\)"):
+                       match=r"not ported yet \(ROADMAP.md Queue A item 9\)"):
         assemble.compile_run(train.spec_from_args(args))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--parallel", "stale-sync", "--comm-backend", "pallas-ring",
+     "--pods", "2"],
+    ["--parallel", "gossip", "--pods", "2"],
+    ["--parallel", "zero1", "--comm", "auto", "--pods", "2"]],
+    ids=["stale-sync", "gossip", "auto"])
+def test_cli_trains_the_ported_modes(argv, capsys):
+    hist = train.main(["--arch", "vgg-a", "--smoke", "--device", "cpu",
+                       "--steps", "2", "--batch", "4", "--schedule",
+                       "constant", *argv])
+    assert [h["step"] for h in hist] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    out = capsys.readouterr().out
+    assert f"parallel={argv[1]}" in out and "final loss" in out
+    if "gossip" in argv:
+        assert "backend=gossip" in out
+    if "auto" in argv:
+        assert "comm=auto: G=2" in out and "not a link" in out
 
 
 def test_cli_trains_then_resumes_from_its_checkpoint(tmp_path, capsys):

@@ -133,11 +133,16 @@ def test_telemetry_spec_coercion():
     for cls in (TelemetrySpec, JTelemetrySpec):
         with pytest.raises(ValueError, match="autotune_reps"):
             cls(autotune_reps=0)
-    # validated, but the autotuner it feeds is not ported yet
-    with pytest.raises(NotImplementedError, match="comm='auto'"):
-        compile_run(RunSpec(arch="vgg-a", smoke=True, parallel="zero1",
-                            comm="auto", telemetry=TelemetrySpec(
-                                autotune_reps=3)), device="cpu")
+    # validated, and the autotuner it feeds times each probe that often
+    rec = tel.Recorder()
+    run = compile_run(RunSpec(arch="vgg-a", smoke=True, parallel="zero1",
+                              comm="auto", telemetry=TelemetrySpec(
+                                  autotune_reps=3)), device="cpu",
+                      recorder=rec)
+    run.close()
+    probes = [e for e in rec.events if e["kind"] == "collective"]
+    reps = {e["rep"] for e in probes}
+    assert probes and reps == {0, 1, 2}
 
 
 def test_traced_run_writes_trainer_spans(tmp_path, monkeypatch):

@@ -20,7 +20,7 @@ import jax  # noqa: E402
 
 from repro.api import RunSpec as JRunSpec  # noqa: E402
 from repro.api import compile_run as jcompile_run  # noqa: E402
-from repro_torch.api import PARALLEL_MODES, RunSpec, compile_run  # noqa: E402
+from repro_torch.api import MeshSpec, PARALLEL_MODES, RunSpec, compile_run  # noqa: E402
 from repro_torch.configs.base import H100_SXM  # noqa: E402
 from repro_torch.data.pipeline import Prefetcher, make_placer  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
@@ -164,9 +164,11 @@ def test_runspec_takes_every_reference_mode():
 
 @pytest.mark.parametrize("mode", [m for m in PARALLEL_MODES if m != "serial"])
 def test_compile_run_rejects_unported_modes(mode):
-    # zero1 itself is ported; its autotuned comm is not
-    kw = dict(comm="auto") if mode == "zero1" else {}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # dp and zero1-gspmd are not ported; zero1, stale-sync and gossip are,
+    # and raise only with model ways (Queue A item 9)
+    kw = {} if mode in ("dp", "zero1-gspmd") \
+        else dict(mesh=MeshSpec(model_ways=2))
+    with pytest.raises(NotImplementedError, match="item 9"):
         compile_run(RunSpec(arch="vgg-a", smoke=True, parallel=mode, **kw),
                     device="cpu")
 
