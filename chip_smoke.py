@@ -13,10 +13,13 @@ Phase 0  build every kernel of the ported paths from ``src/repro_torch``
          and f32, must show neither a spill nor a warning), and the card's
          name and power limit.
 Phase 1  the paged-decode kernel against its plain PyTorch version, on the
-         card, at the serving path's shapes and a few variants; max |error|
+         card, at the serving path's shapes and a few variants (among them
+         each head shape that phase 17 serves: qwen2-moe's MHA, Hq 16 = Hkv
+         16, D 128; gemma-2b's MQA, Hq 8, Hkv 1, D 256); max |error|
          against a stated tolerance; CUDA-event times of both beside the
-         kernel's least possible time (its bound), at the serving shapes
-         and at a long context (4 requests of 4096 positions).
+         kernel's least possible time (its bound), at the serving shapes,
+         at h2o-danube's heads (D 120: Hq 32, Hkv 8, window 40) and at a
+         long context (4 requests of 4096 positions).
 Phase 2  the serving path: llama3-8b at full width and depth with random
          f32 weights from a seed, through ``compile_serve``; 8 requests of
          2-512 prompt tokens and 32 new tokens each, drained.  Launch counts
@@ -204,6 +207,34 @@ Phase 16 the stale-sync and gossip update modes and ``comm="auto"`` (after
          card's device memory traffic; 2 steps with the plan bitwise a run
          given it, their launches those the plan's backend, wire format and
          collectives require.
+Phase 17 the MoE family and dense decode (after phase 16), each model
+         freed before the next.  (a) qwen2-moe-a2.7b at full width and
+         depth (24 layers, 60 experts top-4 + 4 shared; 14,004,422,656 f32
+         params from seed 0) through ``compile_serve`` with phase 2's spec:
+         8 requests of 2-512 prompt tokens and 32 new tokens, drained with
+         the counts zeroed just before and read just after (paged decode
+         exactly decode steps x 24, everything else never); tok/s, decode
+         step, TTFT and end-to-end p50/p99, peak memory, the time to cast
+         every weight to bf16; then one decode step on a live state,
+         kernel against gather with the router's choices pinned to the
+         gather run's, held to twice the logits' measured one-ulp
+         sensitivity (pinned too; never under phase 2's gate), greedy
+         tokens equal where decided, the unpinned run's router choices
+         that differ counted.  (b)
+         h2o-danube-3-4b (3,961,839,360 params, D 120, window 4096), 4
+         requests, the same checks.  (c) gemma-2b (2,506,172,416 params,
+         MQA, D 256) through ``serve.decode.generate``, greedy, 4 prompts
+         of 64-200 tokens, 32 new each: no kernel launches (the ring-buffer
+         decode is the plain ``decode_attention_ref``), its tokens equal to
+         a ``compile_serve`` drain of the same prompts until a step where
+         the top-2 margin is within twice the logits' difference; one
+         decode step's time.  (d) qwen2-moe-a2.7b at full width and 2 of
+         its 24 layers (1,452,271,616 params) through ``compile_run`` and
+         ``Run.fit``, AdamW, 4 steps of 2 x 1024 tokens on the flash kernel
+         (flash exactly 2 x 4, nothing else); losses finite, the aux loss
+         positive; the kernel route against the plain route with the
+         router's choices pinned to the plain route's, as phase 13 holds
+         it, and the unpinned route's differing choices counted.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -226,7 +257,8 @@ overlapped path of phases 14 and 7, and the conv's and ring rows'
 ``launches_resume`` and ``launches_cluster``, their launches on phase 15a's
 resumed fit and on one rank of phase 15b's world-2 run, and
 ``launches_modes``, on phase 16's stale-sync, gossip and ``comm="auto"``
-fits), the last
+fits, and the paged and flash rows' ``launches_moe``, on phase 17), the
+last
 line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -442,6 +474,9 @@ def phase1(dev):
         ("llama3-8b heads, window 40", 32, 8, 128, 40, 0.0),
         ("llama3-8b heads, softcap 50", 32, 8, 128, 0, 50.0),
         ("gemma2 heads, window 40, softcap 50", 8, 4, 256, 40, 50.0),
+        ("h2o-danube heads (D 120), window 40", 32, 8, 120, 40, 0.0),
+        ("qwen2-moe heads (MHA: one q head a kv head)", 16, 16, 128, 0, 0.0),
+        ("gemma-2b heads (MQA: one kv head)", 8, 1, 256, 0, 0.0),
     ]
     worst = 0.0
     for i, (name, Hq, Hkv, D, window, softcap) in enumerate(variants):
@@ -468,6 +503,15 @@ def phase1(dev):
             plain_ms = cuda_ms(lambda: paged_attn.paged_decode_attention_plain(
                 q, pk, pv, pt, ln, **kw))
             bound_ms, bound_by = paged_bound(q, pk, pt, lengths, window)
+        if D == 120:   # h2o-danube's heads: 15 lanes a row of 16
+            ms_120 = cuda_ms(lambda: paged_attn.paged_decode_attention(
+                q, pk, pv, pt, ln, **kw))
+            plain_120 = cuda_ms(lambda: paged_attn.paged_decode_attention_plain(
+                q, pk, pv, pt, ln, **kw))
+            bound_120, _ = paged_bound(q, pk, pt, lengths, window)
+    print(f"  time at B=4 Hq=32 Hkv=8 D=120 window 40 ps=16 n=34 lengths="
+          f"{lengths}: kernel {ms_120} ms, plain {plain_120} ms, bound "
+          f"{bound_120} ms")
     pps = paged_attn.split_pages(4, 8, 4, n)
     print(f"  time at B=4 Hq=32 Hkv=8 D=128 ps=16 n=34 lengths={lengths} "
           f"({-(-n // pps)} splits of {pps} pages, two CUDA launches a "
@@ -496,7 +540,9 @@ def phase1(dev):
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:131",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms_d120": ms_120, "plain_ms_d120": plain_120,
+            "bound_ms_d120": bound_120}
 
 
 # ---------------------------------------------------------------------------
@@ -3669,6 +3715,512 @@ def phase16(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the MoE family, h2o-danube's head_dim 120 and dense decode
+# ---------------------------------------------------------------------------
+# (a), (b): one decode step on the same live state through the kernel and
+# through its plain gather version.  The kernel is within one bf16 ulp of
+# the plain version per call (phase 1), at some of its outputs, and 24
+# layers carry those ulps into the logits.  So the run measures the logits'
+# one-ulp sensitivity on that state, the gather route with every attention
+# output moved by one ulp (scaled by 1 + 2^-8) against the gather route,
+# and holds the kernel route to PARITY_SENSITIVITY_FACTOR times it, never
+# tighter than phase 2's REL_L2_TOL.  A router choice within a near-tie can
+# flip under either change and move that slot's logits by far more than
+# rounding, so both the kernel run and the one-ulp run take the gather
+# run's router choices; the unpinned kernel run's flips (slot x layer) are
+# counted and printed.
+# (d): the kernel route against the plain route, as phase 13 holds it, with
+# the kernel route's router choices pinned to the plain route's (its own
+# probabilities, weights and aux loss): a flipped choice reroutes a token
+# and moves every gradient leaf by ~1/sqrt(tokens), which says nothing of
+# the kernel; the flips of the unpinned kernel route are counted beside.
+MOE_PARAMS = 14_004_422_656        # qwen2-moe-a2.7b, 24 layers
+H2O_PARAMS = 3_961_839_360         # h2o-danube-3-4b
+GEMMA_PARAMS = 2_506_172_416       # gemma-2b
+MOE_TRAIN_LAYERS = 2               # of qwen2-moe's 24, with AdamW state
+MOE_TRAIN_PARAMS = 1_452_271_616
+MOE_TRAIN_STEPS = 4
+DECODE_NEW = 32
+PARITY_SENSITIVITY_FACTOR = 2.0
+
+
+def _serve_spec(arch):
+    from repro_torch.api import ServeSpec
+    return ServeSpec(arch=arch, smoke=False, max_batch=4, page_size=16,
+                     num_pages=160, max_prompt=512,
+                     max_new_tokens=DECODE_NEW, attn_impl="kernel")
+
+
+def _moe_train_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen2-moe-a2.7b").replace(
+        num_layers=MOE_TRAIN_LAYERS, pattern_repeats=MOE_TRAIN_LAYERS)
+
+
+@contextmanager
+def routes_recorded():
+    """Every MoE router call's top-k indices and its k-th vs (k+1)-th
+    probability margins, as host tensors, in call order."""
+    from repro_torch.models import moe
+    real, seen = moe._top_k, []
+
+    def spy(probs, k):
+        idx = real(probs, k)
+        srt = torch.sort(probs.detach(), -1, descending=True).values
+        seen.append((idx.cpu(), (srt[..., k - 1] - srt[..., k]).cpu()))
+        return idx
+
+    moe._top_k = spy
+    try:
+        yield seen
+    finally:
+        moe._top_k = real
+
+
+@contextmanager
+def routes_pinned(choices):
+    """Every MoE router call takes its top-k indices from ``choices`` (a
+    :func:`routes_recorded` list) in call order."""
+    from repro_torch.models import moe
+    real, it = moe._top_k, iter(choices)
+    moe._top_k = lambda probs, k: next(it)[0].to(probs.device)
+    try:
+        yield
+    finally:
+        moe._top_k = real
+
+
+def route_flips(a, b):
+    """(choices that differ between two recordings, counted per token and
+    layer; the largest margin among them in either recording)."""
+    n, worst = 0, 0.0
+    for (ia, ma), (ib, mb) in zip(a, b):
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        n += int(diff.sum())
+        if diff.any():
+            worst = max(worst, ma[diff].max().item(), mb[diff].max().item())
+    return n, worst
+
+
+def step_profile(fn, tag, card):
+    """Where one call of ``fn`` spends its time: its wall time (CUDA events
+    around it, median of 5 after 2 warm-ups), the card's busy time (the
+    summed durations of the kernels and memory operations it ran, from
+    ``torch.profiler``; one stream, so they do not overlap), how many it
+    ran, and the five kernels that took the most, summed by name."""
+    from torch.profiler import ProfilerActivity, profile
+    wall = cuda_ms(fn, 2, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {tag}: {wall} ms a call; the card busy {busy} ms of it "
+          f"({n} kernels and copies; idle share {1 - busy / wall}); the most "
+          f"time: " + "; ".join(f"{name[:90]} {ms} ms" for name, ms in top)
+          + f" [{card}]")
+    return wall, busy
+
+
+def _serve_full(card, arch, want_params, n_req, tag):
+    """``compile_serve`` at full width and depth, a warm-up request, then
+    ``n_req`` requests of 2-512 prompt tokens drained with every count
+    zeroed just before and read just after.  Returns (server, the paged
+    kernel's launches)."""
+    from repro_torch.api import compile_serve
+    spec = _serve_spec(arch)
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    server = compile_serve(spec, recorder=spans)
+    torch.cuda.synchronize()
+    cfg = server.cfg
+    n_params = sum(w.numel() for w in _leaves(server.params))
+    check(n_params == want_params, f"{n_params} params, want {want_params}")
+    print(f"phase 17{tag}: {cfg.name} at full width and depth "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}, window {cfg.sliding_window}, experts "
+          f"{cfg.num_experts} top-{cfg.num_experts_per_tok} + "
+          f"{cfg.num_shared_experts} shared), {n_params} f32 params from "
+          f"seed {spec.seed} on {server.device} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    server.submit(np.arange(1, 33), 2)
+    server.drain()
+    spans.reset()
+    server.reset_latency_stats()
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(2, spec.max_prompt + 1, size=n_req)
+    for L in lengths:
+        server.submit(rng.integers(1, cfg.vocab_size, size=int(L)))
+    steps0 = server.stats["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    steps = server.stats["steps"] - steps0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(done) == n_req, f"{len(done)} of {n_req} requests completed")
+    for r in done:
+        check(len(r.tokens) == spec.max_new_tokens,
+              f"request {r.rid} returned {len(r.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"request {r.rid} returned a token outside the vocabulary")
+    want = dict.fromkeys(counts, 0)
+    want["paged_decode_attention"] = steps * cfg.num_layers
+    check(steps > 0 and counts == want, f"launches {counts} in {steps} "
+          f"decode steps, want {want}")
+    pre_s, dec_s = spans.seconds["prefill"], spans.seconds["decode"]
+    n_pre = int(lengths.sum())
+    n_dec = sum(len(r.tokens) - 1 for r in done)
+    lat = server.latency_stats()
+    print(f"  served {n_req} requests ({n_pre} prompt tokens, {n_dec} "
+          f"decoded) in {wall} s; {steps} decode steps, paged_decode_attention "
+          f"{counts['paged_decode_attention']} = steps x {cfg.num_layers}, "
+          f"every other kernel 0")
+    print(f"  prefill {n_pre / pre_s} tok/s over {pre_s} s; decode "
+          f"{n_dec / dec_s} tok/s over {dec_s} s; decode step median "
+          f"{np.median(spans.samples['decode']) * 1e3} ms; TTFT p50 "
+          f"{lat['ttft_p50_s']} s p99 {lat['ttft_p99_s']} s; end to end p50 "
+          f"{lat['e2e_p50_s']} s p99 {lat['e2e_p99_s']} s; peak memory "
+          f"{peak_gb} GB [{card}]")
+    return server, counts["paged_decode_attention"]
+
+
+def _decode_parity(server, card, tag):
+    """One decode step on a live state of 4 fresh requests: kernel against
+    gather, beside the logits' one-ulp sensitivity (see above).  Both the
+    kernel run and the one-ulp run take the gather run's router choices
+    (``routes_pinned``), so that the gate reads the attention's rounding
+    and not a near-tied expert choice that the rounding flips; the
+    unpinned kernel run's flips are counted and printed beside it."""
+    from repro_torch.kernels import paged_attn
+    cfg = server.cfg
+    rng = np.random.default_rng(1)
+    for L in rng.integers(2, server.spec.max_prompt + 1, size=4):
+        server.submit(rng.integers(1, cfg.vocab_size, size=int(L)))
+    server.step()
+    with routes_recorded() as r_ref:
+        ref = server.decode_logits("gather").float()
+    with routes_recorded() as r_free:
+        free = server.decode_logits("kernel").float()
+    with routes_pinned(r_ref):
+        got = server.decode_logits("kernel").float()
+    plain = paged_attn.paged_decode_attention_plain
+
+    def shifted(*args, **kw):
+        out = plain(*args, **kw)
+        return (out.float() * (1 + 2.0 ** -8)).to(out.dtype)
+
+    paged_attn.paged_decode_attention_plain = shifted
+    try:
+        with routes_pinned(r_ref):
+            moved = server.decode_logits("gather").float()
+    finally:
+        paged_attn.paged_decode_attention_plain = plain
+    check(tuple(got.shape) == (4, cfg.vocab_size), f"logits {got.shape}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()
+               and torch.isfinite(free).all()), "non-finite logits")
+    delta = (got - ref).abs().max().item()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    rel_free = ((free - ref).norm() / ref.norm()).item()
+    sens = ((moved - ref).norm() / ref.norm()).item()
+    tol = max(REL_L2_TOL, PARITY_SENSITIVITY_FACTOR * sens)
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * delta
+    same = (got.argmax(-1) == ref.argmax(-1)) | ~decided
+    flips, flip_margin = route_flips(r_ref, r_free)
+    print(f"  one decode step at lengths {(server._lengths + 1).tolist()}, "
+          f"kernel vs gather on the same state, the kernel's router choices "
+          f"pinned to the gather's: max|dlogit| {delta}, relative L2 {rel}; "
+          f"gather with every attention output moved one ulp, choices "
+          f"pinned, vs gather: relative L2 {sens}; tolerance "
+          f"max({REL_L2_TOL}, {PARITY_SENSITIVITY_FACTOR} x {sens}) = {tol}; "
+          f"greedy tokens agree wherever the top-2 margin exceeds 2 "
+          f"max|dlogit| ({int(decided.sum())} of 4 decided): "
+          f"{bool(same.all())}; unpinned, the kernel's router choices (slot x "
+          f"layer) differ from the gather's at {flips} of "
+          f"{4 * len(r_ref)} (largest k-th vs (k+1)-th margin among them "
+          f"{flip_margin}) and its logits' relative L2 is {rel_free} "
+          f"(printed, not gated) [{card}]")
+    check(rel <= tol, f"{tag}: kernel and gather decode logits disagree")
+    check(bool(same.all()), f"{tag}: greedy token differs at a decided step")
+    step_profile(lambda: server.decode_logits("kernel"),
+                 f"one decode step of the 4 slots (kernel) at these lengths",
+                 card)
+
+
+def phase17a(card):
+    server, launches = _serve_full(card, "qwen2-moe-a2.7b", MOE_PARAMS, 8,
+                                   "a")
+
+    def cast_all():
+        for w in _leaves(server.params):
+            w.to(torch.bfloat16)
+
+    print(f"  casting every weight f32 -> bf16 once: "
+          f"{cuda_ms(cast_all, 2, 5)} ms [{card}]")
+    _decode_parity(server, card, "17a")
+    from repro_torch.models import transformer
+    toks = torch.randint(1, server.cfg.vocab_size, (1, 256),
+                         device=server.device)
+    with torch.no_grad():
+        step_profile(lambda: transformer.forward(server.params, server.cfg,
+                                                 tokens=toks),
+                     "one prefill forward of 256 tokens (B 1, no cache)",
+                     card)
+    return launches
+
+
+def phase17b(card):
+    server, launches = _serve_full(card, "h2o-danube-3-4b", H2O_PARAMS, 4,
+                                   "b")
+    _decode_parity(server, card, "17b")
+    return launches
+
+
+def phase17c(card):
+    """gemma-2b through ``serve.decode.generate`` (greedy, one prompt a call:
+    the ring buffer holds one batch of equal lengths) against a
+    ``compile_serve`` drain of the same prompts on the same params."""
+    from repro_torch.api import compile_serve
+    from repro_torch.api import serve as api_serve
+    from repro_torch.serve import decode
+    server = compile_serve(_serve_spec("gemma-2b"))
+    params, cfg = server.params, server.cfg
+    n_params = sum(w.numel() for w in _leaves(params))
+    check(n_params == GEMMA_PARAMS, f"{n_params} params, want {GEMMA_PARAMS}")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(L))
+               for L in rng.integers(64, 201, size=4)]
+    decode.generate(params, cfg, prompts[0][None], 2)       # warm-up
+
+    rec = []
+    real_pre, real_step = decode.prefill, decode.decode_step
+
+    def pre(*args, **kw):
+        lg, c = real_pre(*args, **kw)
+        rec.append(lg.float())
+        return lg, c
+
+    def step(*args, **kw):
+        lg, c = real_step(*args, **kw)
+        rec.append(lg.float())
+        return lg, c
+
+    gen_tok, gen_log = [], []
+    decode.prefill, decode.decode_step = pre, step
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    try:
+        for p in prompts:
+            rec.clear()
+            out = decode.generate(params, cfg, p[None], DECODE_NEW)
+            check(tuple(out.shape) == (1, DECODE_NEW), f"tokens {out.shape}")
+            gen_tok.append(out[0].cpu().numpy())
+            gen_log.append(torch.cat(rec))
+        torch.cuda.synchronize()
+    finally:
+        decode.prefill, decode.decode_step = real_pre, real_step
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check(not any(counts.values()), f"generate launched {counts}")
+    for t in gen_tok:
+        check(all(0 <= x < cfg.vocab_size for x in t), "token outside the "
+              "vocabulary")
+    # one decode step's time against a prompt's ring (the same position
+    # again each call: the write lands in the same slot)
+    p = torch.as_tensor(prompts[0][None], device=server.device)
+    lg, caches = decode.prefill(params, cfg, p, p.shape[1] + DECODE_NEW)
+    tok = lg.argmax(-1)[:, None]
+    step_ms, _ = step_profile(
+        lambda: decode.decode_step(params, cfg, tok, p.shape[1], caches),
+        f"one ring-buffer decode step (B 1, {p.shape[1]} cached)", card)
+    del caches
+
+    srec = []
+    real_sample = api_serve._sample
+
+    def sample(logits, temperature, gen):
+        srec.append(logits.float().clone())
+        return real_sample(logits, temperature, gen)
+
+    for q in prompts:
+        server.submit(q, DECODE_NEW)
+    api_serve._sample = sample
+    try:
+        done = {r.rid: r for r in server.drain()}
+    finally:
+        api_serve._sample = real_sample
+    check(sorted(done) == [0, 1, 2, 3] and server.stats["preemptions"] == 0,
+          f"drain {sorted(done)}, {server.stats}")
+    compared, deltas = 0, []
+    for r in range(4):
+        # request r sat in slot r: its prefill sample, then row r of every
+        # decode step's
+        srv_log = torch.stack([srec[r][0]] + [s[r] for s in srec[4:]])
+        srv_tok = done[r].output
+        for i in range(DECODE_NEW):
+            d = (gen_log[r][i] - srv_log[i]).abs().max().item()
+            deltas.append(d)
+            if gen_tok[r][i] != srv_tok[i]:
+                top2 = srv_log[i].topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                print(f"  request {r} parts at token {i}: top-2 margin "
+                      f"{margin}, max|dlogit| {d}")
+                check(margin <= 2 * d, f"request {r}: generate and the "
+                      f"server part at decided token {i}")
+                break
+            compared += 1
+    print(f"phase 17c: {cfg.name} at full width and depth ({n_params} f32 "
+          f"params, {cfg.num_heads} q / {cfg.num_kv_heads} kv head of "
+          f"{cfg.head_dim}) through serve.decode.generate: 4 prompts of "
+          f"{[len(q) for q in prompts]} tokens, {DECODE_NEW} new each, in "
+          f"{wall} s; launches: none (ring-buffer decode is the plain "
+          f"decode_attention_ref); one decode step {step_ms} ms (B 1); "
+          f"tokens equal to a compile_serve drain (paged kernel) for "
+          f"{compared} of {4 * DECODE_NEW}, every parting at a margin within "
+          f"2 max|dlogit|; max|dlogit| generate vs server before parting "
+          f"{max(deltas)} [{card}]")
+
+
+def phase17d(card):
+    """qwen2-moe-a2.7b at full width, 2 of its 24 layers, through
+    ``compile_run`` and ``Run.fit`` on the flash kernel."""
+    from repro_torch.api import RunSpec, compile_run
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_train_cfg()
+    spec = RunSpec(arch=cfg, steps=MOE_TRAIN_STEPS, batch=LM_BATCH,
+                   seq=LM_SEQ, seed=0, log_every=1)
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(run.params))
+    check(n_params == MOE_TRAIN_PARAMS,
+          f"{n_params} params, want {MOE_TRAIN_PARAMS}")
+    print(f"phase 17d: {cfg.name} at full width, {cfg.num_layers} of 24 "
+          f"layers ({cfg.num_experts} experts top-{cfg.num_experts_per_tok} "
+          f"+ {cfg.num_shared_experts} shared, capacity factor "
+          f"{cfg.moe_capacity_factor}), {n_params} f32 params and AdamW "
+          f"state on {run.device} in {time.perf_counter() - t0:.2f} s; "
+          f"{spec.steps} steps of {spec.batch} x {spec.seq} tokens, every "
+          f"attention forward on the kernel")
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    hist = run.fit(log_fn=lambda line: print(f"  {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"history {hist}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = spec.steps * cfg.num_layers
+    check(counts == want, f"launches {counts}, want {want}")
+    batch = next(run.data)
+    with torch.no_grad():
+        aux = transformer.forward(run.params, cfg,
+                                  tokens=batch["tokens"])[1].item()
+    check(np.isfinite(aux) and aux > 0, f"aux loss {aux}")
+    steps = spans.samples["step"]
+    print(f"  {spec.steps} steps in {wall} s; flash_attention "
+          f"{counts['flash_attention']} = {spec.steps} x {cfg.num_layers}, "
+          f"every other kernel 0; step median over steps 2-{spec.steps} "
+          f"{np.median(steps[1:]) * 1e3} ms; aux loss (x "
+          f"{cfg.router_aux_loss_coef}, summed over layers) on the next "
+          f"batch {aux}; peak memory {peak_gb} GB [{card}]")
+    run.close()
+    run.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    leaves = tree_leaves(run.params)
+    names = list(_leaf_names(run.params))
+
+    def loss_and_grads(uk):
+        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def rel_l2(ga, gb):
+        return [((a - b).norm() / b.norm()).item() for a, b in zip(ga, gb)]
+
+    with routes_recorded() as plain_routes:
+        lp, gp = loss_and_grads(False)
+    with torch.no_grad(), routes_recorded() as kernel_routes:
+        transformer.lm_loss(run.params, cfg, batch, use_kernel=True)
+    flips, flip_margin = route_flips(plain_routes, kernel_routes)
+    with routes_pinned(plain_routes):
+        lk, gk = loss_and_grads(True)
+    rel = rel_l2(gk, gp)
+    with torch.no_grad():
+        for p in leaves:
+            p.mul_(1 + 2.0 ** -23)
+    with routes_pinned(plain_routes):
+        _, gu = loss_and_grads(False)
+    floor = rel_l2(gu, gp)
+    check(np.isfinite(lk) and np.isfinite(lp), "non-finite parity loss")
+    loss_rel = abs(lk - lp) / abs(lp)
+    tol = max(LM_GRAD_REL_L2_TOL, SENSITIVITY_FACTOR * max(floor))
+    worst = int(np.argmax(rel))
+    n_choices = sum(r[0].numel() // r[0].shape[-1] for r in plain_routes)
+    print(f"  kernel vs plain route, one forward and backward on the params "
+          f"after the run and its next batch, the kernel route's router "
+          f"choices pinned to the plain route's: loss {lk} vs {lp} "
+          f"(relative {loss_rel}, tolerance {LM_LOSS_REL_TOL}); worst leaf's "
+          f"gradient relative L2 {rel[worst]} at {names[worst]}; the plain "
+          f"route with every weight scaled by 1 + 2^-23: worst {max(floor)}; "
+          f"tolerance max({LM_GRAD_REL_L2_TOL}, {SENSITIVITY_FACTOR} x "
+          f"sensitivity) = {tol}; unpinned, the kernel route's router "
+          f"choices differ from the plain route's at {flips} of {n_choices} "
+          f"(token x layer; largest margin among them {flip_margin}) [{card}]")
+    check(loss_rel <= LM_LOSS_REL_TOL, "kernel and plain route losses differ")
+    check(max(rel) <= tol, "kernel and plain route gradients differ")
+    run.params = None
+    return counts["flash_attention"]
+
+
+def phase17(card):
+    """Phase 17's four parts, each model freed before the next; the paged
+    kernel's launches (a, b) and the flash kernel's (d)."""
+    print(f"phase 17: {torch.cuda.memory_allocated() / 1e9} GB still "
+          f"allocated from earlier phases")
+    walls = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn(card)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    paged = part("17a", phase17a) + part("17b", phase17b)
+    part("17c", phase17c)
+    flash = part("17d", phase17d)
+    print(f"  phase 17 wall seconds by part {walls}; paged_decode_attention "
+          f"{paged} launches, flash_attention {flash}")
+    return paged, flash
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -3991,6 +4543,9 @@ def main() -> int:
     resume = timed("15a", phase15a, card)
     cluster = timed("15b", phase15b, card)
     modes = timed("16", phase16, dev, card)
+    paged["launches_moe"], flash["launches_moe"] = timed("17", phase17, card)
+    paged["launches"] += paged["launches_moe"]
+    flash["launches"] += flash["launches_moe"]
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),

@@ -227,8 +227,8 @@ def compile_serve(spec: ServeSpec, params=None, device=None,
     ``spec.seed``.  ``device`` defaults to the GPU and raises when none is
     visible; pass ``device="cpu"`` to run on the CPU.  ``recorder`` receives
     prefill/decode spans and preempt events.  The archs the reference
-    rejects are rejected here with the same reasons, and so are MoE configs,
-    which the port does not serve yet — before any buffer is allocated.
+    rejects are rejected here with the same reasons, before any buffer is
+    allocated.
     """
     cfg = get_config(spec.arch) if isinstance(spec.arch, str) else spec.arch
     if not isinstance(cfg, ModelConfig):
@@ -246,9 +246,6 @@ def compile_serve(spec: ServeSpec, params=None, device=None,
         raise ValueError(
             f"{cfg.name!r} uses a modality frontend / codebook heads / "
             "M-RoPE — token-in/token-out archs only for serving")
-    if cfg.num_experts:
-        raise ValueError(f"{cfg.name!r} is a MoE config: MoE blocks are not "
-                         "ported yet")
 
     dev = resolve_device(device)
     if params is None:

@@ -18,6 +18,11 @@ from repro_torch.configs.base import (
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "gemma2-2b": "gemma2_2b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "gemma-2b": "gemma_2b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "llama-100m": "llama_100m",
     "vgg-a": "vgg_a",
     "overfeat-fast": "overfeat_fast",
     "cd-dnn": "cd_dnn",

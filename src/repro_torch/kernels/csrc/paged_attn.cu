@@ -35,8 +35,10 @@
 //     with no valid position is never read (nor its page-table entry).
 //   * Each lane holds 8 head-dim elements of a row (one 16-byte load for
 //     bf16, two for f32, kept as loaded and widened to f32 where used); D / 8
-//     lanes (rounded up to a power of two) take a row, so a warp load covers
-//     32 / that rows.  A warp issues the K and V loads of kBatch such row
+//     lanes (rounded up to a power of two, at least 4) take a row, so a warp
+//     load covers 32 / that rows.  Any D % 8 == 0 up to 256 is taken: where
+//     D / 8 is not a power of two (D = 120: 15 lanes of 16) the spare lanes
+//     of a row load nothing and add zeros to the score's shuffle sum.  A warp issues the K and V loads of kBatch such row
 //     groups before it uses any of them, and reads the page-table entries of
 //     its next batch while they are in flight.
 //   * Scores are reduced with warp shuffles within a row's lanes; each warp
@@ -80,7 +82,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// 8 consecutive elements of a row as loaded (16-byte aligned: D % 32 == 0):
+// 8 consecutive elements of a row as loaded (16-byte aligned: D % 8 == 0):
 // one 16-byte load for bf16, two for f32; widened to f32 where they are used
 template <typename T>
 struct Raw;
@@ -134,7 +136,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
   const int gb = min(H, (kvh + 1) * g - h0);                        // heads of this block
   const int b = blockIdx.y, s = blockIdx.z, S = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = D / kE;                                      // lanes a row: 4..32
+  const int L = D / kE;                                      // lanes a row: 1..32
   const int Lp = L <= 4 ? 4 : L <= 8 ? 8 : L <= 16 ? 16 : 32;  // as a power of two
   const int R = 32 / Lp;                                     // rows a warp load
   const int sub = lane / Lp;                                 // this lane's row of the group
@@ -368,15 +370,16 @@ void launch_heads(const void* q, const void* pages_k, const void* pages_v,
 // dtype: 0 = float32, 1 = bfloat16 (q, both pools and out share it).
 // scratch: B * Hq * S * (2 + D) floats, S = ceil(n / pages_per_split): the
 // splits' (m, l) pairs, then their acc rows.  The caller has checked shapes,
-// Hq % Hkv == 0, D % 32 == 0, D <= 256 and the pools' 16-byte alignment.
+// Hq % Hkv == 0, D % 8 == 0, D <= 256 and the pools' 16-byte alignment.
 extern "C" int paged_decode_attention(const void* q, const void* pages_k, const void* pages_v,
                                       const void* page_table, const void* lengths,
                                       void* scratch, void* out, int B, int Hq, int Hkv, int D,
                                       int num_pages, int ps, int n, int pages_per_split,
                                       int window, float softcap, float scale, int dtype,
                                       void* stream) {
-  if (B < 1 || B > 65535 || Hkv < 1 || Hq % Hkv || D % 32 || D > kMaxD || ps < 1 || n < 1 ||
-      pages_per_split < 1 || (n + pages_per_split - 1) / pages_per_split > kMaxSplits)
+  if (B < 1 || B > 65535 || Hkv < 1 || Hq % Hkv || D < kE || D % kE || D > kMaxD || ps < 1 ||
+      n < 1 || pages_per_split < 1 ||
+      (n + pages_per_split - 1) / pages_per_split > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = (size_t)B * Hq * ((n + pages_per_split - 1) / pages_per_split);
   float* part_ml = static_cast<float*>(scratch);

@@ -107,8 +107,8 @@ def _check(q, pages_k, pages_v, page_table, lengths, window, logit_softcap):
                          f"{tuple(lengths.shape)}")
     if Hq % Hkv:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq}/{Hkv}")
-    if D % 32 or D > 256:
-        raise ValueError(f"head_dim must be a multiple of 32 and <= 256, "
+    if D < 8 or D % 8 or D > 256:
+        raise ValueError(f"head_dim must be a multiple of 8 and <= 256, "
                          f"got {D}")
     for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
         if t.data_ptr() % 16:

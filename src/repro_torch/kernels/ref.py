@@ -10,6 +10,9 @@ NHWC/HWIO).  It is not a port of a TPU kernel: here it is one
 ``torch.nn.functional.conv2d`` call on permuted views, the route
 ``cnn.forward(use_kernel=False)`` takes and the gradient the conv kernel's
 autograd wrapper uses.
+:func:`decode_attention_ref` is the reference's ring-buffer decode route
+(``models.layers.attention_block`` against an ``AttnCache``), which no TPU
+kernel replaces.
 """
 from __future__ import annotations
 
@@ -63,6 +66,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return out.to(out_dtype or q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                         window: int = 0,
+                         logit_softcap: float = 0.0) -> torch.Tensor:
+    """One-token attention against a (possibly ring-buffered) cache.
+
+    q: (B, 1, Hq, D); caches: (B, C, Hkv, D); cache_len: (B,) valid
+    lengths.  Entries at index >= cache_len are masked.  With a ring buffer
+    the caller keeps only the most recent ``window`` entries resident, so
+    ``window`` adds no mask (it is the reference's signature).  Softmax in
+    f32; the result in q's dtype."""
+    del window
+    B, C, Hkv, D = k_cache.shape
+    g = q.shape[2] // Hkv
+    qf = q[:, 0].float() * (D ** -0.5)                       # (B, Hq, D)
+    kf, vf = k_cache.float(), v_cache.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+    logits = _softcap(torch.einsum("bhd,bkhd->bhk", qf, kf), logit_softcap)
+    valid = torch.arange(C, device=q.device)[None, :] < cache_len[:, None]
+    logits = torch.where(valid[:, None, :], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", p, vf)[:, None].to(q.dtype)
 
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

@@ -3,8 +3,10 @@
 ``repro.models.layers`` for the token LMs the serving and training paths
 run, with the reference's numerics: f32 norms and RoPE angles, bf16
 activations, every matmul bf16 @ ``w.to(bf16)``.  Layout is (B, S, H, D)
-throughout.  Not ported yet: M-RoPE, MoE, SSM blocks, ring-buffer and
-sequence-sharded decode.
+throughout.  Not ported yet: M-RoPE, ``layer_norm`` and the
+sequence-sharded decode (``sharded_decode_attention``, which needs a mesh
+axis over the cache's sequence that the port's meshes do not have).  The
+MoE layer is ``models.moe``.
 
 The reference's functions are pure and return new caches.  Here cache
 writes happen IN PLACE on the tensors the cache objects hold (the page
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec
 from repro_torch.kernels import flash_attention
+from repro_torch.kernels.ref import decode_attention_ref
 
 NEG_INF = -1e30
 
@@ -215,8 +218,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (on CPU tensors its plain version) and ``attention_ref``'s gradient
     backward; the reference's models always run chunked attention, so the
     switch is the port's own, as for the CNN and the DNN.  Decode (S == 1):
-    one token against the paged pool.  Decode against the ring buffer (the
-    reference's ``serve/decode.generate`` path) is not ported."""
+    one token against the paged pool (the serving engine's path) or against
+    the ring buffer (``serve.decode``'s), the latter through the plain
+    ``decode_attention_ref``, as in the reference."""
     B, S, _ = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -233,9 +237,16 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
             cache, q, k, v, window=window,
             logit_softcap=cfg.attn_logit_softcap)
     elif cache is not None and S == 1 and not update_cache:
-        raise NotImplementedError(
-            "decode against a ring-buffer cache is not ported yet; the "
-            "serving engine decodes through PagedKVState")
+        # append to the ring buffer at slot length % C (in place), attend
+        # over its min(length + 1, C) resident entries
+        C = cache.k.shape[1]
+        slot = (cache.length % C).reshape(1).long()
+        cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+        valid = torch.clamp(cache.length + 1, max=C).expand(B)
+        out = decode_attention_ref(q, cache.k, cache.v, valid, window=window,
+                                   logit_softcap=cfg.attn_logit_softcap)
+        new_cache = dataclasses.replace(cache, length=cache.length + 1)
     elif use_kernel and cache is None:
         out = flash_attention.attention(q, k, v, True, window,
                                         cfg.attn_logit_softcap)

@@ -27,7 +27,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.params import Spec, init_tree, map_tree, tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.layers import attention_block, mlp_block, rms_norm
 
 ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_SHARED_ATTN)
@@ -37,10 +37,14 @@ ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_SHARED_ATTN)
 # param specs
 # ---------------------------------------------------------------------------
 def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL) or cfg.num_experts:
-        raise ValueError(f"block kind {kind!r} (experts={cfg.num_experts}) "
-                         "is not ported yet")
-    return {"attn": layers.attn_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
+        raise ValueError(f"block kind {kind!r} is not ported yet")
+    sp = {"attn": layers.attn_specs(cfg)}
+    if cfg.num_experts:
+        sp["moe"] = moe.moe_specs(cfg)
+    else:
+        sp["mlp"] = layers.mlp_specs(cfg)
+    return sp
 
 
 def _stack_specs(sp, repeats: int):
@@ -172,8 +176,8 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     the final-normed hidden states in place of the logits when
     ``return_hidden``; ``positions`` (B, S) default to ``arange(S)``.
     ``use_kernel`` runs every cacheless attention on the flash kernel
-    (``layers.attention_block``).  ``aux_loss`` is zero: the port has no MoE
-    blocks yet."""
+    (``layers.attention_block``).  ``aux_loss`` is the sum of the MoE
+    blocks' load-balance losses (zero without experts)."""
     emb_scale = float(np.float32(cfg.d_model ** 0.5))
     x = (params["embed"][tokens.long()] * emb_scale).to(torch.bfloat16)
     B, S, _ = x.shape
@@ -181,6 +185,7 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
         positions = torch.arange(S, device=x.device).expand(B, S)
 
     have_cache = caches is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = [[] for _ in cfg.block_pattern]
     blocks = [_unstack(bp, cfg.pattern_repeats) for bp in params["blocks"]]
     for r in range(cfg.pattern_repeats):
@@ -191,12 +196,15 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
                 p["attn"], x, cfg, positions,
                 window=effective_window(cfg, kind, long_ctx), cache=cache,
                 update_cache=update_cache, use_kernel=use_kernel)
-            x = mlp_block(p["mlp"], x, cfg)
+            if "moe" in p:
+                x, aux_j = moe.moe_block(p["moe"], x, cfg)
+                aux = aux + aux_j
+            else:
+                x = mlp_block(p["mlp"], x, cfg)
             if have_cache:
                 per_layer[j].append(nc if nc is not None else cache)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = (tuple(_restack(c, pl) for c, pl in zip(caches, per_layer))
                   if have_cache else None)
     if return_hidden:

@@ -1,0 +1,82 @@
+"""Batched prefill and incremental decode over ring-buffered caches
+(``repro.serve.decode``).
+
+``prefill`` runs the full-sequence forward and fills the caches;
+``decode_step`` consumes one token per request against them; ``generate``
+drives greedy or temperature sampling.  Everything runs where the params
+live (``transformer.init_params`` puts them on the GPU unless asked for the
+CPU).  The caches' tensors are written in place, so a step's returned
+caches hold the same storage with new lengths.
+
+This is the dense, fixed-batch path: every request of the batch has the
+same prompt length and each layer's cache holds ``capacity`` positions (its
+window, for a sliding-window layer).  Decode attends the ring buffer
+through the plain ``kernels.ref.decode_attention_ref``, as the reference
+does; the serving engine (``api.serve.Server``) decodes through the paged
+kernel instead.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, capacity: int,
+            *, long_ctx: bool = False):
+    """tokens: (B, S).  Returns (last_logits (B, V), caches)."""
+    caches = transformer.init_caches(cfg, tokens.shape[0], capacity,
+                                     long_ctx=long_ctx, device=tokens.device)
+    logits, _, caches = transformer.forward(
+        params, cfg, tokens=tokens, caches=caches, update_cache=True,
+        long_ctx=long_ctx)
+    return logits[:, -1], caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
+                caches, *, long_ctx: bool = False):
+    """tokens: (B, 1) the latest sampled token; pos: an int or (B,) absolute
+    position.  Returns (logits (B, V), new_caches)."""
+    B = tokens.shape[0]
+    pos_b = torch.as_tensor(pos, device=tokens.device).reshape(-1, 1) \
+        .expand(B, 1)
+    logits, _, caches = transformer.forward(
+        params, cfg, tokens=tokens, positions=pos_b, caches=caches,
+        long_ctx=long_ctx)
+    return logits[:, -1], caches
+
+
+def generate(params, cfg: ModelConfig, prompt, max_new_tokens: int, *,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             capacity: Optional[int] = None) -> torch.Tensor:
+    """Greedy (``temperature`` 0: the first maximum on ties) or sampled
+    generation.  prompt: (B, S) ints.  Sampling draws from ``generator``
+    (default: one seeded with 0 on the params' device).  Returns (B,
+    max_new_tokens) int64 on the params' device."""
+    dev = params["embed"].device
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, S = prompt.shape
+    capacity = capacity or (S + max_new_tokens)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def sample(lg):
+        if temperature <= 0:
+            return torch.argmax(lg, dim=-1)
+        probs = torch.softmax(lg.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    logits, caches = prefill(params, cfg, prompt, capacity)
+    cur = sample(logits)[:, None]
+    toks = [cur]
+    for i in range(1, max_new_tokens):
+        logits, caches = decode_step(params, cfg, cur, S + i - 1, caches)
+        cur = sample(logits)[:, None]
+        toks.append(cur)
+    return torch.cat(toks, dim=1)

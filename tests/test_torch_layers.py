@@ -163,14 +163,38 @@ def test_attention_block_prefill_and_cache(arch, window, S, cap):
     assert int(tnc.length) == int(jnc.length) == S
 
 
-def test_attention_block_rejects_ring_decode():
-    jc, tc = _cfgs("llama3-8b")
-    _, tb = _block_params(jc, 2)
-    x = torch.zeros((2, 1, tc.d_model))
-    pos = torch.full((2, 1), 5, dtype=torch.int32)
-    cache = tl.init_attn_cache(tc, 2, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tl.attention_block(tb["attn"], x, tc, pos, cache=cache)
+@pytest.mark.parametrize("arch,window,S,cap,steps", [
+    ("llama3-8b", 0, 5, 16, 3),    # the ring not yet full
+    ("gemma2-2b", 8, 12, 8, 5),    # local layer: the ring wraps each step
+])
+def test_attention_block_ring_decode(arch, window, S, cap, steps):
+    """Decode against the ring buffer: each step writes slot length % C in
+    place and attends over min(length + 1, C) entries (f32, 1e-5)."""
+    jc, tc = _cfgs(arch)
+    jb, tb = _block_params(jc, 2)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, S + steps, jc.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S + steps, dtype=np.int32),
+                          (2, S + steps))
+    _, jcache = jl.attention_block(
+        jb["attn"], jnp.asarray(x[:, :S]), jc, CTX, jnp.asarray(pos[:, :S]),
+        window=window, cache=jl.init_attn_cache(jc, 2, cap, jnp.float32),
+        update_cache=True)
+    _, tcache = tl.attention_block(
+        tb["attn"], _t(x[:, :S]), tc, _t(pos[:, :S]), window=window,
+        cache=tl.init_attn_cache(tc, 2, cap, torch.float32),
+        update_cache=True)
+    for i in range(S, S + steps):
+        jy, jcache = jl.attention_block(
+            jb["attn"], jnp.asarray(x[:, i:i + 1]), jc, CTX,
+            jnp.asarray(pos[:, i:i + 1]), window=window, cache=jcache)
+        ty, tcache = tl.attention_block(
+            tb["attn"], _t(x[:, i:i + 1]), tc, _t(pos[:, i:i + 1]),
+            window=window, cache=tcache)
+        np.testing.assert_allclose(ty.numpy(), _np(jy), **TOL)
+        np.testing.assert_allclose(tcache.k.numpy(), _np(jcache.k), **TOL)
+        np.testing.assert_allclose(tcache.v.numpy(), _np(jcache.v), **TOL)
+        assert int(tcache.length) == int(jcache.length) == i + 1
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-2b"])   # swiglu, geglu

@@ -79,6 +79,21 @@ def test_cpu_wrapper_bf16_matches_oracle(window, softcap):
     np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (5, 50.0)])
+def test_plain_at_head_dim_120_matches_pallas_and_oracle(window, softcap):
+    """h2o-danube-3-4b's heads: Hq 32, Hkv 8, D 120 (f32, 1e-5 as above)."""
+    q, pk, pv, pt, ln = _inputs(12, 3, 5, 16, 32, 8, 120, [1, 16, 75])
+    kw = dict(window=window, logit_softcap=softcap)
+    got = _torch(paged_attn.paged_decode_attention_plain, q, pk, pv, pt, ln,
+                 torch.float32, **kw)
+    pallas = _jax(jax_paged, q, pk, pv, pt, ln, jnp.float32, interpret=True,
+                  **kw)
+    oracle = _jax(ref.paged_decode_attention_ref, q, pk, pv, pt, ln,
+                  jnp.float32, **kw)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+
+
 def test_length_one_on_null_page():
     """Idle serving slots attend one position on page 0."""
     q, pk, pv, _, _ = _inputs(5, 2, 3, 4, 4, 4, 32, [1, 1])
@@ -106,13 +121,25 @@ def test_kernel_checks_accept_serving_shapes():
     paged_attn._check(**_good())
 
 
+@pytest.mark.parametrize("D", [8, 32, 64, 80, 120, 128, 192, 256])
+def test_kernel_checks_accept_every_config_head_dim(D):
+    """Every head_dim of the repo's configs (h2o-danube's 120 among them)
+    and any other multiple of 8 up to 256."""
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
+    paged_attn._check(**_good(q=z(2, 8, D), pages_k=z(5, 4, 2, D),
+                              pages_v=z(5, 4, 2, D)))
+
+
 @pytest.mark.parametrize("over,err", [
     (dict(q=torch.zeros(2, 8, 32)), TypeError),                   # f32 vs bf16 pools
     (dict(lengths=torch.ones(2, dtype=torch.int64)), TypeError),
     (dict(q=torch.zeros(2, 7, 32, dtype=torch.bfloat16)), ValueError),   # Hq % Hkv
-    (dict(q=torch.zeros(2, 8, 48, dtype=torch.bfloat16),
-          pages_k=torch.zeros(5, 4, 2, 48, dtype=torch.bfloat16),
-          pages_v=torch.zeros(5, 4, 2, 48, dtype=torch.bfloat16)), ValueError),
+    (dict(q=torch.zeros(2, 8, 44, dtype=torch.bfloat16),        # D % 8
+          pages_k=torch.zeros(5, 4, 2, 44, dtype=torch.bfloat16),
+          pages_v=torch.zeros(5, 4, 2, 44, dtype=torch.bfloat16)), ValueError),
+    (dict(q=torch.zeros(2, 8, 264, dtype=torch.bfloat16),       # D > 256
+          pages_k=torch.zeros(5, 4, 2, 264, dtype=torch.bfloat16),
+          pages_v=torch.zeros(5, 4, 2, 264, dtype=torch.bfloat16)), ValueError),
     (dict(page_table=torch.zeros(3, 2, dtype=torch.int32).t()), ValueError),
     (dict(window=-1), ValueError),
 ])

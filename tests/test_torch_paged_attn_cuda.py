@@ -5,8 +5,10 @@ sm_90a, built at first use); elsewhere every test skips with the reason.
 Run on the card with ``PYTHONPATH=src python -m pytest -m gpu tests``.
 
 Shapes are the serving path's (llama3-8b: Hq 32, Hkv 8, D 128; page size
-16; 34 pages per request) plus gemma2's heads (Hq 8, Hkv 4, D 256).  The
-kernel splits each request's pages over blocks (``split_pages``); the split
+16; 34 pages per request) plus gemma2's heads (Hq 8, Hkv 4, D 256),
+h2o-danube's (Hq 32, Hkv 8, D 120: 15 lanes a row), gemma-2b's MQA
+(Hq 8, Hkv 1, D 256: eight query heads a block) and qwen2-moe's MHA (Hq 16,
+Hkv 16, D 128: one query head a block).  The kernel splits each request's pages over blocks (``split_pages``); the split
 tests put lengths on a split's edge and inside a split, let a window empty
 whole splits, and run B * Hkv under and over the card's 132 SMs.
 Tolerance: bf16 output, both sides compute in f32 and round once, in
@@ -45,7 +47,9 @@ def _inputs(dev, dtype, B, Hq, Hkv, D, ps, n, lengths, seed=0):
     return q, pk, pv, pt, ln
 
 
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 4, 256)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 4, 256),
+                                      (32, 8, 120), (8, 1, 256),
+                                      (16, 16, 128)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (0, 50.0)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_matches_plain(cuda, Hq, Hkv, D, window, softcap, dtype):
@@ -74,7 +78,8 @@ def _check_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("B", [4, 24, 80])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 4, 256)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (8, 4, 256),
+                                      (8, 1, 256), (16, 16, 128)])
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_split_kernel_at_split_edges(cuda, B, Hq, Hkv, D, window, dtype):

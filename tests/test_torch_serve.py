@@ -4,8 +4,8 @@
   and the updated page pools, for both of the port's attention impls
   against both of the reference's;
 - the ``Server`` end to end against the JAX ``Server`` on the same params
-  (greedy; continuous through preemption churn, static, and a windowed
-  softcapped arch): the logits of the served sequences, and the tokens,
+  (greedy; continuous through preemption churn, static, a windowed
+  softcapped arch, and the MoE archs on both decode routes): the logits of the served sequences, and the tokens,
   which may part only at a step where the reference's top-2 logit margin
   is within twice the logit difference between the packages;
 - ``compile_serve``/``ServeSpec`` validation, the page allocator and the
@@ -203,6 +203,38 @@ def test_server_windowed_softcapped_arch_matches_reference():
                 n_req=4, max_new=8)
 
 
+# (arch, max_batch): smoke E 4, k 2, so one slot decodes through the sparse
+# route (B k < E) and two or three through the all-experts route
+MOE_SERVE = [("qwen2-moe-a2.7b", 1), ("qwen2-moe-a2.7b", 3),
+             ("mixtral-8x22b", 1), ("mixtral-8x22b", 2)]
+
+
+@pytest.mark.parametrize("arch,max_batch", MOE_SERVE)
+def test_moe_server_matches_reference(arch, max_batch):
+    """The MoE archs served end to end (idle slots routed too): the same
+    greedy tokens as the reference's Server, to its first near-tie."""
+    mixtral = jax_get_config(arch).replace(sliding_window=16)
+    ts = _serve_both(dict(arch=mixtral if arch == "mixtral-8x22b" else arch,
+                          smoke=True, max_batch=max_batch, page_size=4,
+                          num_pages=32, max_prompt=12, max_new_tokens=8),
+                     n_req=3, max_new=8)
+    assert ts.cfg.num_experts and ts.stats["completed"] == 3
+    assert "moe" in ts.params["blocks"][0]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b",
+                                  "gemma-2b", "h2o-danube-3-4b",
+                                  "llama-100m"])
+def test_compile_serve_accepts_the_slices_archs(arch):
+    srv = compile_serve(ServeSpec(arch=arch, smoke=True, max_batch=2,
+                                  page_size=4, num_pages=16, max_prompt=8,
+                                  max_new_tokens=4), device="cpu")
+    srv.submit(np.arange(1, 6), 4)
+    done = srv.drain()
+    assert len(done) == 1 and len(done[0].tokens) == 4
+    assert all(0 <= t < srv.cfg.vocab_size for t in done[0].tokens)
+
+
 # ---------------------------------------------------------------------------
 # compile_serve / ServeSpec validation, allocator, budget
 # ---------------------------------------------------------------------------
@@ -211,7 +243,6 @@ def test_server_windowed_softcapped_arch_matches_reference():
     ("zamba2-2.7b", "attention blocks only"),   # mamba hybrid
     ("musicgen-medium", "codebook"),            # codebook heads
     ("qwen2-vl-2b", "M-RoPE"),                  # vision frontend + mrope
-    ("qwen2-moe-a2.7b", "not ported yet"),      # MoE: the reference serves it
     ("vgg-a", "ModelConfig"),                   # CNN family
 ])
 def test_compile_serve_rejects_unservable_archs(arch, why):
