@@ -103,7 +103,11 @@ Phase 12 the flash-attention kernel against its plain version: a feature
          (4, 4), (8, 4), (32, 8); D 32, 64, 128, 256; causal and not;
          window 0 and 48; softcap 0 and 50; bf16 and f32) and the training
          path's shapes (gemma2-2b's global and local layers at B 2, S 1024,
-         its local layer at B 1, S 8192, llama3-8b's at B 1, S 2048);
+         its local layer at B 1, S 8192, llama3-8b's at B 1, S 2048; and
+         head dims between the compiled instances, which run the 128 one:
+         zamba2-2.7b's shared attention at B 2, S 1024, Hq = Hkv = 32, D
+         80, h2o-danube-3-4b's at B 1, S 2048, Hq 32, Hkv 8, D 120,
+         window 4096, their bounds counting the true D);
          bf16 within one ulp of each (batch, head) slice's largest
          magnitude, f32 within 2e-5 of max |plain|; CUDA-event times of the
          kernel and the plain version at the model shapes, and of
@@ -235,6 +239,35 @@ Phase 17 the MoE family and dense decode (after phase 16), each model
          positive; the kernel route against the plain route with the
          router's choices pinned to the plain route's, as phase 13 holds
          it, and the unpinned route's differing choices counted.
+Phase 18 the SSM, hybrid, vision and audio families (after phase 17),
+         each model at its published widths with random f32 weights from
+         seed 0, trained through ``compile_run`` and ``Run.fit`` with
+         AdamW and every attention forward on the flash kernel (counts
+         zeroed just before each fit and read just after: flash exactly
+         steps x attention blocks, everything else never), then freed.
+         (a) zamba2-2.7b (1,981,756,080 params; 54 blocks, 9 x (5 Mamba2
+         + the shared attention+MLP block, D 80 on the 128 instance)), 3
+         steps of 2 x 1024 tokens: 9 flash launches a forward; the step
+         split (CUDA events), its idle share (``torch.profiler``), each
+         block kind's share of a forward + backward (CUDA events around
+         every block and its backward, in the model); the kernel route against the plain route at
+         phase 13's gate; then, on fresh weights from seed 0,
+         prefill(128) + decode(1) against the full forward: on f32
+         activations and caches within the reference's decode-consistency
+         tolerance (rtol = atol = 0.05), on bf16 activations within 10x
+         the logits' one-ulp sensitivity; greedy ``generate`` of 2 prompts
+         of 128 tokens, 32 new, with no kernel launch.  (b) qwen2-vl-2b
+         (1,543,656,960 params) on ``vlm_stream``'s batches of 1024 vision
+         stub tokens + 1024 text tokens with M-RoPE positions, 3 steps, 28
+         launches a forward (D 128, GQA 12 / 2); the route gate;
+         ``generate`` of 16 tokens.  (c) musicgen-medium (1,377,977,856
+         params) on ``audio_stream``'s 2 x 1024 frames, 4 codebook heads,
+         3 steps, 48 launches a forward (D 64); the token embedding and LM
+         head, which the loss does not reach, move by AdamW's weight decay
+         alone; the route gate.  (d) xlstm-125m (123,684,144 params), 2
+         steps of 2 x 1024 tokens, no kernel; the sLSTM scan's time (1024
+         sequential steps issued by the host); decode consistency and
+         ``generate``.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -257,9 +290,9 @@ overlapped path of phases 14 and 7, and the conv's and ring rows'
 ``launches_resume`` and ``launches_cluster``, their launches on phase 15a's
 resumed fit and on one rank of phase 15b's world-2 run, and
 ``launches_modes``, on phase 16's stale-sync, gossip and ``comm="auto"``
-fits, and the paged and flash rows' ``launches_moe``, on phase 17), the
-last
-line ``{"ok": true, "device": {...}}``.
+fits, and the paged and flash rows' ``launches_moe``, on phase 17, and
+the flash row's ``launches_families``, on phase 18's fits), the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2167,6 +2200,10 @@ FLASH_MODEL_SHAPES = (
     ("gemma2-2b local, B 2 S 1024", 2, 1024, 8, 4, 256, 4096, 50.0),
     ("gemma2-2b local, B 1 S 8192", 1, 8192, 8, 4, 256, 4096, 50.0),
     ("llama3-8b, B 1 S 2048", 1, 2048, 32, 8, 128, 0, 0.0),
+    # head dims between the instances, on the 128 one
+    ("zamba2-2.7b shared attention, B 2 S 1024", 2, 1024, 32, 32, 80, 0,
+     0.0),
+    ("h2o-danube-3-4b, B 1 S 2048", 1, 2048, 32, 8, 120, 4096, 0.0),
 )
 
 
@@ -4221,6 +4258,442 @@ def phase17(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the SSM, hybrid, vision and audio families at full width
+# ---------------------------------------------------------------------------
+# Each model at its published widths with random f32 weights from seed 0,
+# trained through compile_run and Run.fit with AdamW and every attention
+# forward on the flash kernel, then freed before the next.  The kernel
+# route is held to the plain route from the same params and batch as phase
+# 13 holds gemma2-2b (10x the network's measured one-ulp sensitivity, never
+# under LM_GRAD_REL_L2_TOL); prefill(S) + decode(1) to the full forward at
+# position S within the reference's test_arch_decode_consistency tolerance
+# on f32 activations, and within 10x the logits' one-ulp sensitivity on
+# bf16 ones (``_decode_consistency``).
+FAMILY_SEQ = 1024
+FAMILY_STEPS = 3
+XLSTM_STEPS = 2
+ZAMBA_PARAMS = 1_981_756_080
+ZAMBA_BATCH = 2
+QWEN_VL_PARAMS = 1_543_656_960
+MUSICGEN_PARAMS = 1_377_977_856
+XLSTM_PARAMS = 123_684_144
+GEN_PROMPT, GEN_NEW = 128, 32
+DECODE_RTOL = DECODE_ATOL = 0.05
+
+
+def _family_run(arch, batch, seq, steps, want_params, card, tag):
+    """``compile_run`` at full width on the kernel route, its fit with every
+    count zeroed just before and read just after; prints its numbers and
+    returns (run, counts, init copies of the named leaves)."""
+    from repro_torch.api import RunSpec, compile_run
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.models.transformer import ATTN_KINDS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = RunSpec(arch=arch, steps=steps, batch=batch, seq=seq, seed=0,
+                   log_every=1)
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    cfg = run.cfg
+    n_params = sum(p.numel() for p in tree_leaves(run.params))
+    check(n_params == want_params, f"{arch}: {n_params} params, want "
+          f"{want_params}")
+    print(f"phase 18{tag}: {cfg.name} at full width and depth "
+          f"({cfg.num_layers} blocks {cfg.block_pattern} x "
+          f"{cfg.pattern_repeats}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}), {n_params} f32 params "
+          f"and AdamW state on {run.device} in "
+          f"{time.perf_counter() - t0:.2f} s; {steps} steps of batch "
+          f"{batch} x {seq} positions, every attention forward on the kernel")
+    keep = {k: run.params[k].detach().clone() for k in ("embed", "lm_head")
+            if cfg.frontend == "audio" and k in run.params}
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    hist = run.fit(log_fn=lambda line: print(f"  {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"{arch}: history {hist}")
+    n_attn = sum(k in ATTN_KINDS for k in cfg.block_pattern) \
+        * cfg.pattern_repeats
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = steps * n_attn
+    check(counts == want, f"{arch}: launches {counts}, want {want}")
+    step_s = spans.samples["step"]
+    tokens = batch * seq
+    print(f"  {steps} steps in {wall} s; flash_attention "
+          f"{counts['flash_attention']} = {steps} x {n_attn}, every other "
+          f"kernel 0; step median over steps 2-{steps} "
+          f"{np.median(step_s[1:]) * 1e3} ms ({tokens / np.median(step_s[1:])}"
+          f" positions/s of step time), first step {step_s[0] * 1e3} ms, "
+          f"data_wait median {np.median(spans.samples['data_wait'][1:]) * 1e3}"
+          f" ms; peak memory {peak_gb} GB [{card}]")
+    return run, counts, keep, hist
+
+
+def _step_split(run, batch, card):
+    """One step's forward, backward and update by CUDA events (median of
+    3), and the card's idle share of one step (``torch.profiler``)."""
+    from repro_torch.core.params import tree_leaves
+    leaves = tree_leaves(run.params)
+    split = {"forward": [], "backward": [], "step": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = run.loss_fn(run.params, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        ev[2].record()
+        del loss, grads
+        run.step(batch, step_idx=run.spec.steps)
+        ev[3].record()
+        ev[3].synchronize()
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+        split["step"].append(ev[2].elapsed_time(ev[3]))
+    fwd, bwd, step = (float(np.median(split[k]))
+                      for k in ("forward", "backward", "step"))
+    print(f"  one step by CUDA events: train_step {step} ms; forward alone "
+          f"{fwd} ms, backward alone {bwd} ms, so norm, clip and AdamW about "
+          f"{step - fwd - bwd} ms [{card}]")
+    wall, busy = step_profile(lambda: run.step(batch,
+                                               step_idx=run.spec.steps),
+                              "one train_step", card)
+    return fwd, bwd, step, wall, busy
+
+
+def _route_gate(run, batch, card, tag):
+    """Phase 13's kernel-vs-plain gate on the run's params and ``batch``,
+    with the optimizer state freed first; the plain route's gradients wait
+    in host memory."""
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.models import transformer
+    run.close()
+    run.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = run.cfg
+    leaves = tree_leaves(run.params)
+    names = list(_leaf_names(run.params))
+
+    def loss_and_grads(uk):
+        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        return loss.item(), torch.autograd.grad(loss, leaves,
+                                                materialize_grads=True)
+
+    def rel_l2(ga, gb_host):
+        out = []
+        for a, b in zip(ga, gb_host):
+            nb = b.norm().item()
+            out.append(0.0 if nb == 0 and a.norm().item() == 0 else
+                       ((a - b.to(a.device)).norm() / nb).item())
+        return out
+
+    lp, gp = loss_and_grads(False)
+    gp = [g.cpu() for g in gp]
+    lk, gk = loss_and_grads(True)
+    rel = rel_l2(gk, gp)
+    del gk
+    with torch.no_grad():
+        scaled = [p.clone() for p in leaves]
+        for p in leaves:
+            p.mul_(1 + 2.0 ** -23)
+    _, gu = loss_and_grads(False)
+    floor = rel_l2(gu, gp)
+    with torch.no_grad():              # the params as they were
+        for p, q in zip(leaves, scaled):
+            p.copy_(q)
+    del gu, gp, scaled
+    check(np.isfinite(lk) and np.isfinite(lp), f"{tag}: non-finite loss")
+    loss_rel = abs(lk - lp) / abs(lp)
+    tol = max(LM_GRAD_REL_L2_TOL, SENSITIVITY_FACTOR * max(floor))
+    worst = int(np.argmax(rel))
+    print(f"  kernel vs plain route, one forward and backward on the params "
+          f"after the run and its next batch: loss {lk} vs {lp} (relative "
+          f"{loss_rel}, tolerance {LM_LOSS_REL_TOL}); worst leaf's gradient "
+          f"relative L2 {rel[worst]} at {names[worst]}; the plain route with "
+          f"every weight scaled by 1 + 2^-23: worst {max(floor)} at "
+          f"{names[int(np.argmax(floor))]}; tolerance max({LM_GRAD_REL_L2_TOL}, "
+          f"{SENSITIVITY_FACTOR} x sensitivity) = {tol} [{card}]")
+    check(loss_rel <= LM_LOSS_REL_TOL, f"{tag}: kernel and plain route "
+          "losses differ")
+    check(max(rel) <= tol, f"{tag}: kernel and plain route gradients differ")
+
+
+def _decode_consistency(params, cfg, gen, card, tag):
+    """prefill(S) + decode(1) logits against the full forward's at position
+    S, for 2 prompts of GEN_PROMPT tokens.  On f32 activations and caches
+    (``transformer.ACTIVATION_DTYPE`` and the caches' type set to f32)
+    within the reference's tolerance (rtol = atol = DECODE_RTOL): that
+    shows the arithmetic.  With bf16 activations, as the model runs, the
+    two orders of the same sums round apart at many places over the
+    blocks, so the bf16 check is held, as phase 13 holds its routes, to
+    SENSITIVITY_FACTOR times the logits' measured one-ulp sensitivity (the
+    full forward with every weight scaled by 1 + 2^-23), never under the
+    reference's atol."""
+    import functools
+
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.models import transformer
+    from repro_torch.serve import decode
+    toks = torch.randint(1, cfg.vocab_size, (2, GEN_PROMPT + 1),
+                         generator=gen, device=gen.device)
+
+    def full_logits():
+        with torch.no_grad():
+            return transformer.forward(params, cfg,
+                                       tokens=toks)[0][:, -1].float()
+
+    def decode_logits():
+        with torch.no_grad():
+            _, caches = decode.prefill(params, cfg, toks[:, :-1],
+                                       GEN_PROMPT + GEN_NEW)
+            return decode.decode_step(params, cfg, toks[:, -1:], GEN_PROMPT,
+                                      caches)[0].float()
+
+    def worst(dec, full, atol):
+        """max of |dec - full| / (atol + rtol |full|): <= 1 passes."""
+        return ((dec - full).abs() / (atol + DECODE_RTOL * full.abs())) \
+            .max().item()
+
+    real_dtype, real_init = transformer.ACTIVATION_DTYPE, \
+        transformer.init_caches
+    transformer.ACTIVATION_DTYPE = torch.float32
+    transformer.init_caches = functools.partial(real_init,
+                                                dtype=torch.float32)
+    try:
+        full32, dec32 = full_logits(), decode_logits()
+    finally:
+        transformer.ACTIVATION_DTYPE = real_dtype
+        transformer.init_caches = real_init
+    full, dec = full_logits(), decode_logits()
+    with torch.no_grad():          # then back, within an ulp
+        for w in tree_leaves(params):
+            w.mul_(1 + 2.0 ** -23)
+        moved = full_logits()
+        for w in tree_leaves(params):
+            w.div_(1 + 2.0 ** -23)
+    sens = (moved - full).abs().max().item()
+    atol = max(DECODE_ATOL, SENSITIVITY_FACTOR * sens)
+    r32, r16 = worst(dec32, full32, DECODE_ATOL), worst(dec, full, atol)
+    print(f"  prefill({GEN_PROMPT}) + decode(1) vs the full forward at "
+          f"position {GEN_PROMPT}: on f32 activations and caches max|dlogit| "
+          f"{(dec32 - full32).abs().max().item()} (logits up to "
+          f"{full32.abs().max().item()}), error / tolerance {r32} at rtol = "
+          f"atol = {DECODE_RTOL}; on bf16 activations max|dlogit| "
+          f"{(dec - full).abs().max().item()}, the full forward with every "
+          f"weight x (1 + 2^-23) moves the logits by up to {sens}, so atol "
+          f"max({DECODE_ATOL}, {SENSITIVITY_FACTOR} x {sens}) = {atol}, "
+          f"rtol {DECODE_RTOL}: error / tolerance {r16} [{card}]")
+    check(r32 <= 1.0, f"{tag}: prefill + decode disagree with the full "
+          "forward on f32 activations")
+    check(r16 <= 1.0, f"{tag}: prefill + decode disagree with the full "
+          "forward on bf16 activations")
+
+
+def _generate(params, cfg, gen, new, card, tag):
+    """Greedy ``generate`` of 2 prompts of GEN_PROMPT tokens; no kernel
+    launches (the ring buffer's plain attention)."""
+    from repro_torch.serve import decode
+    prompt = torch.randint(1, cfg.vocab_size, (2, GEN_PROMPT),
+                           generator=gen, device=gen.device)
+    decode.generate(params, cfg, prompt, 2)            # warm-up
+    torch.cuda.synchronize()
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    out = decode.generate(params, cfg, prompt, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check(tuple(out.shape) == (2, new), f"{tag}: tokens {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{tag}: a token outside the vocabulary")
+    check(not any(counts.values()), f"{tag}: generate launched {counts}")
+    print(f"  generate: 2 prompts of {GEN_PROMPT} tokens, {new} new each, "
+          f"greedy, in {wall} s ({2 * new / wall} tokens/s, a decode step "
+          f"~{wall / new * 1e3} ms with the prefill); no kernel launches "
+          f"[{card}]")
+
+
+class _Mark(torch.autograd.Function):
+    """Identity whose backward records a CUDA event: placed on a block's
+    output it marks where the block's backward starts, on its input where
+    it ends."""
+
+    @staticmethod
+    def forward(ctx, ev, x):
+        ctx.ev = ev
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.ev.record()
+        return None, g
+
+
+def _block_shares(run, batch):
+    """Each block kind's share of one forward + backward of the loss, from
+    CUDA events around every block's forward and (by ``_Mark``) its
+    backward, in the real model; returns ({kind: (ms, calls)}, whole ms)."""
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.models import transformer
+    real, marks = transformer._apply_block, []
+
+    def timed(kind, p, shared_p, x, cfg, positions, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        x = _Mark.apply(ev[3], x)
+        ev[0].record()
+        y, aux, nc = real(kind, p, shared_p, x, cfg, positions, **kw)
+        ev[1].record()
+        marks.append((kind, ev))
+        return _Mark.apply(ev[2], y), aux, nc
+
+    leaves = tree_leaves(run.params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    transformer._apply_block = timed
+    try:
+        start.record()
+        loss = run.loss_fn(run.params, batch)
+        torch.autograd.grad(loss, leaves, materialize_grads=True)
+        end.record()
+        end.synchronize()
+    finally:
+        transformer._apply_block = real
+    out = {}
+    for kind, ev in marks:
+        ms = ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])
+        t, n = out.get(kind, (0.0, 0))
+        out[kind] = (t + ms, n + 1)
+    return out, start.elapsed_time(end)
+
+
+def phase18a(card):
+    """zamba2-2.7b: 54 blocks, 9 x (5 Mamba2 + the shared attention+MLP
+    block, one set of weights at all 9 points)."""
+    run, counts, _, _ = _family_run("zamba2-2.7b", ZAMBA_BATCH, FAMILY_SEQ,
+                                    FAMILY_STEPS, ZAMBA_PARAMS, card, "a")
+    cfg = run.cfg
+    batch = next(run.data)
+    shares, whole = _block_shares(run, batch)
+    print(f"  one forward + backward of the loss, {whole} ms by CUDA events, "
+          f"its blocks' forward and backward by events in the model: "
+          + "; ".join(f"{kind} x {n} {ms} ms, share {ms / whole}"
+                      for kind, (ms, n) in shares.items()) + f" [{card}]")
+    _step_split(run, batch, card)
+    # the route gate on a batch the step split did not train on
+    _route_gate(run, next(run.data), card, "18a")
+    del batch
+    # decode on fresh weights from seed 0, as the reference's decode test
+    # runs on initial params: the step split trained 11 steps on one batch
+    run.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.models import transformer
+    params = transformer.init_params(cfg, 0, run.device)
+    gen = torch.Generator(device=run.device).manual_seed(2)
+    _decode_consistency(params, cfg, gen, card, "18a")
+    _generate(params, cfg, gen, GEN_NEW, card, "18a")
+    return counts["flash_attention"]
+
+
+def phase18b(card):
+    """qwen2-vl-2b: vision stub embeddings then text, M-RoPE positions."""
+    run, counts, _, _ = _family_run(
+        "qwen2-vl-2b", LM_BATCH, 1024 + FAMILY_SEQ, FAMILY_STEPS,
+        QWEN_VL_PARAMS, card, "b")
+    cfg = run.cfg
+    batch = next(run.data)
+    check(tuple(batch["positions"].shape) == (LM_BATCH, 2048, 3) and
+          tuple(batch["patch_embeds"].shape) == (LM_BATCH, 1024, cfg.d_model),
+          f"18b: batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    _route_gate(run, batch, card, "18b")
+    del batch
+    gen = torch.Generator(device=run.device).manual_seed(3)
+    _generate(run.params, cfg, gen, 16, card, "18b")
+    run.params = None
+    return counts["flash_attention"]
+
+
+def phase18c(card):
+    """musicgen-medium: audio frame embeddings, four codebook heads; the
+    token embedding and LM head take zero gradients and move by AdamW's
+    weight decay alone."""
+    run, counts, keep, hist = _family_run(
+        "musicgen-medium", LM_BATCH, FAMILY_SEQ, FAMILY_STEPS,
+        MUSICGEN_PARAMS, card, "c")
+    wd = run.optimizer.weight_decay
+    for k, before in keep.items():
+        lrs = [float(run.lr_schedule(i)) for i in range(len(hist))]
+        want = before.clone()
+        for lr in lrs:
+            want.mul_(1 - lr * wd)
+        got = run.params[k].detach()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        moved = ((got - before).abs().max() / before.abs().max()).item()
+        print(f"  {k}: zero gradient; moved {moved} of its largest magnitude "
+              f"in {len(hist)} steps; against decay alone, prod(1 - lr x "
+              f"{wd}), max relative difference {rel} [{card}]")
+        check(rel <= 1e-6 and moved > 0,
+              f"18c: {k} did not move by weight decay alone")
+    batch = next(run.data)
+    _route_gate(run, batch, card, "18c")
+    run.params = None
+    return counts["flash_attention"]
+
+
+def phase18d(card):
+    """xlstm-125m: mLSTM and sLSTM blocks, no attention, no kernel."""
+    from repro_torch.models import ssm
+    run, counts, _, _ = _family_run("xlstm-125m", LM_BATCH, FAMILY_SEQ,
+                                    XLSTM_STEPS, XLSTM_PARAMS, card, "d")
+    cfg = run.cfg
+    H, d = cfg.num_heads, cfg.d_model
+    sp = {k: v[0].detach() for k, v in run.params["blocks"][1]["slstm"]
+          .items()}
+    dev = run.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    wx = torch.randn(LM_BATCH, FAMILY_SEQ, 4 * d, generator=gen, device=dev)
+    z = torch.zeros(LM_BATCH, d, device=dev)
+    carry = (z, z, z, torch.full_like(z, -1e30))
+    with torch.no_grad():
+        scan_ms = cuda_ms(lambda: ssm.slstm_scan(sp, H, d // H, carry, wx),
+                          1, 3)
+    print(f"  the sLSTM scan alone (forward, {FAMILY_SEQ} sequential steps "
+          f"issued by the host, batch {LM_BATCH}, d {d}): {scan_ms} ms, "
+          f"{scan_ms / FAMILY_SEQ * 1e3} us a step; {cfg.pattern_repeats} "
+          f"sLSTM layers a forward [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _decode_consistency(run.params, cfg, gen, card, "18d")
+    _generate(run.params, cfg, gen, 16, card, "18d")
+    run.close()
+    run.params = run.opt_state = None
+    return counts["flash_attention"]
+
+
+def phase18(card):
+    """Phase 18's four models, each freed before the next; the flash
+    kernel's launches over their fits."""
+    walls, flash = {}, 0
+    for name, fn in (("18a", phase18a), ("18b", phase18b), ("18c", phase18c),
+                     ("18d", phase18d)):
+        t0 = time.perf_counter()
+        flash += fn(card)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  phase 18 wall seconds by part {walls}; flash_attention {flash} "
+          f"launches")
+    return flash
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -4546,6 +5019,8 @@ def main() -> int:
     paged["launches_moe"], flash["launches_moe"] = timed("17", phase17, card)
     paged["launches"] += paged["launches_moe"]
     flash["launches"] += flash["launches_moe"]
+    flash["launches_families"] = timed("18", phase18, card)
+    flash["launches"] += flash["launches_families"]
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),

@@ -3,9 +3,9 @@ model family declares its training glue once, keyed by its config class,
 and ``adapter_for(cfg)`` resolves it by MRO.
 
 The ``cnn`` family (VGG-A, OverFeat-FAST), the ``dnn`` family (CD-DNN)
-and the ``transformer`` family (the token LMs: next-token CE on the seeded
-``lm_token_stream``, AdamW) are ported; the vision and audio frontends of
-the transformer family are not, and their streams and losses raise.
+and the ``transformer`` family (every LM: next-token CE, AdamW; batches
+from the seeded ``lm_token_stream``, or ``vlm_stream`` for a vision
+frontend and ``audio_stream`` for an audio one) are ported.
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ from typing import Any, Callable, Dict, Iterator, Type
 from repro_torch.configs.base import CNNConfig, DNNConfig, ModelConfig
 from repro_torch.data.pipeline import (
     asr_frame_stream,
+    audio_stream,
     image_stream,
     lm_token_stream,
+    vlm_stream,
 )
 from repro_torch.models import cnn, dnn, transformer
 
@@ -81,9 +83,11 @@ DNN_FAMILY = register_family(FamilyAdapter(
 
 
 def _transformer_stream(cfg: ModelConfig, batch: int, seq: int, seed: int):
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name!r}: the {cfg.frontend} "
-                                  "frontend's stream is not ported yet")
+    # a vision run's seq counts the image's tokens and the text's
+    if cfg.frontend == "vision":
+        return vlm_stream(cfg, batch, seq - cfg.vision_tokens, seed)
+    if cfg.frontend == "audio":
+        return audio_stream(cfg, batch, seq, seed)
     return lm_token_stream(cfg.vocab_size, batch, seq, seed)
 
 

@@ -14,7 +14,7 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 
-# the architectures whose configs the port carries so far
+# every architecture of the reference's registry
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "gemma2-2b": "gemma2_2b",
@@ -23,6 +23,10 @@ _MODULES = {
     "gemma-2b": "gemma_2b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "llama-100m": "llama_100m",
+    "xlstm-125m": "xlstm_125m",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "musicgen-medium": "musicgen_medium",
     "vgg-a": "vgg_a",
     "overfeat-fast": "overfeat_fast",
     "cd-dnn": "cd_dnn",

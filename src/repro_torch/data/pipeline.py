@@ -65,6 +65,45 @@ def asr_frame_stream(input_dim: int, num_senones: int, batch: int,
                "senones": sen.astype(np.int32)}
 
 
+def vlm_stream(cfg, batch: int, seq_txt: int,
+               seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Vision-language batches: ``lm_token_stream`` text tokens, stub patch
+    embeddings of ``cfg.vision_tokens`` rows (0.02 x standard normals from
+    a second ``default_rng(seed)``) and the M-RoPE positions of the image
+    grid followed by the text (the same array every batch)."""
+    from repro_torch.models.frontends import mrope_positions
+    rng = np.random.default_rng(seed)
+    lm = lm_token_stream(cfg.vocab_size, batch, seq_txt, seed)
+    s_img = cfg.vision_tokens
+    grid_w = max(1, int(np.sqrt(s_img)))
+    # a copy: the broadcast view is read-only, and torch.from_numpy wants
+    # writable memory
+    pos = np.array(mrope_positions(batch, s_img, seq_txt, grid_w=grid_w))
+    while True:
+        toks = next(lm)["tokens"]
+        emb = 0.02 * rng.standard_normal(
+            (batch, s_img, cfg.d_model)).astype(np.float32)
+        yield {"tokens": toks, "patch_embeds": emb, "positions": pos}
+
+
+def audio_stream(cfg, batch: int, seq: int,
+                 seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Audio batches: ``cfg.num_codebooks`` codebook token streams (one
+    ``lm_token_stream`` of seq x K tokens a row, reshaped) in the delay
+    pattern, and stub frame embeddings from a second ``default_rng(seed)``."""
+    from repro_torch.models.frontends import delay_pattern
+    rng = np.random.default_rng(seed)
+    K = cfg.num_codebooks
+    lm = lm_token_stream(cfg.vocab_size, batch, seq * K, seed)
+    while True:
+        toks = next(lm)["tokens"].reshape(batch, seq, K)
+        delayed = delay_pattern(toks, K)
+        emb = 0.02 * rng.standard_normal(
+            (batch, seq, cfg.d_model)).astype(np.float32)
+        yield {"frame_embeds": emb,
+               "codebook_labels": delayed.astype(np.int32)}
+
+
 _SENTINEL = object()    # queued when the source is exhausted: a finite
 #                         source must end the consumer's iteration, not
 #                         leave it blocked on an empty queue forever

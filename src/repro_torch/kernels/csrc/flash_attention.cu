@@ -109,6 +109,16 @@
 // masked (a stored row has a live key, its own position, no later than the
 // last tile, so its m is real there and they take p = 0).
 //
+// Head dims: the instances are compiled for D = 32, 64, 128 and 256, and a
+// call of any head dim Dr % 8 == 0 up to 256 runs the least instance D >= Dr
+// (zamba2's 80 and h2o-danube's 120 run the 128 one).  The tensor maps are
+// Dr wide, so TMA fills a tile's columns past Dr with zeros: q k^T sums the
+// same Dr products, P V writes zero columns past Dr, the epilogue stores
+// only the first Dr, and the scale is the caller's (Dr ** -0.5).  The f32
+// kernel's q rows load zeros past Dr likewise.  The rule Dr % 8 == 0 is
+// TMA's: a row of Dr bf16 must be a multiple of 16 bytes.  A padded call
+// costs what the instance it runs costs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (repro_torch/kernels/build.py; no -lcuda: the tensor-map encoder comes from
 // cudaGetDriverEntryPoint).  The C entry launches on the given stream, never
@@ -214,7 +224,7 @@ template <int D>
 __global__ void __launch_bounds__(Tc<D>::THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                int Sq, int Skv, int Hq, int Hkv, int causal, int window, float softcap,
+                int Sq, int Skv, int Hq, int Hkv, int Dr, int causal, int window, float softcap,
                 float scale) {
   using namespace hopper;
   using C = Tc<D>;
@@ -396,13 +406,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       const float lr = fmaxf(l[r], 1e-30f);
       const int row = row0 + r0 + 8 * r;
       if (row >= Sq) continue;
-      __nv_bfloat16* dst = out + ((size_t)b * Sq + row) * Hq * D + (size_t)h * D;
+      __nv_bfloat16* dst = out + ((size_t)b * Sq + row) * Hq * Dr + (size_t)h * Dr;
 #pragma unroll
       for (int c = 0; c < C::OB; ++c)
 #pragma unroll
         for (int g = 0; g < C::ON / 4; ++g)
-          *reinterpret_cast<uint32_t*>(dst + c * 64 + 8 * g + rc.cq) =
-              pack_bf16(o[c][4 * g + 2 * r] / lr, o[c][4 * g + 2 * r + 1] / lr);
+          if (c * 64 + 8 * g + rc.cq < Dr)   // the columns past Dr are zeros
+            *reinterpret_cast<uint32_t*>(dst + c * 64 + 8 * g + rc.cq) =
+                pack_bf16(o[c][4 * g + 2 * r] / lr, o[c][4 * g + 2 * r + 1] / lr);
     }
   }
 }
@@ -423,15 +434,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a contiguous (B, S, H, D) bf16 tensor as a 4-D map (D, H, S, B) with boxes
-// of (CB, 1, rows, 1); coordinates past S read as zeros
+// the compiled instance that runs head dim D: the least of 32, 64, 128 and
+// 256 that holds it (D % 8 == 0, so that a row of D bf16 is a multiple of
+// the 16 bytes TMA strides by); 0 for a D that none takes
+int instance_dim(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// a contiguous (B, S, H, Dr) bf16 tensor as a 4-D map (Dr, H, S, B) with
+// boxes of (CB, 1, rows, 1) for instance D >= Dr; coordinates past S, and
+// columns past Dr, read as zeros
 template <int D>
 int tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int H,
-               int rows) {
+               int Dr, int rows) {
   using C = Tc<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)Dr, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dr * 2, (cuuint64_t)H * Dr * 2,
+                                 (cuuint64_t)S * H * Dr * 2};
   const cuuint32_t box[4] = {(cuuint32_t)C::CB, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -443,15 +463,15 @@ int tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-              int Hq, int Hkv, int causal, int window, float softcap, float scale,
+              int Hq, int Hkv, int Dr, int causal, int window, float softcap, float scale,
               cudaStream_t stream) {
   using C = Tc<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  int err = tensor_map<D>(encode, &qm, q, B, Sq, Hq, C::TQ);
-  if (!err) err = tensor_map<D>(encode, &km, k, B, Skv, Hkv, kTK);
-  if (!err) err = tensor_map<D>(encode, &vm, v, B, Skv, Hkv, kTK);
+  int err = tensor_map<D>(encode, &qm, q, B, Sq, Hq, Dr, C::TQ);
+  if (!err) err = tensor_map<D>(encode, &km, k, B, Skv, Hkv, Dr, kTK);
+  if (!err) err = tensor_map<D>(encode, &vm, v, B, Skv, Hkv, Dr, kTK);
   if (err) return err;
   auto kernel = flash_tc_kernel<D>;
   const cudaError_t e =
@@ -459,18 +479,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, B, (Sq + C::TQ - 1) / C::TQ);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(out), Sq,
-                                               Skv, Hq, Hkv, causal, window, softcap, scale);
+                                               Skv, Hq, Hkv, Dr, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
                 int Hq, int Hkv, int D, int causal, int window, float softcap, float scale,
                 cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_tc<32>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 256: return launch_tc<256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
+  switch (instance_dim(D)) {
+    case 32: return launch_tc<32>(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 256: return launch_tc<256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -555,8 +575,8 @@ template <int D>
 __global__ void __launch_bounds__(Tf<D>::THREADS, 1)
 flash_f32_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, float* __restrict__ out, int B, int Sq,
-                 int Skv, int Hq, int Hkv, int causal, int window, float softcap, float scale,
-                 int q_vec) {
+                 int Skv, int Hq, int Hkv, int Dr, int causal, int window, float softcap,
+                 float scale, int q_vec) {
   using namespace hopper;
   using C = Tf<D>;
   using T = typename C::T;
@@ -627,15 +647,16 @@ flash_f32_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMa
     const int row0 = q0 + wg * kWgRows;
 
     // q's rows: 8 floats a thread at a time, scaled in f32, split, and each
-    // piece's 16 bytes stored at their swizzled place; rows past Sq as zeros
+    // piece's 16 bytes stored at their swizzled place; rows past Sq and
+    // columns past Dr as zeros
     {
       constexpr int CH = D / 8;
-      const float* qb = q + (size_t)b * Sq * Hq * D + (size_t)h * D;
+      const float* qb = q + (size_t)b * Sq * Hq * Dr + (size_t)h * Dr;
       for (int i = tid; i < kWgRows * CH; i += 128) {
         const int r = i / CH, j = i % CH, row = row0 + r;
         float x[8];
-        if (row < Sq) {
-          const float* src = qb + (size_t)row * Hq * D + 8 * j;
+        if (row < Sq && 8 * j < Dr) {
+          const float* src = qb + (size_t)row * Hq * Dr + 8 * j;
           if (q_vec) {
             const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
             const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
@@ -794,13 +815,14 @@ flash_f32_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMa
       const float lr = fmaxf(l[r], 1e-30f);
       const int row = row0 + r0 + 8 * r;
       if (row >= Sq) continue;
-      float* dst = out + ((size_t)b * Sq + row) * Hq * D + (size_t)h * D;
+      float* dst = out + ((size_t)b * Sq + row) * Hq * Dr + (size_t)h * Dr;
 #pragma unroll
       for (int c = 0; c < T::OB; ++c)
 #pragma unroll
         for (int g = 0; g < T::ON / 4; ++g)
-          *reinterpret_cast<float2*>(dst + c * 64 + 8 * g + rc.cq) =
-              make_float2(o[c][4 * g + 2 * r] / lr, o[c][4 * g + 2 * r + 1] / lr);
+          if (c * 64 + 8 * g + rc.cq < Dr)   // the columns past Dr are zeros
+            *reinterpret_cast<float2*>(dst + c * 64 + 8 * g + rc.cq) =
+                make_float2(o[c][4 * g + 2 * r] / lr, o[c][4 * g + 2 * r + 1] / lr);
     }
   }
 }
@@ -808,16 +830,16 @@ flash_f32_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMa
 // the split pass, then the attention on its planes (two launches)
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* planes, void* out, int B,
-               int Sq, int Skv, int Hq, int Hkv, int causal, int window, float softcap,
+               int Sq, int Skv, int Hq, int Hkv, int Dr, int causal, int window, float softcap,
                float scale, cudaStream_t stream) {
   using C = Tf<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const long long n = (long long)B * Skv * Hkv * D;
+  const long long n = (long long)B * Skv * Hkv * Dr;
   auto* kp = static_cast<__nv_bfloat16*>(planes);
   CUtensorMap km, vm;
-  int err = tensor_map<D>(encode, &km, kp, kPieces * B, Skv, Hkv, C::TK);
-  if (!err) err = tensor_map<D>(encode, &vm, kp + kPieces * n, kPieces * B, Skv, Hkv, C::TK);
+  int err = tensor_map<D>(encode, &km, kp, kPieces * B, Skv, Hkv, Dr, C::TK);
+  if (!err) err = tensor_map<D>(encode, &vm, kp + kPieces * n, kPieces * B, Skv, Hkv, Dr, C::TK);
   if (err) return err;
   const long long chunks = (n / 4 + kSplitThreads - 1) / kSplitThreads;
   const dim3 split_grid((unsigned)(chunks < 2048 ? chunks : 2048), 2);
@@ -835,7 +857,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* planes, void* 
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, B, (Sq + C::TQ - 1) / C::TQ);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(static_cast<const float*>(q), km, vm,
-                                               static_cast<float*>(out), B, Sq, Skv, Hq, Hkv,
+                                               static_cast<float*>(out), B, Sq, Skv, Hq, Hkv, Dr,
                                                causal, window, softcap, scale, (int)aligned(q));
   return (int)cudaGetLastError();
 }
@@ -843,11 +865,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* planes, void* 
 int dispatch_f32(const void* q, const void* k, const void* v, void* planes, void* out, int B,
                  int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window, float softcap,
                  float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_f32<32>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 64: return launch_f32<64>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 128: return launch_f32<128>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
-    case 256: return launch_f32<256>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, causal, window, softcap, scale, s);
+  switch (instance_dim(D)) {
+    case 32: return launch_f32<32>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 64: return launch_f32<64>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 128: return launch_f32<128>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
+    case 256: return launch_f32<256>(q, k, v, planes, out, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -859,8 +881,8 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* planes, void
 // tensors start 16-byte aligned (TMA); f32 ones need 4 bytes, and the f32
 // path takes `planes`, scratch of 6 B Skv Hkv D bf16 elements starting
 // 16-byte aligned (the split K and V), which the bf16 path ignores.  The
-// caller has checked shapes, Hq % Hkv == 0, D in {32, 64, 128, 256}, B and
-// Hq <= 65535, and Sq <= Skv when causal.
+// caller has checked shapes, Hq % Hkv == 0, D % 8 == 0 and 8 <= D <= 256, B
+// and Hq <= 65535, and Sq <= Skv when causal.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* planes,
                                void* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                                int causal, int window, float softcap, float scale, int dtype,

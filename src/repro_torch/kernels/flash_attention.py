@@ -11,7 +11,10 @@ first launch that splits K and V into scratch this wrapper allocates; the
 CUDA source, ``csrc/flash_attention.cu``, states both designs and the
 bound.  Unlike the TPU kernel it takes any Sq and Skv:
 it masks its ragged edges (the reference sends such shapes to
-``attention_ref``).
+``attention_ref``).  It takes every head dim ``D % 8 == 0`` up to 256, as
+the TPU kernel, whose blocks span the whole of D, takes any D: a D between
+the compiled instances (``HEAD_DIMS``) runs the next one up, its columns
+past D zeros (:func:`instance_dim`).
 
 :func:`flash_attention` is the wrapper: on CPU tensors it computes the plain
 version (that is how the CPU tests run it); on CUDA tensors it launches the
@@ -101,6 +104,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def instance_dim(D: int) -> int:
+    """The compiled instance that runs head dim ``D``: the least of
+    ``HEAD_DIMS`` that holds it (zamba2's 80 and h2o-danube's 120 run the
+    128 one).  ``D`` must be a multiple of 8 (a row of D bf16 is then a
+    multiple of the 16 bytes TMA strides by) from 8 to 256."""
+    if D % 8 or not 8 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {D} is not a multiple of 8 from 8 to "
+                         f"{HEAD_DIMS[-1]}: no compiled instance takes it "
+                         f"(instances {HEAD_DIMS})")
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
 def _check(q, k, v, causal, window, logit_softcap):
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
@@ -119,9 +134,7 @@ def _check(q, k, v, causal, window, logit_softcap):
                          "disagree in batch or head_dim, or are empty")
     if Hq % Hkv:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq}/{Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} has no compiled instance; the "
-                         f"kernel is compiled for {HEAD_DIMS}")
+    instance_dim(D)
     if causal and Sq > Skv:
         raise ValueError(f"causal attention with Sq {Sq} > Skv {Skv}: "
                          "right-aligned queries before the first key "

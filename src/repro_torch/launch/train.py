@@ -35,6 +35,12 @@ parses and then raises in ``compile_run``.  ``--parallel`` defaults to
     python -m repro_torch.launch.train --arch vgg-a --smoke --device cpu \\
         --parallel zero1 --pods 2 --comm auto
 
+    # the hybrid Mamba2 + shared-attention LM, its attention on the flash
+    # kernel (on the CPU, its plain version); also xlstm-125m,
+    # qwen2-vl-2b (vision stub embeddings) and musicgen-medium (audio)
+    python -m repro_torch.launch.train --arch zamba2-2.7b --smoke \\
+        --device cpu --use-kernel
+
 A ``--ckpt-dir`` run writes checkpoints and resumes: the same command again
 takes up from the latest saved step (params, optimizer strips and the data
 stream's position).  Runs over processes: ``repro_torch.launch.cluster``.

@@ -1,12 +1,11 @@
-"""Transformer layers of the port: norm, RoPE, attention, MLP.
+"""Transformer layers of the port: norms, RoPE and M-RoPE, attention, MLP.
 
-``repro.models.layers`` for the token LMs the serving and training paths
-run, with the reference's numerics: f32 norms and RoPE angles, bf16
-activations, every matmul bf16 @ ``w.to(bf16)``.  Layout is (B, S, H, D)
-throughout.  Not ported yet: M-RoPE, ``layer_norm`` and the
-sequence-sharded decode (``sharded_decode_attention``, which needs a mesh
-axis over the cache's sequence that the port's meshes do not have).  The
-MoE layer is ``models.moe``.
+``repro.models.layers`` with the reference's numerics: f32 norms and RoPE
+angles, bf16 activations, every matmul bf16 @ ``w.to(bf16)``.  Layout is
+(B, S, H, D) throughout.  Not ported: the sequence-sharded decode
+(``sharded_decode_attention``, which needs a mesh axis over the cache's
+sequence that the port's meshes do not have).  The MoE layer is
+``models.moe``; the SSM blocks are ``models.ssm``.
 
 The reference's functions are pure and return new caches.  Here cache
 writes happen IN PLACE on the tensors the cache objects hold (the page
@@ -40,8 +39,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * (1.0 + w.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), scaled by ``w``, shifted by
+    ``b``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# RoPE (split-half, f32 angles)
+# RoPE / M-RoPE (split-half, f32 angles)
 # ---------------------------------------------------------------------------
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -59,6 +68,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections, theta: float) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions3 (B, S, 3) = (temporal, height, width);
+    the D/2 frequency slots are split into ``sections`` (sum = D/2), each
+    section rotated by its own position component."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {D // 2}")
+    freqs = _rope_freqs(D, theta, x.device)                  # (D/2,)
+    comp = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                      for i, s in enumerate(sections)])
+    pos = positions3.float()[..., comp]                      # (B, S, D/2)
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rotate(x: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """RoPE, or M-RoPE with ``cfg.mrope`` (positions (B, S, 3))."""
+    if cfg.mrope:
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +248,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     cache=None, update_cache: bool = False,
                     use_kernel: bool = False):
     """Pre-norm attention.  Returns (residual_out, new_cache_or_None).
+    ``positions`` are (B, S), or (B, S, 3) M-RoPE positions when
+    ``cfg.mrope``, on every route.
 
     Train/prefill: full-sequence chunked attention (+ a fresh ring-buffer
     write when ``update_cache``, for any S, one token included).  With
@@ -226,8 +266,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rotate(q, positions, cfg)
+    k = _rotate(k, positions, cfg)
 
     new_cache = None
     if isinstance(cache, PagedKVState):

@@ -1,14 +1,20 @@
-"""Config-driven decoder assembly of the port (``repro.models.transformer``
-for the attention-block token LMs): params, caches, the forward and the
-next-token losses.
+"""Config-driven decoder assembly of the port (``repro.models.transformer``):
+params, caches, the forward and the next-token losses of every LM family:
+dense and MoE attention blocks, Mamba2, mLSTM and sLSTM blocks
+(``models.ssm``), zamba2's shared attention block, M-RoPE positions, vision
+and audio frontend embeddings and codebook heads.
 
 Params keep the reference's tree: per pattern entry, each block's weights
 are stacked on a leading ``pattern_repeats`` axis (R).  The reference
 ``lax.scan``s over R; here a Python loop walks the repeats over the stacked
-weights, unbound once per forward, and indexes the caches.  Caches mirror
-the params: a tuple (one entry per pattern position) of cache objects whose
-tensors carry the leading R axis; a layer writes through its view of them
-in place.
+weights, unbound once per forward, and indexes the caches.  Zamba2's shared
+attention(+MLP) block is weight-shared: its pattern entry holds an empty
+``{}`` and its one set of weights lives unstacked under ``"shared"``, used
+at every repeat (autograd sums the R gradients).  Caches mirror the params:
+a tuple (one entry per pattern position) of cache objects whose tensors
+carry the leading R axis.  An attention layer writes its keys and values
+through its view of them in place; an SSM layer returns new states, which
+the forward stacks into the returned caches.
 """
 from __future__ import annotations
 
@@ -22,29 +28,43 @@ import torch
 from repro_torch.configs.base import (
     ATTN_GLOBAL,
     ATTN_LOCAL,
+    BLOCK_MAMBA,
+    BLOCK_MLSTM,
     BLOCK_SHARED_ATTN,
+    BLOCK_SLSTM,
     ModelConfig,
 )
 from repro_torch.core.params import Spec, init_tree, map_tree, tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import attention_block, mlp_block, rms_norm
 
 ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_SHARED_ATTN)
+# the residual stream's type (the reference's bf16); the CPU tests set f32
+# in both packages to hold the model's wiring at f32 rounding
+ACTIVATION_DTYPE = torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
 # param specs
 # ---------------------------------------------------------------------------
 def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise ValueError(f"block kind {kind!r} is not ported yet")
-    sp = {"attn": layers.attn_specs(cfg)}
-    if cfg.num_experts:
-        sp["moe"] = moe.moe_specs(cfg)
-    else:
-        sp["mlp"] = layers.mlp_specs(cfg)
-    return sp
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        sp = {"attn": layers.attn_specs(cfg)}
+        if cfg.num_experts:
+            sp["moe"] = moe.moe_specs(cfg)
+        else:
+            sp["mlp"] = layers.mlp_specs(cfg)
+        return sp
+    if kind == BLOCK_SHARED_ATTN:
+        return {"attn": layers.attn_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+    if kind == BLOCK_MAMBA:
+        return {"mamba": ssm.mamba_specs(cfg)}
+    if kind == BLOCK_MLSTM:
+        return {"mlstm": ssm.mlstm_specs(cfg)}
+    if kind == BLOCK_SLSTM:
+        return {"slstm": ssm.slstm_specs(cfg)}
+    raise ValueError(kind)
 
 
 def _stack_specs(sp, repeats: int):
@@ -54,17 +74,22 @@ def _stack_specs(sp, repeats: int):
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, V = cfg.d_model, cfg.vocab_size
-    if cfg.num_codebooks:
-        raise ValueError("codebook heads are not ported yet")
     specs: Dict[str, Any] = {
         "embed": Spec((V, d), ("vocab", "embed"), init="embed", scale=0.02),
         "final_norm": Spec((d,), ("embed",), init="zeros"),
-        "blocks": tuple(_stack_specs(_block_specs(cfg, kind),
+        # the shared block's entry is empty: its params live outside the stack
+        "blocks": tuple({} if kind == BLOCK_SHARED_ATTN else
+                        _stack_specs(_block_specs(cfg, kind),
                                      cfg.pattern_repeats)
                         for kind in cfg.block_pattern),
     }
+    if BLOCK_SHARED_ATTN in cfg.block_pattern:
+        specs["shared"] = _block_specs(cfg, BLOCK_SHARED_ATTN)
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((d, V), ("embed", "vocab"))
+    if cfg.num_codebooks:
+        specs["codebook_heads"] = Spec((cfg.num_codebooks, d, V),
+                                       ("codebooks", "embed", "vocab"))
     return specs
 
 
@@ -111,17 +136,20 @@ def _at(cache, r: int):
 
 def init_caches(cfg: ModelConfig, batch: int, context_len: int,
                 long_ctx: bool = False, dtype=torch.bfloat16, device=None):
-    """Tuple (per pattern entry) of R-stacked ring-buffer caches."""
-    caches = []
-    for kind in cfg.block_pattern:
-        if kind not in ATTN_KINDS:
-            raise ValueError(f"block kind {kind!r} is not ported yet")
-        w = effective_window(cfg, kind, long_ctx)
-        cap = min(w, context_len) if w else context_len
-        caches.append(_stack([
-            layers.init_attn_cache(cfg, batch, cap, dtype, device)
-            for _ in range(cfg.pattern_repeats)]))
-    return tuple(caches)
+    """Tuple (per pattern entry) of R-stacked caches: ring-buffer KV caches
+    of ``dtype`` for attention blocks, f32 recurrent states for SSM
+    blocks."""
+    def make(kind):
+        if kind in ATTN_KINDS:
+            w = effective_window(cfg, kind, long_ctx)
+            cap = min(w, context_len) if w else context_len
+            return layers.init_attn_cache(cfg, batch, cap, dtype, device)
+        init = {BLOCK_MAMBA: ssm.init_mamba_cache,
+                BLOCK_MLSTM: ssm.init_mlstm_cache,
+                BLOCK_SLSTM: ssm.init_slstm_cache}[kind]
+        return init(cfg, batch, device=device)
+    return tuple(_stack([make(kind) for _ in range(cfg.pattern_repeats)])
+                 for kind in cfg.block_pattern)
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
@@ -144,11 +172,19 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
 
 
 def _restack(stacked, per_layer):
-    """The pools were written in place through each layer's view; only the
-    length counters are new."""
-    name = "lengths" if isinstance(stacked, layers.PagedKVState) else "length"
+    """The new R-stacked cache of a pattern entry from its R layers' caches.
+    Attention layers wrote their pools in place through their views, so
+    only the length counters are new; SSM layers return new states, and
+    every field is stacked."""
+    if isinstance(stacked, layers.PagedKVState):
+        names = ("lengths",)
+    elif isinstance(stacked, layers.AttnCache):
+        names = ("length",)
+    else:
+        names = tuple(f.name for f in dataclasses.fields(stacked))
     return dataclasses.replace(stacked, **{
-        name: torch.stack([getattr(c, name) for c in per_layer])})
+        name: torch.stack([getattr(c, name) for c in per_layer])
+        for name in names})
 
 
 # ---------------------------------------------------------------------------
@@ -168,39 +204,78 @@ def _unstack(tree, repeats: int) -> list:
     return [layer(r) for r in range(repeats)]
 
 
-def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
+def _apply_block(kind: str, p, shared_p, x, cfg: ModelConfig, positions, *,
+                 long_ctx: bool, cache, update_cache: bool, use_kernel: bool):
+    """One block of the pattern.  Returns (x, aux loss or None, new cache
+    or None)."""
+    aux = None
+    if kind in ATTN_KINDS:
+        pp = shared_p if kind == BLOCK_SHARED_ATTN else p
+        x, nc = attention_block(
+            pp["attn"], x, cfg, positions,
+            window=effective_window(cfg, kind, long_ctx), cache=cache,
+            update_cache=update_cache, use_kernel=use_kernel)
+        if "moe" in pp:
+            x, aux = moe.moe_block(pp["moe"], x, cfg)
+        else:
+            x = mlp_block(pp["mlp"], x, cfg)
+    elif kind == BLOCK_MAMBA:
+        x, nc = ssm.mamba_block(p["mamba"], x, cfg, cache=cache)
+    elif kind == BLOCK_MLSTM:
+        x, nc = ssm.mlstm_block(p["mlstm"], x, cfg, cache=cache)
+    elif kind == BLOCK_SLSTM:
+        x, nc = ssm.slstm_block(p["slstm"], x, cfg, cache=cache)
+    else:
+        raise ValueError(kind)
+    return x, aux, nc
+
+
+def forward(params, cfg: ModelConfig, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, caches=None,
             update_cache: bool = False, long_ctx: bool = False,
             return_hidden: bool = False, use_kernel: bool = False):
-    """Returns (logits, aux_loss, new_caches) for ``tokens`` (B, S), or
-    the final-normed hidden states in place of the logits when
-    ``return_hidden``; ``positions`` (B, S) default to ``arange(S)``.
-    ``use_kernel`` runs every cacheless attention on the flash kernel
-    (``layers.attention_block``).  ``aux_loss`` is the sum of the MoE
-    blocks' load-balance losses (zero without experts)."""
-    emb_scale = float(np.float32(cfg.d_model ** 0.5))
-    x = (params["embed"][tokens.long()] * emb_scale).to(torch.bfloat16)
+    """Returns (logits, aux_loss, new_caches), or the final-normed hidden
+    states in place of the logits when ``return_hidden``.
+
+    ``tokens`` (B, S) and/or ``embeds`` (B, S_e, d): for a VLM the two are
+    concatenated, vision first; for audio only the embeds are used.  Both
+    enter the blocks in ``ACTIVATION_DTYPE`` (bf16).  ``positions``: (B, S) ints, or (B, S, 3) for
+    M-RoPE; ``arange`` over the whole sequence when None (repeated three
+    times for M-RoPE).  ``use_kernel`` runs every cacheless attention on
+    the flash kernel (``layers.attention_block``).  ``aux_loss`` is the sum
+    of the MoE blocks' load-balance losses (zero without experts).  With
+    ``cfg.num_codebooks`` the logits are (B, S, K, V), one head a
+    codebook."""
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(ACTIVATION_DTYPE))
+    if tokens is not None:
+        emb_scale = float(np.float32(cfg.d_model ** 0.5))
+        parts.append((params["embed"][tokens.long()] * emb_scale)
+                     .to(ACTIVATION_DTYPE))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.mrope:
+            positions = positions[..., None].expand(B, S, 3)
 
+    shared_p = params.get("shared")
     have_cache = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = [[] for _ in cfg.block_pattern]
     blocks = [_unstack(bp, cfg.pattern_repeats) for bp in params["blocks"]]
     for r in range(cfg.pattern_repeats):
         for j, kind in enumerate(cfg.block_pattern):
-            p = blocks[j][r]
             cache = _at(caches[j], r) if have_cache else None
-            x, nc = attention_block(
-                p["attn"], x, cfg, positions,
-                window=effective_window(cfg, kind, long_ctx), cache=cache,
-                update_cache=update_cache, use_kernel=use_kernel)
-            if "moe" in p:
-                x, aux_j = moe.moe_block(p["moe"], x, cfg)
+            x, aux_j, nc = _apply_block(
+                kind, blocks[j][r], shared_p, x, cfg, positions,
+                long_ctx=long_ctx, cache=cache, update_cache=update_cache,
+                use_kernel=use_kernel)
+            if aux_j is not None:
                 aux = aux + aux_j
-            else:
-                x = mlp_block(p["mlp"], x, cfg)
             if have_cache:
                 per_layer[j].append(nc if nc is not None else cache)
 
@@ -209,7 +284,10 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
                   if have_cache else None)
     if return_hidden:
         return x, aux, new_caches
-    if cfg.tie_embeddings:
+    if cfg.num_codebooks:
+        logits = torch.einsum("bsd,kdv->bskv", x,
+                              params["codebook_heads"].to(x.dtype))
+    elif cfg.tie_embeddings:
         logits = x @ params["embed"].T.to(x.dtype)
     else:
         logits = x @ params["lm_head"].to(x.dtype)
@@ -257,16 +335,28 @@ def chunked_lm_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 def lm_loss(params, cfg: ModelConfig, batch: dict,
             use_kernel: bool = False) -> torch.Tensor:
-    """Next-token CE of a token LM; ``batch["tokens"]`` (B, S).  With
-    ``cfg.loss_chunk`` the CE runs over sequence chunks.  ``use_kernel``
-    puts every attention forward on the flash kernel.  The vision and audio
-    branches of the reference wait for their frontends."""
-    if cfg.frontend is not None or cfg.num_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name!r}: the {cfg.frontend or 'codebook'} frontend's loss "
-            "is not ported yet")
+    """Next-token CE for every family.  ``batch`` keys: ``tokens`` (B, S)
+    for the token LMs (dense, MoE, SSM, hybrid); for a vision frontend also
+    ``patch_embeds`` (B, S_img, d) and optionally M-RoPE ``positions`` (B,
+    S_img + S, 3), the CE over the text positions only; for audio
+    ``frame_embeds`` (B, S, d) and ``codebook_labels`` (B, S, K), the CE
+    over every codebook.  With ``cfg.loss_chunk`` a token LM's CE runs over
+    sequence chunks.  ``use_kernel`` puts every attention forward on the
+    flash kernel."""
+    kw = dict(use_kernel=use_kernel)
+    if cfg.frontend == "audio":
+        logits, aux, _ = forward(params, cfg, embeds=batch["frame_embeds"],
+                                 **kw)
+        labels = batch["codebook_labels"]                    # (B, S, K)
+        return _ce(logits[:, :-1], labels[:, 1:]) + aux
+    if cfg.frontend == "vision":
+        logits, aux, _ = forward(params, cfg, tokens=batch["tokens"],
+                                 embeds=batch["patch_embeds"],
+                                 positions=batch.get("positions"), **kw)
+        s_img = batch["patch_embeds"].shape[1]
+        return _ce(logits[:, s_img:-1], batch["tokens"][:, 1:]) + aux
     tokens = batch["tokens"]
-    if cfg.loss_chunk:
+    if cfg.loss_chunk and not cfg.num_codebooks:
         hidden, aux, _ = forward(params, cfg, tokens=tokens,
                                  return_hidden=True, use_kernel=use_kernel)
         return chunked_lm_loss(params, cfg, hidden, tokens,

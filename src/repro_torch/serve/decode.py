@@ -9,11 +9,20 @@ CPU).  The caches' tensors are written in place, so a step's returned
 caches hold the same storage with new lengths.
 
 This is the dense, fixed-batch path: every request of the batch has the
-same prompt length and each layer's cache holds ``capacity`` positions (its
-window, for a sliding-window layer).  Decode attends the ring buffer
-through the plain ``kernels.ref.decode_attention_ref``, as the reference
-does; the serving engine (``api.serve.Server``) decodes through the paged
-kernel instead.
+same prompt length and each attention layer's cache holds ``capacity``
+positions (its window, for a sliding-window layer); an SSM layer's cache
+holds its recurrent state (``models.ssm``).  It serves every family the
+reference's ``generate`` does, SSM and hybrid models among them, which the
+serving engine (``api.serve.Server``) rejects.  Decode attends the ring
+buffer through the plain ``kernels.ref.decode_attention_ref``, as the
+reference does; the serving engine decodes through the paged kernel
+instead.
+
+With M-RoPE (qwen2-vl) a decode step's position is the scalar position
+repeated three times, as in the reference: after a prefill with image
+embeddings, whose M-RoPE text positions start past the image grid
+(``frontends.mrope_positions``), the decode positions continue from the
+sequence length instead.  The port keeps that difference.
 """
 from __future__ import annotations
 
@@ -26,14 +35,17 @@ from repro_torch.models import transformer
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, capacity: int,
-            *, long_ctx: bool = False):
-    """tokens: (B, S).  Returns (last_logits (B, V), caches)."""
-    caches = transformer.init_caches(cfg, tokens.shape[0], capacity,
-                                     long_ctx=long_ctx, device=tokens.device)
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            capacity: int, *, embeds: Optional[torch.Tensor] = None,
+            long_ctx: bool = False):
+    """tokens: (B, S) and/or embeds: (B, S_e, d) (``transformer.forward``'s
+    inputs).  Returns (last_logits (B, V), caches)."""
+    first = tokens if tokens is not None else embeds
+    caches = transformer.init_caches(cfg, first.shape[0], capacity,
+                                     long_ctx=long_ctx, device=first.device)
     logits, _, caches = transformer.forward(
-        params, cfg, tokens=tokens, caches=caches, update_cache=True,
-        long_ctx=long_ctx)
+        params, cfg, tokens=tokens, embeds=embeds, caches=caches,
+        update_cache=True, long_ctx=long_ctx)
     return logits[:, -1], caches
 
 
@@ -45,6 +57,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     B = tokens.shape[0]
     pos_b = torch.as_tensor(pos, device=tokens.device).reshape(-1, 1) \
         .expand(B, 1)
+    if cfg.mrope:
+        pos_b = pos_b[..., None].expand(B, 1, 3)
     logits, _, caches = transformer.forward(
         params, cfg, tokens=tokens, positions=pos_b, caches=caches,
         long_ctx=long_ctx)

@@ -77,9 +77,13 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
 
 
 def _loss_and_grads(loss_fn, params, batch):
+    """The loss and its gradient tree.  A leaf the loss does not reach
+    takes a zero gradient, as ``jax.grad`` gives it (musicgen's ``embed``
+    and ``lm_head``: the audio loss reads the frame embeddings and the
+    codebook heads), so that the optimizer still decays it."""
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss = loss_fn(params, batch)
-    it = iter(torch.autograd.grad(loss, leaves))
+    it = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
     return loss, map_tree(lambda _: next(it), params)
 
 

@@ -133,6 +133,30 @@ def test_plain_is_independent_of_its_blocks(bq, bkv, window):
            jref.attention_ref(*jx, **kw), "f32")
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D,Hq,Hkv,window", [
+    (80, 4, 4, 0),        # zamba2-2.7b's shared attention (MHA)
+    (120, 4, 1, 64)])     # h2o-danube-3-4b's (GQA, sliding window)
+def test_head_dims_between_instances_match_reference_kernel(D, Hq, Hkv,
+                                                            window, dt):
+    """Head dims that no instance is compiled for, which the kernel runs on
+    the next instance up (its columns past D zeros): the plain version and
+    the wrapper against the reference's Pallas kernel, whose blocks span
+    the whole of D."""
+    jx, tx = _inputs(2, 128, 128, Hq, Hkv, D, dt, seed=D)
+    kw = dict(causal=True, window=window, logit_softcap=50.0)
+    want = jflash(*jx, **kw, interpret=True)
+    _close(fa.flash_attention(*tx, **kw), want, dt)
+    _close(fa.flash_attention_plain(*tx, **kw, bq=64, bkv=64), want, dt)
+
+
+@pytest.mark.parametrize("D,inst", [(8, 32), (32, 32), (40, 64), (80, 128),
+                                    (120, 128), (128, 128), (136, 256),
+                                    (256, 256)])
+def test_instance_dim_is_the_least_instance_that_holds_d(D, inst):
+    assert fa.instance_dim(D) == inst
+
+
 def test_explicit_scale():
     jx, tx = _inputs(1, 64, 64, 4, 4, 32, "f32", seed=4)
     _close(fa.flash_attention(*tx, scale=0.3),
@@ -168,9 +192,9 @@ BAD = {
     "float16": lambda q, k, v: (q.half(), k.half(), v.half()),
     "rank 3": lambda q, k, v: (q[0], k[0], v[0]),
     "Hq % Hkv": lambda q, k, v: (q[:, :, :3].contiguous(), k, v),
-    "head_dim 48": lambda q, k, v: (q[..., :48].contiguous(),
-                                    k[..., :48].contiguous(),
-                                    v[..., :48].contiguous()),
+    "head_dim 44": lambda q, k, v: (q[..., :44].contiguous(),
+                                    k[..., :44].contiguous(),
+                                    v[..., :44].contiguous()),
     "head_dim 512": lambda q, k, v: (q.repeat(1, 1, 1, 8),
                                      k.repeat(1, 1, 1, 8),
                                      v.repeat(1, 1, 1, 8)),
@@ -208,9 +232,12 @@ def test_wrapper_rejects_bad_options_and_devices():
 
 
 def test_compiled_instances_cover_the_registered_lms():
-    from repro_torch.configs import get_config, smoke_variant
-    for arch in ("llama3-8b", "gemma2-2b"):
+    from repro_torch.configs import ARCHS, ModelConfig, get_config
+    from repro_torch.configs import smoke_variant
+    lms = [a for a in ARCHS if isinstance(get_config(a), ModelConfig)]
+    assert len(lms) == 11
+    for arch in lms:
         for cfg in (get_config(arch), smoke_variant(get_config(arch))):
-            assert cfg.head_dim in fa.HEAD_DIMS
+            assert fa.instance_dim(cfg.head_dim) in fa.HEAD_DIMS
             assert cfg.num_heads % cfg.num_kv_heads == 0
 

@@ -16,6 +16,10 @@ cannot load and the wrapper refuses, and outputs bitwise those of the
 build before the f32 redesign (digests below).  f32: views that start 4
 bytes past a 16-byte boundary (loaded, not refused), and one call as
 exactly two kernels on the card, the K/V split and the attention.
+Head dims between the compiled instances (every D % 8 == 0 up to 256 runs
+the next instance up, its columns past D zeros): D 8 to 248 over the same
+features, and zamba2-2.7b's (D 80, Hq = Hkv = 32) and h2o-danube-3-4b's (D
+120, Hq 32, Hkv 8, window 4096) training shapes, in both types.
 Tolerances: bf16 output, one bf16 ulp at the largest magnitude of each
 (batch, head) slice (both sides compute in f32 and round once); f32
 output, 2e-5 of the largest magnitude (f32 sums in different orders).
@@ -109,6 +113,36 @@ def test_kernel_at_the_model_shapes(cuda, dtype, B, S, Hq, Hkv, D, window,
                                     softcap):
     q, k, v = _inputs(cuda, dtype, B, S, S, Hq, Hkv, D, S + D)
     kw = dict(causal=True, window=window, logit_softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [8, 16, 40, 48, 80, 96, 120, 136, 200, 248])
+@pytest.mark.parametrize("Sq,extra", [(1, 64), (200, 64)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 48, 50.0), (False, 0, 50.0)])
+def test_padded_head_dims_match_plain(cuda, dtype, D, Sq, extra, causal,
+                                      window, softcap):
+    q, k, v = _inputs(cuda, dtype, 2, Sq, Sq + extra, 8, 4, D, D)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [
+    (2, 1024, 32, 32, 80, 0),           # zamba2-2.7b's shared attention
+    (1, 2048, 32, 8, 120, 4096)])       # h2o-danube-3-4b
+def test_kernel_at_the_padded_model_shapes(cuda, dtype, B, S, Hq, Hkv, D,
+                                           window):
+    q, k, v = _inputs(cuda, dtype, B, S, S, Hq, Hkv, D, S + D)
+    kw = dict(causal=True, window=window)
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     _assert_agree(got, fa.flash_attention_plain(q, k, v, **kw), dtype)

@@ -117,12 +117,11 @@ def test_transformer_family_adapter(arch):
     b = next(fam.stream(cfg, 2, 16, 3))
     np.testing.assert_array_equal(
         b["tokens"], next(jlm_stream(cfg.vocab_size, 2, 16, 3))["tokens"])
-    vision = cfg.replace(frontend="vision")
-    with pytest.raises(NotImplementedError, match="vision"):
-        fam.stream(vision, 2, 16, 3)
-    with pytest.raises(NotImplementedError, match="vision"):
-        tt.lm_loss({}, vision, {"tokens": torch.zeros(2, 16,
-                                                     dtype=torch.int32)})
+    # the vision frontend's stream: seq counts the image's tokens too
+    vision = cfg.replace(frontend="vision", vision_tokens=4)
+    vb = next(fam.stream(vision, 2, 16, 3))
+    assert set(vb) == {"tokens", "patch_embeds", "positions"}
+    assert vb["tokens"].shape == (2, 12) and vb["positions"].shape[1] == 16
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])
