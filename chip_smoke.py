@@ -268,6 +268,25 @@ Phase 18 the SSM, hybrid, vision and audio families (after phase 17),
          steps of 2 x 1024 tokens, no kernel; the sLSTM scan's time (1024
          sequential steps issued by the host); decode consistency and
          ``generate``.
+Phase 19 the paper's §3.3 hybrid (after phase 18): a model axis on the
+         card, random f32 weights from seed 0, data from the seeded
+         streams.  (a) CD-DNN at full width on a ``{data: 2, model: 2}``
+         local mesh (``MeshSpec(members_per_device=2, model_ways=2)``),
+         every FC forward on the GEMM kernel as one launch per model member
+         (16 a step), 6 steps each under zero1 (pallas-ring: one
+         reduce-scatter and one all-gather per bucket of the full tree a
+         step), dp and zero1-gspmd; each held against the serial run from
+         the same params and batches (every loss, every leaf's update) at
+         10x the one-ulp sensitivity measured in the run; step time, the
+         forward / backward / update split, peak memory; the GEMM's time
+         per shard beside the whole layer's.  (b) VGG-A, batch 64, dp at
+         the same mesh, deterministic cuDNN, 4 steps, 16 conv launches a
+         step, the same gate.  (c) the process path: 4 gloo ranks on the
+         card (``make_process_mesh(model_ways=2)``, spawned as phase 7's
+         members), CD-DNN zero1 on pallas-ring for 3 steps: each rank 8
+         GEMM launches and one ``ring_hop_accum`` per bucket a step, its
+         losses held to (a)'s local-mesh zero1 run at (a)'s loss gate;
+         ranks leave as phase 7's do.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -291,7 +310,9 @@ overlapped path of phases 14 and 7, and the conv's and ring rows'
 resumed fit and on one rank of phase 15b's world-2 run, and
 ``launches_modes``, on phase 16's stale-sync, gossip and ``comm="auto"``
 fits, and the paged and flash rows' ``launches_moe``, on phase 17, and
-the flash row's ``launches_families``, on phase 18's fits), the last line
+the flash row's ``launches_families``, on phase 18's fits, and the conv,
+GEMM and ring rows' ``launches_hybrid``, on phase 19's fits and one rank of
+19c), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -4694,6 +4715,337 @@ def phase18(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the paper's §3.3 hybrid, a model axis on the card
+# ---------------------------------------------------------------------------
+# Each hybrid run is held against the serial run from the same params (the
+# seed's) and batches (the seeded stream): every step's loss, and every
+# leaf's update over the run (final minus initial params, relative L2).  The
+# sharded products sum the same terms in other orders: the forward's shards
+# are the whole layer's columns (the kernel's K loop does not depend on N),
+# but cuBLAS's backward on a shard picks its own algorithm, and each input
+# gradient is the sum of the members' partial products.  So the gate is
+# HYBRID_FACTOR x the one-ulp sensitivity measured in this run: the serial
+# run again with every weight scaled by 1 + 2^-23, its largest relative
+# loss change over the steps and its largest leaf's update change; for
+# VGG-A never tighter than GRAD_REL_L2_TOL, as phase 4 (its ReLU and pool
+# ties make a leaf's update jump under any f32-level change).  A missing or
+# doubled model-axis collective is off by a factor of 2 or misses terms.
+# The loss gate is never tighter than 10 ulps of the loss: a one-ulp change of
+# CD-DNN's weights moves its loss (~9.26) by less than the loss's own ulp.
+# (c) holds the process path's losses to (a)'s local-mesh zero1 run at (a)'s
+# loss gate (each rank's loss is its half batch's mean, their mean the
+# group's).
+HYBRID_LOSS_ULP = 2.0 ** -23
+HYBRID_MESH = {"members_per_device": 2, "model_ways": 2}
+HYBRID_FACTOR = 10.0
+HYBRID_VGG_BATCH = 64
+HYBRID_VGG_STEPS = 4
+HYBRID_PROCESS_STEPS = 3
+HYBRID_RANKS = 4
+
+
+def _hybrid_fit(spec, card, tag, ulp=False):
+    """Compile ``spec`` on the kernel route (``ulp``: every weight scaled by
+    1 + 2^-23 first), fit it with every count zeroed just before and read
+    just after; return (run, losses, full params before, full params
+    after, counts, step spans, peak GB)."""
+    from repro_torch.api import compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    spans = SyncedSpans()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    if ulp:
+        with torch.no_grad():
+            for k, p in run.params.items():
+                if k.endswith("_w"):
+                    p.mul_(1 + 2.0 ** -23)
+    before = {k: v.detach().clone() for k, v in run.full_params().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    hist = run.fit(log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"19{tag}: history {hist}")
+    after = {k: v.detach().clone() for k, v in run.full_params().items()}
+    return (run, [h["loss"] for h in hist], before, after, counts,
+            spans.samples["step"], peak)
+
+
+def _update_rel(a, b):
+    """Per leaf, the relative L2 of run a's update against run b's."""
+    (a0, a1), (b0, b1) = a, b
+    return {k: ((a1[k] - a0[k]) - (b1[k] - b0[k])).norm().item()
+            / (b1[k] - b0[k]).norm().item() for k in b0}
+
+
+def _loss_rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _hybrid_gate(cfg_name, spec, card, tag, modes, floor=0.0):
+    """The serial run, its one-ulp twin and a hybrid run per (parallel,
+    comm) of ``modes``; every gate of the module comment.  Returns ({mode:
+    (run, losses, counts)}, the loss gate)."""
+    serial = _hybrid_fit(spec, card, tag)
+    s_run, s_loss, s0, s1 = serial[:4]
+    s_step = float(np.median(serial[5][1:]))
+    s_run.close()
+    del s_run, serial
+    u = _hybrid_fit(spec, card, tag, ulp=True)
+    u[0].close()
+    sens_upd = _update_rel(u[2:4], (s0, s1))
+    sens_loss = _loss_rel(u[1], s_loss)
+    del u
+    upd_tol = max(floor, HYBRID_FACTOR * max(sens_upd.values()))
+    loss_tol = HYBRID_FACTOR * max(sens_loss, HYBRID_LOSS_ULP)
+    print(f"  19{tag}: {cfg_name} serial, {spec.steps} steps of batch "
+          f"{spec.batch}: step median {s_step * 1e3} ms; losses {s_loss}; "
+          f"one-ulp sensitivity (every weight x (1 + 2^-23)): loss "
+          f"{sens_loss}, update {max(sens_upd.values())} (worst leaf); gates "
+          f"loss {loss_tol}, update {upd_tol} [{card}]")
+    from repro_torch.api import MeshSpec
+    out = {}
+    for parallel, comm in modes:
+        hspec = spec.replace(parallel=parallel, comm=comm,
+                             mesh=MeshSpec(**HYBRID_MESH))
+        run, losses, h0, h1, counts, steps, peak = _hybrid_fit(
+            hspec, card, tag)
+        rel = _update_rel((h0, h1), (s0, s1))
+        lrel = _loss_rel(losses, s_loss)
+        name = parallel + (f" ({comm.backend})" if comm else "")
+        worst = max(rel, key=rel.get)
+        print(f"  19{tag}: {name} on {run.mesh}, {len(run.params)} leaves in "
+              f"member layout (e.g. {worst} "
+              f"{tuple(run.params[worst].shape)}): step median "
+              f"{float(np.median(steps[1:])) * 1e3} ms ({spec.batch * len(steps[1:]) / sum(steps[1:])} "
+              f"samples/s of step time), first step {steps[0] * 1e3} ms; "
+              f"peak {peak} GB; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; losses {losses}; "
+              f"against serial: loss {lrel} (gate {loss_tol}), worst leaf's "
+              f"update {rel[worst]} at {worst} (gate {upd_tol}) [{card}]")
+        check(lrel <= loss_tol, f"19{tag} {name}: losses {losses} against "
+              f"serial {s_loss}")
+        check(rel[worst] <= upd_tol, f"19{tag} {name}: {worst}'s update off "
+              f"by {rel[worst]}")
+        out[name] = (run, losses, counts)
+    return out, loss_tol
+
+
+def _hybrid_split(run, batch, card, tag):
+    """One hybrid step's forward / backward / update split, CUDA events,
+    median of 3."""
+    from repro_torch.core.params import tree_leaves
+    split = {"forward": [], "backward": [], "step": []}
+    for i in range(3):
+        leaves = [p.requires_grad_() for p in tree_leaves(run.params)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = run.loss_fn(run.params, batch)
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        run.step(batch, step_idx=100 + i)
+        ev[3].record()
+        ev[3].synchronize()
+        for k, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3))):
+            split[k].append(ev[a].elapsed_time(ev[b]))
+    fwd, bwd, step = (float(np.median(split[k])) for k in split)
+    print(f"    19{tag} one step by CUDA events: train_step {step} ms; "
+          f"forward alone {fwd} ms, backward alone {bwd} ms, so norm, clip "
+          f"and the update about {step - fwd - bwd} ms [{card}]")
+
+
+def _gemm_shards(card):
+    """The GEMM's time per model shard beside the whole layer's, at CD-DNN's
+    three layer shapes (batch 1024, 2 model ways)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import blocked_matmul as kmm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    seen = {}
+    for M, N, K in dnn_layer_shapes(get_config("cd-dnn"), DNN_BATCH):
+        if (N, K) in seen:
+            continue
+        a = torch.randn(M, K, generator=gen, device=dev)
+        full = torch.randn(K, N, generator=gen, device=dev)
+        half = full[:, :N // 2].contiguous()
+        seen[(N, K)] = (cuda_ms(lambda: kmm.blocked_matmul(a, full)),
+                        cuda_ms(lambda: kmm.blocked_matmul(a, half)))
+    print("    19a the GEMM per model shard against the whole layer, batch "
+          f"{DNN_BATCH}: " + "; ".join(
+              f"K {K} N {N}: whole {w} ms, shard (N {N // 2}) {h} ms"
+              for (N, K), (w, h) in seen.items()) + f" [{card}]")
+
+
+def phase19a(card):
+    from repro_torch.api import RunSpec
+    from repro_torch.comm import CommConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = RunSpec(arch="cd-dnn", batch=DNN_BATCH, steps=DNN_STEPS,
+                   lr=DNN_LR, schedule="constant", seed=0, log_every=1)
+    print(f"phase 19a: CD-DNN at full width on a {HYBRID_MESH} mesh (2 data "
+          f"members x 2 model ways on one card), every FC forward on the "
+          f"GEMM kernel as one launch per model member")
+    runs, loss_tol = _hybrid_gate(
+        "CD-DNN", spec, card, "a",
+        (("zero1", CommConfig(backend="pallas-ring")), ("dp", None),
+         ("zero1-gspmd", None)))
+    n_layers = 8
+    total = {}
+    for name, (run, losses, counts) in runs.items():
+        want = dict.fromkeys(counts, 0)
+        want["blocked_matmul"] = spec.steps * n_layers * 2
+        if name.startswith("zero1 "):
+            n_buckets = len(run.opt_state.velocity)
+            want["ring_reduce_scatter"] = spec.steps * n_buckets
+            want["ring_all_gather"] = spec.steps * n_buckets
+        check(counts == want, f"19a {name}: launches {counts}, want {want}")
+        total = _sum_counts(total, counts)
+        _hybrid_split(run, next(run.data), card, "a " + name)
+        run.close()
+    zero1_losses = runs["zero1 (pallas-ring)"][1]
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _gemm_shards(card)
+    return total, zero1_losses, loss_tol
+
+
+def phase19b(card):
+    from repro_torch.api import RunSpec
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    spec = RunSpec(arch="vgg-a", batch=HYBRID_VGG_BATCH,
+                   steps=HYBRID_VGG_STEPS, lr=5e-3, schedule="constant",
+                   seed=0, log_every=1)
+    print(f"phase 19b: VGG-A at full width, dp on a {HYBRID_MESH} mesh, "
+          f"every forward conv on the kernel as one launch per model member, "
+          f"deterministic cuDNN")
+    try:
+        runs, _ = _hybrid_gate("VGG-A", spec, card, "b", (("dp", None),),
+                               floor=GRAD_REL_L2_TOL)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    run, _, counts = runs["dp"]
+    want = dict.fromkeys(counts, 0)
+    want["conv2d_nhwc"] = spec.steps * len(run.cfg.conv_layers()) * 2
+    check(counts == want, f"19b dp: launches {counts}, want {want}")
+    _hybrid_split(run, next(run.data), card, "b dp")
+    run.close()
+    return counts
+
+
+def _hybrid_member(rank, world, init_file, results):
+    """One rank of phase 19c: CD-DNN zero1 on pallas-ring over a
+    ``{data: 2, model: 2}`` ProcessMesh, every FC forward on the GEMM
+    kernel."""
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        from repro_torch.api import RunSpec, compile_run
+        from repro_torch.comm import CommConfig
+        from repro_torch.launch.mesh import make_process_mesh
+        from repro_torch.launch.paper_cnn_training import use_kernel
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        mesh = make_process_mesh(model_ways=2, device=dev)
+        spec = RunSpec(arch="cd-dnn", batch=DNN_BATCH,
+                       steps=HYBRID_PROCESS_STEPS, lr=DNN_LR,
+                       schedule="constant", seed=0, log_every=1,
+                       parallel="zero1",
+                       comm=CommConfig(backend="pallas-ring"))
+        spans = SyncedSpans()
+        run = use_kernel(compile_run(spec, recorder=spans, mesh=mesh))
+        n_buckets = len(run.opt_state.velocity)
+        torch.cuda.synchronize()
+        _counts_zeroed()
+        hist = run.fit(log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _counts().items() if v}
+        results.put((rank, ([h["loss"] for h in hist], counts, n_buckets,
+                            spans.samples["step"], repr(mesh)), None))
+        code = 0
+    except Exception:
+        results.put((rank, None, traceback.format_exc()))
+        code = 1
+    results.close()
+    results.join_thread()
+    if code == 0:
+        dist.barrier()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def phase19c(card, local_losses, loss_tol):
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = os.path.join(tempfile.mkdtemp(), "init")
+    procs = [ctx.Process(target=_hybrid_member,
+                         args=(r, HYBRID_RANKS, init_file, results))
+             for r in range(HYBRID_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = sorted(results.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    for rank, out, err in got:
+        check(err is None, f"19c rank {rank} failed:\n{err}")
+    for rank, p in enumerate(procs):
+        check(p.exitcode == 0, f"19c rank {rank} exited with code "
+              f"{p.exitcode}")
+    steps = HYBRID_PROCESS_STEPS
+    for rank, out, _ in got:
+        losses, counts, n_buckets, spans, mesh = out
+        want = {"blocked_matmul": steps * 8,
+                "ring_hop_accum": steps * n_buckets}
+        check(counts == want, f"19c rank {rank}: launches {counts}, want "
+              f"{want}")
+        lrel = _loss_rel(losses, local_losses[:steps])
+        print(f"  19c rank {rank} of {mesh}: {steps} zero1 steps of CD-DNN "
+              f"(its data pair's {DNN_BATCH // 2} rows, its model member's "
+              f"columns; messages staged through host memory over gloo): "
+              f"steps {[s * 1e3 for s in spans]} ms; launches {counts}; "
+              f"losses {losses} against the local mesh's "
+              f"{local_losses[:steps]}: {lrel} (gate {loss_tol}) [{card}]")
+        check(lrel <= loss_tol, f"19c rank {rank}: losses {losses}")
+    print(f"  19c: {HYBRID_RANKS} ranks in {wall} s, spawn and exit included")
+    return got[0][1][1]
+
+
+def phase19(card):
+    """Phase 19's three parts; the kernels' launches over its fits (19c's
+    one rank's)."""
+    walls = {}
+    t0 = time.perf_counter()
+    dnn_counts, zero1_losses, loss_tol = phase19a(card)
+    walls["19a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    vgg_counts = phase19b(card)
+    walls["19b"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank_counts = phase19c(card, zero1_losses, loss_tol)
+    walls["19c"] = round(time.perf_counter() - t0, 1)
+    total = _sum_counts(dnn_counts, vgg_counts, rank_counts)
+    print(f"  phase 19 wall seconds by part {walls}; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -5021,7 +5373,15 @@ def main() -> int:
     flash["launches"] += flash["launches_moe"]
     flash["launches_families"] = timed("18", phase18, card)
     flash["launches"] += flash["launches_families"]
+    hybrid = timed("19", phase19, card)
+    # the hybrid path's launches (phase 19; 19c's one rank) beside each row's
+    for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
+                      (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),
+                      (ag, "ring_all_gather")):
+        row["launches_hybrid"] = hybrid.get(name, 0)
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
+    for row in (conv, gemm, hop, rs, ag):
+        row["launches"] += row["launches_hybrid"]
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
                       (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),

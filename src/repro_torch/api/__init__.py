@@ -11,6 +11,13 @@
                               comm=CommConfig(backend="pallas-ring"),
                               mesh=MeshSpec(members_per_device=4)))
 
+    # the paper's §3.3 hybrid: 2 data members x 2 model ways on one card,
+    # each model member's products on its own columns (dp, zero1-gspmd or
+    # zero1); run.full_params() is the full tree
+    run = compile_run(RunSpec(arch="cd-dnn", parallel="dp",
+                              mesh=MeshSpec(members_per_device=2,
+                                            model_ways=2)))
+
     # one member a process of the gloo group that ``python -m
     # repro_torch.launch.cluster --processes N`` starts; a ckpt_dir run
     # checkpoints and resumes, at another world size too

@@ -6,14 +6,28 @@ Training resolves, in the reference's order: arch id -> config (optionally
 its smoke variant) -> family adapter -> recorder (``telemetry.
 make_recorder(spec.telemetry)``) -> mesh (none for ``serial``) -> params
 on the device -> optimizer and LR schedule -> update path -> train step.
-The update path is the serial ``optimizer.update`` or, for the explicit
-bucketed modes, the §3.4 pipeline of ``repro_torch.comm`` and
-``optim.dist`` over the G members of a local mesh
-(``MeshSpec.members_per_device``) on the run's device, or, under
+Params are placed by the logical-axis sharding rules
+(``core.sharding.ShardingCtx``): under a model axis each model member holds
+its own columns of every "ff"-sharded leaf.  The update path is the serial
+``optimizer.update``; or the reference's two GSPMD modes,
+``optim.dist.GspmdUpdate``:
+
+* ``dp``: the optimizer on each member's own shard of params and state,
+  the gradient the mean over the data axes;
+* ``zero1-gspmd``: the state sharded as ``train.zero1_state_shardings``
+  places it, each leaf's gradient reduce-scattered to its strip, the strip
+  updated and the params all-gathered back;
+
+or, for the explicit bucketed modes, the §3.4 pipeline of
+``repro_torch.comm`` and ``optim.dist`` over the G data members of a local
+mesh (``MeshSpec.members_per_device``) on the run's device, or, under
 ``MeshSpec(cluster=True)``, over the ranks of the live
 ``torch.distributed`` group, one member a process
 (``launch.mesh.make_cluster_mesh``; each rank trains on its rows of the
-batch):
+batch).  Under a model axis the pipeline runs on full leaves over the
+mesh's data view, and each member keeps its columns
+(``optim.dist.ModelGatheredUpdate``), as the reference's shard_map with
+params ``P()`` does:
 
 * ``zero1``: ``make_distributed_update``, the monolithic reduce, apply and
   broadcast; ``wire_format="topk"`` takes the error-feedback update
@@ -39,8 +53,9 @@ autotuner (``telemetry.autotune``) times the real collectives on the live
 mesh and picks the bucket size, backend and wire format from the §3.2
 balance model with the measured constants.  On a card the run holds f32
 (``device.hold_f32``: no TF32 in cuDNN or cuBLAS).  What is not ported yet
-(``dp``, ``zero1-gspmd``, ``model_ways > 1``) raises before anything is
-allocated.
+(``model_ways > 1`` on the transformer family or a cluster mesh: ROADMAP
+Queue A item 9b) raises before anything is allocated, as does the
+reference's refusal of ``comm.overlap`` with model ways.
 """
 from __future__ import annotations
 
@@ -52,6 +67,7 @@ from repro_torch.api.serve import Server
 from repro_torch.api.spec import MODE_CAPS, RunSpec, ServeSpec
 from repro_torch.comm.bucketer import CommConfig
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.device import hold_f32, resolve_device
 from repro_torch.launch.mesh import make_cluster_mesh, make_local_mesh
@@ -65,7 +81,9 @@ from repro_torch.optim import (
     warmup_cosine,
 )
 from repro_torch.optim.dist import (
+    GspmdUpdate,
     make_distributed_update,
+    make_model_gathered,
     make_overlapped_update,
     make_stale_sync_update,
     make_topk_ef_update,
@@ -75,7 +93,8 @@ from repro_torch.telemetry import ENV_AUTOTUNE_CACHE, autotune_comm, \
 from repro_torch.train import make_overlapped_train_step, make_train_step
 
 #: the parallel modes compile_run assembles
-PORTED_MODES = ("serial", "zero1", "stale-sync", "gossip")
+PORTED_MODES = ("serial", "dp", "zero1", "zero1-gspmd", "stale-sync",
+                "gossip")
 
 
 def _resolve_config(spec):
@@ -103,16 +122,31 @@ def _make_schedule(spec: RunSpec, data_ways: int = 1):
     return warmup_cosine(spec.lr, warmup, spec.steps)
 
 
-def _check_ported(spec: RunSpec) -> None:
-    """Raise for what the port does not run yet, before any allocation."""
+def _check_ported(spec: RunSpec, cfg, model_ways=None) -> None:
+    """Raise for what the port does not run yet, before any allocation
+    (``model_ways``: a caller-built mesh's, else ``spec.mesh``'s)."""
     def missing(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                                   f"Queue A item {item}): the port runs "
-                                  f"parallel in {PORTED_MODES}")
+                                  f"parallel in {PORTED_MODES}, and model "
+                                  f"ways on the CNN and DNN families")
     if spec.parallel not in PORTED_MODES:
         missing(f"parallel={spec.parallel!r}", 9)
-    if spec.parallel != "serial" and spec.mesh.model_ways > 1:
-        missing(f"model_ways={spec.mesh.model_ways}", 9)
+    M = spec.mesh.model_ways if model_ways is None else model_ways
+    if spec.parallel == "serial" or M == 1:
+        return
+    if isinstance(cfg, ModelConfig):
+        missing(f"model_ways={M} on the transformer family ({cfg.name})",
+                "9b")
+    if spec.mesh.cluster:
+        missing(f"model_ways={M} on a cluster mesh", "9b")
+    if isinstance(spec.comm, CommConfig) and spec.comm.overlap:
+        raise ValueError(
+            "CommConfig.overlap runs the whole step inside a shard_map over "
+            "the data axes with a mesh-free loss — a model axis would be "
+            "silently replicated (full redundant compute per model member), "
+            "so overlap currently requires model_ways == 1 "
+            f"(got model_ways={M})")
 
 
 def default_comm(parallel: str, cluster: bool = False,
@@ -137,7 +171,7 @@ def _resolve_comm(spec: RunSpec, params, mesh, recorder) -> CommConfig:
     """The run's ``CommConfig``: the spec's, the mode's default for None,
     or the autotuner's measured plan for ``"auto"`` (module docstring)."""
     caps = MODE_CAPS[spec.parallel]
-    axes = mesh.axis_names
+    axes = mesh.data_axes
     default = default_comm(spec.parallel, spec.mesh.cluster, len(axes) == 2)
     if spec.comm is None:
         return default
@@ -152,7 +186,8 @@ def _resolve_comm(spec: RunSpec, params, mesh, recorder) -> CommConfig:
             cache_path=os.environ.get(ENV_AUTOTUNE_CACHE))
 
 
-def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
+def compile_run(spec: RunSpec, device=None, recorder=None,
+                mesh=None) -> Run:
     """Assemble a ready-to-train :class:`Run` from ``spec``.
 
     ``device`` defaults to the GPU (under ``cluster``, rank r's
@@ -160,37 +195,50 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
     ``device="cpu"`` to run on the CPU.  On a card it turns TF32 off for
     the process (``device.hold_f32``).  ``recorder`` receives the
     trainer's spans and counts; None builds ``make_recorder(spec.
-    telemetry)``.
+    telemetry)``.  ``mesh`` replaces the mesh ``spec.mesh`` describes with
+    one the caller built (``launch.mesh.make_process_mesh`` over the live
+    process group, model ways and all), on its device.
     """
-    _check_ported(spec)
-    dev = resolve_device(device)
     cfg = _resolve_config(spec)
+    _check_ported(spec, cfg, None if mesh is None else mesh.model_ways)
+    dev = resolve_device(device)
     family = adapter_for(cfg)
-    loss_fn = family.make_loss(cfg)
     if recorder is None:
         recorder = make_recorder(spec.telemetry)
-    mesh = None
-    if spec.parallel != "serial":
+    if mesh is not None:
+        dev = mesh.device
+    elif spec.parallel != "serial":
         if spec.mesh.cluster:
             mesh = make_cluster_mesh(spec.mesh.model_ways, device=device)
             dev = mesh.device
         else:
             mesh = make_local_mesh(spec.mesh.members_per_device,
-                                   pods=spec.mesh.pods, device=dev)
+                                   pods=spec.mesh.pods,
+                                   model_ways=spec.mesh.model_ways,
+                                   device=dev)
+    ctx = ShardingCtx(mesh)
+    loss_fn = family.make_loss(cfg, ctx)
     hold_f32(dev)
-    params = family.init(cfg, spec.seed, dev)
+    specs = family.param_specs(cfg)
+    params = ctx.place(family.init(cfg, spec.seed, dev), specs)
     optimizer = _make_optimizer(spec, family)
-    lr_schedule = _make_schedule(spec, 1 if mesh is None else mesh.size)
+    lr_schedule = _make_schedule(spec,
+                                 1 if mesh is None else mesh.data_size)
     dist_update = comm = train_step = None
-    if spec.parallel != "serial":
-        axes = mesh.axis_names
-        comm = _resolve_comm(spec, params, mesh, recorder)
+    if spec.parallel in ("dp", "zero1-gspmd"):
+        dist_update = GspmdUpdate(optimizer, mesh, ctx, specs,
+                                  zero1=spec.parallel == "zero1-gspmd")
+        opt_state = dist_update.init_fn(params)
+    elif spec.parallel != "serial":
+        axes = mesh.data_axes
+        comm = _resolve_comm(spec, ctx.full(params, specs),
+                             mesh.data_view(), recorder)
         if spec.parallel == "stale-sync":
-            init_fn, dist_update = make_stale_sync_update(
-                optimizer, mesh, data_axes=axes, comm=comm)
+            make_update = make_stale_sync_update
         elif comm.overlap:
             # §3.1: each bucket's reduce is issued inside the backward pass
-            # (spec validation keeps topk off this path)
+            # (spec validation keeps topk off this path; _check_ported
+            # model ways)
             init_fn, dist_update = make_overlapped_update(
                 optimizer, mesh, data_axes=axes, comm=comm)
             train_step = make_overlapped_train_step(
@@ -202,8 +250,10 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
             # zero1)
             make_update = make_topk_ef_update \
                 if comm.wire_format == "topk" else make_distributed_update
-            init_fn, dist_update = make_update(optimizer, mesh,
-                                               data_axes=axes, comm=comm)
+        if train_step is None:
+            init_fn, dist_update = make_model_gathered(
+                make_update, optimizer, mesh, ctx, specs, data_axes=axes,
+                comm=comm)
         opt_state = init_fn(params)
     else:
         opt_state = optimizer.init(params)
@@ -215,7 +265,7 @@ def compile_run(spec: RunSpec, device=None, recorder=None) -> Run:
                loss_fn=loss_fn, optimizer=optimizer, lr_schedule=lr_schedule,
                train_step=train_step, params=params, opt_state=opt_state,
                mesh=mesh, comm=comm, dist_update=dist_update,
-               telemetry=recorder)
+               telemetry=recorder, ctx=ctx)
 
 
 def compile_serve(spec: ServeSpec, params=None, device=None,

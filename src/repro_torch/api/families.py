@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Type
 
 from repro_torch.configs.base import CNNConfig, DNNConfig, ModelConfig
+from repro_torch.core.params import map_tree
 from repro_torch.data.pipeline import (
     asr_frame_stream,
     audio_stream,
@@ -28,20 +29,31 @@ class FamilyAdapter:
     """Everything ``compile_run`` needs to assemble a family's training run.
 
     init:         (cfg, seed, device) -> param tree
-    make_loss:    cfg -> loss_fn(params, batch) -> scalar
+    make_loss:    (cfg, ctx) -> loss_fn(params, batch) -> scalar, params in
+                  ``ctx``'s member layout (``core.sharding.ShardingCtx``;
+                  the transformer family runs at model_ways 1 only, item
+                  9b, and ignores it)
+    param_specs:  cfg -> tree of ``core.params.Spec`` (shapes and logical
+                  axes), the structure of the param tree
     stream:       (cfg, batch, seq, seed) -> iterator of host batches
     default_optimizer: "sgd" (the paper's CNN/DNN optimizer) or "adamw"
 
-    The reference's ``param_specs`` (for sharding) and ``smoke`` fields come
-    with the slices that need them; the port's smoke variants dispatch by
-    config class in ``configs.registry.smoke_variant``.
+    The reference's ``smoke`` field has no counterpart: the port's smoke
+    variants dispatch by config class in ``configs.registry.
+    smoke_variant``.
     """
     family: str
     config_cls: Type
     init: Callable[..., Any]
-    make_loss: Callable[[Any], Callable]
+    make_loss: Callable[..., Callable]
+    param_specs: Callable[[Any], Any]
     stream: Callable[[Any, int, int, int], Iterator]
     default_optimizer: str = "adamw"
+
+    def param_axes(self, cfg) -> Any:
+        """The logical-axes tree matching the param tree (for the
+        zero1-gspmd state specs and rules-based placement)."""
+        return map_tree(lambda s: s.axes, self.param_specs(cfg))
 
 
 _REGISTRY: Dict[Type, FamilyAdapter] = {}
@@ -66,7 +78,8 @@ def adapter_for(cfg) -> FamilyAdapter:
 CNN_FAMILY = register_family(FamilyAdapter(
     family="cnn", config_cls=CNNConfig,
     init=cnn.init_params,
-    make_loss=lambda cfg: lambda p, b: cnn.loss_fn(p, cfg, b),
+    make_loss=lambda cfg, ctx: lambda p, b: cnn.loss_fn(p, cfg, b, ctx=ctx),
+    param_specs=cnn.param_specs,
     stream=lambda cfg, batch, seq, seed: image_stream(
         cfg.image_size, cfg.num_classes, batch, seed),
     default_optimizer="sgd",
@@ -75,7 +88,8 @@ CNN_FAMILY = register_family(FamilyAdapter(
 DNN_FAMILY = register_family(FamilyAdapter(
     family="dnn", config_cls=DNNConfig,
     init=dnn.init_params,
-    make_loss=lambda cfg: lambda p, b: dnn.loss_fn(p, cfg, b),
+    make_loss=lambda cfg, ctx: lambda p, b: dnn.loss_fn(p, cfg, b, ctx=ctx),
+    param_specs=dnn.param_specs,
     stream=lambda cfg, batch, seq, seed: asr_frame_stream(
         cfg.input_dim, cfg.output_dim, batch, seed),
     default_optimizer="sgd",
@@ -94,7 +108,8 @@ def _transformer_stream(cfg: ModelConfig, batch: int, seq: int, seed: int):
 TRANSFORMER_FAMILY = register_family(FamilyAdapter(
     family="transformer", config_cls=ModelConfig,
     init=transformer.init_params,
-    make_loss=lambda cfg: lambda p, b: transformer.lm_loss(p, cfg, b),
+    make_loss=lambda cfg, ctx: lambda p, b: transformer.lm_loss(p, cfg, b),
+    param_specs=transformer.param_specs,
     stream=_transformer_stream,
     default_optimizer="adamw",
 ))

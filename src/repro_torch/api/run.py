@@ -12,12 +12,20 @@ its train step calls (under ``comm.overlap`` the apply-and-broadcast
 ``local_update``), and ``opt_state`` is the strip state (under stale-sync
 and top-k, wrapped with its carry or residual).
 
+Under a model axis (``MeshSpec.model_ways > 1``) ``params`` are in the
+member layout of ``ctx`` (``core.sharding``); :meth:`Run.full_params` is
+the full tree, gathered over the model axis.  Under ``dp`` and
+``zero1-gspmd`` the ``dist_update`` is ``optim.dist.GspmdUpdate`` and
+``opt_state`` the optimizer's state in its member layout.
+
 A run with a ``ckpt_dir`` writes a checkpoint every ``ckpt_every`` steps
 and resumes from the latest one there (``fit``), in the reference's file
-format (``checkpoint.ckpt``): a checkpoint saved at another world size is
-re-planned (``checkpoint.replan``), whichever package wrote it.  A
-stale-sync or top-k run also resumes a bare zero1 checkpoint, its carry or
-residual restarting at zero.
+format (``checkpoint.ckpt``): every leaf at its full shape, whatever the
+model ways, so that a checkpoint resumes at other model ways too; a zero1
+checkpoint saved at another world size is re-planned
+(``checkpoint.replan``), whichever package wrote it.  A stale-sync or
+top-k run also resumes a bare zero1 checkpoint, its carry or residual
+restarting at zero.
 """
 from __future__ import annotations
 
@@ -30,6 +38,12 @@ import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.core.params import map_tree, tree_leaves
+from repro_torch.core.sharding import (
+    ShardingCtx,
+    from_members,
+    full_shape,
+    to_members,
+)
 from repro_torch.data.pipeline import Prefetcher, make_placer
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -58,6 +72,8 @@ class Run:
     #                                  listeners (the cluster heartbeat,
     #                                  the JSONL sink) ride its events;
     #                                  None = no-op
+    ctx: ShardingCtx = field(default_factory=ShardingCtx)  # the member
+    #                                  layout of params (model axis)
     _data: Optional[Prefetcher] = field(default=None, repr=False)
     _warm: bool = field(default=False, repr=False)  # train_step ran once
 
@@ -94,44 +110,111 @@ class Run:
         self._warm = True
         return metrics
 
+    def full_params(self):
+        """The full param tree: ``params`` gathered over the model axis (a
+        collective on a process mesh), ``params`` itself without one."""
+        return self.ctx.full(self.params, self.family.param_specs(self.cfg))
+
+    def load_params(self, tree):
+        """Copy the full param tree ``tree`` (numpy arrays, e.g. the
+        reference's carried over, or tensors) into ``params``, each leaf in
+        its member layout, in place; the optimizer state is untouched."""
+        host = map_tree(lambda a: a.detach().cpu().numpy()
+                        if isinstance(a, torch.Tensor) else np.asarray(a),
+                        tree)
+        self.params = self._place("params", self.params, host)
+
     # -- checkpoints ---------------------------------------------------
+    def _strip_mesh(self):
+        """The mesh of the zero1 strip state (the data members), or None
+        when the run has none."""
+        if self.comm is None or self.mesh is None:
+            return None
+        # the overlapped update is a bare function, at model_ways 1 only
+        plan = getattr(self.dist_update, "plan", None)
+        return self.mesh if plan is None else plan.mesh
+
     def _zero1_world(self):
         """This run's zero1 world layout (``checkpoint.replan``'s meta
         record), or None when the run has no strip state."""
-        if self.comm is None or self.mesh is None:
+        mesh = self._strip_mesh()
+        if mesh is None:
             return None
         from repro_torch.checkpoint.replan import world_meta
-        return world_meta([self.mesh.shape[a] for a in self.mesh.axis_names],
+        return world_meta([mesh.shape[a] for a in mesh.data_axes],
                           self.comm.hierarchical, self.comm.bucket_bytes)
 
     def _ckpt_meta(self):
         world = self._zero1_world()
         return {"zero1": world} if world is not None else None
 
+    def _layouts(self, name: str, tree):
+        """Per leaf of tree ``name`` (params or opt_state), in leaf order:
+        the spec of its member layout on ``mesh``, or None for a leaf held
+        as the checkpoint holds it (or as strips of ``_strip_mesh``)."""
+        leaves = tree_leaves(tree)
+        if self.mesh is None:
+            return [None] * len(leaves)
+        if name == "params":
+            return [self.ctx.held(s)
+                    for s in tree_leaves(self.family.param_specs(self.cfg))]
+        specs = getattr(self.dist_update, "strip", None)
+        if specs is None or self.comm is not None:
+            return [None] * len(leaves)
+        out, i = [], 0
+        for x in leaves:        # the state's fields repeat the param tree
+            if isinstance(x, torch.Tensor) and x.dim():
+                out.append(specs[i % len(specs)])
+                i += 1
+            else:
+                out.append(None)
+        return out
+
+    def _map_layout(self, name: str, tree, fn):
+        """``fn(leaf, layout)`` over tree ``name`` (``_layouts``)."""
+        it = iter(self._layouts(name, tree))
+        return map_tree(lambda x: fn(x, next(it)), tree)
+
+    def _global(self, name: str, tree):
+        """Tree ``name`` as the checkpoint holds it: every leaf at its full
+        shape, the strip state in the reference's global ``(G, n/G)``
+        rows (collectives on a process mesh: every rank calls it)."""
+        strips = self._strip_mesh() if name == "opt_state" else None
+
+        def one(x, spec):
+            if not isinstance(x, torch.Tensor):
+                return x
+            if spec is not None:
+                return from_members(x, spec, self.mesh)
+            if strips is not None and x.dim():
+                return strips.gather_members(x)
+            return x
+        return self._map_layout(name, tree, one)
+
     def _ckpt_gather(self):
-        """ckpt.save's gather: every member's rows of the strip state (a
-        0-d leaf, the stale-sync flag, is the same on every member and is
-        written as it is)."""
+        """ckpt.save's gather: each tree's global value (``_global``)."""
         if self.mesh is None:
             return None
-        mesh = self.mesh
-        return {"opt_state":
-                lambda x: mesh.gather_members(x) if x.dim() else x}
+        return {name: (lambda tree, name=name: self._global(name, tree))
+                for name in ("params", "opt_state")}
 
-    def _state_template(self, state):
-        """``state`` as the checkpoint holds it: on a process mesh every
-        tensor leaf of rank >= 1 gains the leading member dimension of G (a
-        zero-copy stand-in carrying the shape and dtype)."""
-        if self.mesh is None or self.mesh.member_dims:
-            return state
-        G = self.mesh.size
+    def _template(self, name: str, tree):
+        """Tree ``name`` as the checkpoint holds it, as zero-copy stand-ins
+        carrying the shape and dtype (``_global`` without the data)."""
+        strips = self._strip_mesh() if name == "opt_state" else None
 
-        def one(x):
+        def one(x, spec):
             if not isinstance(x, torch.Tensor) or not x.dim():
                 return x
+            if spec is not None:
+                shape = full_shape(x, spec, self.mesh)
+            elif strips is not None and not strips.member_dims:
+                shape = (strips.data_size, *x.shape)
+            else:
+                return x
             return np.broadcast_to(np.zeros((), ckpt_lib.np_dtype(x.dtype)),
-                                   (G, *x.shape))
-        return map_tree(one, state)
+                                   shape)
+        return self._map_layout(name, tree, one)
 
     def _stale_wrapped(self) -> bool:
         """True when this run's opt_state is the stale-sync dict around the
@@ -144,7 +227,7 @@ class Run:
         empty carry (this world's bucket shapes) and ``synced = 0``, so
         that the first resumed step applies its own reduce
         (``optim.dist.make_stale_sync_update``)."""
-        tpl = self._state_template(self.opt_state)["stale"]
+        tpl = self._template("opt_state", self.opt_state)["stale"]
         return {"stale": [np.zeros(*ckpt_lib.leaf_meta(r)) for r in tpl],
                 "synced": np.zeros((), np.int32), "zero1": inner}
 
@@ -158,7 +241,7 @@ class Run:
         """A restored inner strip state wrapped for a top-k run with a zero
         residual (this world's bucket shapes): the carried mass of a bare or
         other-world checkpoint has no owner here."""
-        tpl = self._state_template(self.opt_state)["residual"]
+        tpl = self._template("opt_state", self.opt_state)["residual"]
         return {"residual": [np.zeros(*ckpt_lib.leaf_meta(r)) for r in tpl],
                 "zero1": inner}
 
@@ -186,11 +269,12 @@ class Run:
             raise ValueError(
                 f"checkpoint step {step} does not match this run's shapes "
                 "and carries no zero1 world meta to re-plan from")
+        params_tpl = self._template("params", self.params)
         trees, _ = ckpt_lib.restore(self.spec.ckpt_dir, step,
-                                    params=self.params)
+                                    params=params_tpl)
         old_leaves = ckpt_lib.restore_loose(self.spec.ckpt_dir, step,
                                             "opt_state", template)
-        plan = plan_buckets(self.params, new_world["G"],
+        plan = plan_buckets(params_tpl, new_world["G"],
                             self.comm.bucket_bytes)
         trees["opt_state"] = replan_strip_state(
             template, old_leaves, plan, old_world, new_world)
@@ -199,25 +283,28 @@ class Run:
         return trees
 
     @torch.no_grad()
-    def _place(self, cur, host, members: bool):
+    def _place(self, name: str, cur, host):
         """Copy the host tree ``host`` (the checkpoint's layout) into the
-        run's tree ``cur`` in place; ``members``: a process mesh's rank
-        takes its row of each tensor of rank >= 1 (``mesh.own``).  Int
-        leaves (AdamW's count) are replaced."""
+        run's tree ``name``, ``cur``, in place: each leaf into its member
+        layout (``_layouts``), a process mesh's rank taking its row of the
+        strip state (``mesh.own``).  Int leaves (AdamW's count) are
+        replaced."""
         it = iter(tree_leaves(host))
-        own = members and self.mesh is not None
+        strips = self._strip_mesh() if name == "opt_state" else None
 
-        def put(c):
+        def put(c, spec):
             a = next(it)
             if not isinstance(c, torch.Tensor):
                 return int(a)
             # ascontiguousarray makes a 0-d array 1-d: shape it back
             src = torch.from_numpy(
                 np.ascontiguousarray(a).reshape(np.shape(a)))
-            if own and c.dim():
-                src = self.mesh.own(src, self.mesh.per_member(lambda m: m))
+            if spec is not None:
+                src = to_members(src, spec, self.mesh)
+            elif strips is not None and c.dim() and not strips.member_dims:
+                src = strips.own(src, strips.per_member(lambda m: m))
             return c.copy_(src)
-        return map_tree(put, cur)
+        return self._map_layout(name, cur, put)
 
     def restore(self, step: int):
         """Load checkpoint ``step`` of ``spec.ckpt_dir`` into the run's
@@ -230,7 +317,7 @@ class Run:
         same): the inner state restores, and the carry restarts empty
         (``synced = 0``: the first resumed step is synchronous) or the
         residual at zero."""
-        opt_tpl = self._state_template(self.opt_state)
+        opt_tpl = self._template("opt_state", self.opt_state)
         wrap = None
         if self._stale_wrapped() or self._ef_wrapped():
             keys = ckpt_lib.read_manifest(
@@ -240,16 +327,17 @@ class Run:
                 wrap = (self._reinit_stale if self._stale_wrapped()
                         else self._reinit_residual)
         try:
-            trees, _ = ckpt_lib.restore(self.spec.ckpt_dir, step,
-                                        params=self.params,
-                                        opt_state=opt_tpl)
+            trees, _ = ckpt_lib.restore(
+                self.spec.ckpt_dir, step,
+                params=self._template("params", self.params),
+                opt_state=opt_tpl)
         except ValueError:
             trees = self._restore_replan(step, opt_tpl)
         if wrap is not None:
             trees["opt_state"] = wrap(trees["opt_state"])
-        self.params = self._place(self.params, trees["params"], False)
-        self.opt_state = self._place(self.opt_state, trees["opt_state"],
-                                     True)
+        self.params = self._place("params", self.params, trees["params"])
+        self.opt_state = self._place("opt_state", self.opt_state,
+                                     trees["opt_state"])
 
     def fit(self, start_step: Optional[int] = None, log_fn=print):
         """Train for ``spec.steps`` steps; returns the metrics history (the

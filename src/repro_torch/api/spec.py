@@ -4,9 +4,9 @@ serve.
 
 ``RunSpec`` accepts every parallel mode name of the reference and validates
 it, its ``MeshSpec`` and its ``CommConfig`` as the reference does
-(``MODE_CAPS``); ``compile_run`` assembles ``serial``, ``zero1``,
-``stale-sync`` and ``gossip``, and raises "not ported yet" for ``dp`` and
-``zero1-gspmd``.
+(``MODE_CAPS``); ``compile_run`` assembles every mode, with model ways on
+the CNN and DNN families (on the transformer family and a cluster mesh
+they raise "not ported yet", ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
 
@@ -73,8 +73,9 @@ class TelemetrySpec:
 
 @dataclass(frozen=True)
 class MeshSpec:
-    """Member topology of the data-parallel modes: axes ``("pod", "data")``
-    when ``pods > 1``, ``("data",)`` otherwise.
+    """Member topology of the parallel modes: axes ``("pod", "data",
+    "model")`` when ``pods > 1``, ``("data", "model")`` otherwise (the
+    reference's).
 
     members_per_device: the G data-parallel members, all on the run's one
                         device along a leading member dimension
@@ -83,8 +84,12 @@ class MeshSpec:
                         its G from the visible (forced host) devices instead;
                         a card cannot be split by a flag.
     pods:               pods of the hierarchical schedule.
-    model_ways:         model-parallel ways (not ported yet: > 1 raises in
-                        ``compile_run``).
+    model_ways:         model-parallel ways within each data member (paper
+                        §3.3): the local mesh holds members_per_device x
+                        model_ways members, each model member the columns
+                        of every "ff"-sharded leaf (``core.sharding``); the
+                        CNN and DNN families (> 1 on an LM or a cluster
+                        raises in ``compile_run``).
     cluster:            one member per process of the live
                         ``torch.distributed`` group
                         (``launch.mesh.make_cluster_mesh``): the pod axis is
@@ -113,8 +118,7 @@ class RunSpec:
 
     arch:       registry id or a concrete config object of a ported family.
     smoke:      reduce the config to the family's CPU-sized smoke variant.
-    parallel:   one of ``PARALLEL_MODES``; ``"serial"``, ``"zero1"``,
-                ``"stale-sync"`` and ``"gossip"`` are ported.
+    parallel:   one of ``PARALLEL_MODES``, all ported.
     mesh:       member topology of the non-serial modes (ignored for
                 ``serial``).
     comm:       the explicit bucketed modes' communication knobs: a

@@ -19,12 +19,15 @@ Every leaf is written in its own dtype; AdamW's ``count``, a Python int in
 the port, is written as the reference holds it, a 0-d ``int32``, and read
 back to an int.  A leaf numpy cannot hold (bfloat16) raises.
 
-The zero1 strip state is written as the reference writes it, one global
-``(G, n/G)`` array per bucket in owner order.  A local mesh holds it so
-already; on a process mesh each rank holds its own row, so ``save`` takes a
-``gather`` per tree (``launch.mesh``'s ``gather_members``): a collective
-that every rank enters for the same leaves in the same order, after which
-only rank 0 writes, and every rank returns once it has written.  It
+Every leaf is written as the reference writes it, at its global shape:
+the zero1 strip state one ``(G, n/G)`` array per bucket in owner order, a
+model-sharded param or zero1-gspmd state leaf at its full shape.  A run
+holds some leaves otherwise (a process mesh's rank its own strip row, a
+model member its block), so ``save`` takes a ``gather`` per tree
+(``api.run.Run._global``: ``launch.mesh``'s ``gather_members``,
+``core.sharding.from_members``): a collective that every rank enters for
+the same trees in the same order, after which only rank 0 writes, and
+every rank returns once it has written.  It
 writes the manifest first and the ``.npz`` last, each to a temporary file
 moved into place with ``os.replace``: the
 ``.npz`` is what :func:`latest_step` looks for, so a checkpoint exists
@@ -106,20 +109,20 @@ def save(directory: str, step: int, meta: Optional[Dict[str, Any]] = None,
          gather: Optional[Mapping[str, Callable]] = None, **trees) -> str:
     """Write ``trees`` (name=tree) as checkpoint ``step`` of ``directory``
     and return the ``.npz`` path.  ``gather`` maps a tree name to a
-    function that turns one of its tensor leaves into the leaf's global
-    value (a collective on a process mesh: every rank calls ``save`` with
-    the same trees); only rank 0 then writes, and in an initialised group
-    no rank returns before the checkpoint is committed."""
+    function that turns the tree into its global value (a collective on a
+    process mesh: every rank calls ``save`` with the same trees); only rank
+    0 then writes, and in an initialised group no rank returns before the
+    checkpoint is committed."""
     payload: Dict[str, np.ndarray] = {}
     manifest: Dict[str, Any] = {"step": step, "trees": {},
                                 "meta": meta or {}}
     for name, tree in trees.items():
         fn = (gather or {}).get(name)
+        if fn is not None:
+            tree = fn(tree)
         keys = []
         for path, leaf in leaves_with_paths(tree):
             k = f"{name}:{path}"
-            if fn is not None and isinstance(leaf, torch.Tensor):
-                leaf = fn(leaf)
             payload[k] = to_host(leaf)
             keys.append(k)
         manifest["trees"][name] = keys

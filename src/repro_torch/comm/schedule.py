@@ -43,9 +43,10 @@ from repro_torch.core.collectives import (
 
 def group_axes(mesh, data_axes) -> Tuple[Tuple[str, ...], AxisNames, int]:
     """(axes, axis_arg, G) for the data-parallel group present on ``mesh``:
-    the requested axes filtered to the mesh, the single-name-or-tuple form
-    the collectives take, and the group size."""
-    axes = tuple(a for a in data_axes if a in mesh.axis_names)
+    the requested axes filtered to the mesh's data axes (the model axis is
+    never one: the §3.4 update runs over the data members), the
+    single-name-or-tuple form the collectives take, and the group size."""
+    axes = tuple(a for a in data_axes if a in mesh.data_axes)
     axis_arg = axes if len(axes) > 1 else axes[0]
     G = 1
     for a in axes:

@@ -1,7 +1,7 @@
 """Model and hardware configs: the port's own copy of
 ``repro.configs.base.ModelConfig``, ``ConvLayerSpec``, ``CNNConfig``,
-``DNNConfig``, ``HardwareConfig`` (with the reference's four platforms) and
-the block-kind constants, field for field (the two packages share no code,
+``DNNConfig``, ``InputShape`` and ``INPUT_SHAPES``, ``HardwareConfig``
+(with the reference's four platforms) and the block-kind constants, field for field (the two packages share no code,
 so a config object of one is rebuilt in the other from
 ``dataclasses.asdict``), plus the port's own ``H100_SXM`` entry."""
 from __future__ import annotations
@@ -150,6 +150,25 @@ class DNNConfig:
     num_hidden: int
     output_dim: int
     family: str = "dnn"
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

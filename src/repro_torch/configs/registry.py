@@ -8,9 +8,11 @@ import importlib
 from typing import Union
 
 from repro_torch.configs.base import (
+    INPUT_SHAPES,
     CNNConfig,
     ConvLayerSpec,
     DNNConfig,
+    InputShape,
     ModelConfig,
 )
 
@@ -34,6 +36,15 @@ _MODULES = {
 
 ARCHS = tuple(_MODULES)
 
+# assigned pool (10) + the paper's own workloads (3)
+ASSIGNED_ARCHS = (
+    "gemma2-2b", "qwen2-moe-a2.7b", "llama3-8b", "qwen2-vl-2b",
+    "zamba2-2.7b", "xlstm-125m", "musicgen-medium", "gemma-2b",
+    "h2o-danube-3-4b", "mixtral-8x22b",
+)
+PAPER_ARCHS = ("vgg-a", "overfeat-fast", "cd-dnn")
+ALL_ARCHS = ASSIGNED_ARCHS + PAPER_ARCHS
+
 AnyConfig = Union[ModelConfig, CNNConfig, DNNConfig]
 
 
@@ -42,6 +53,10 @@ def get_config(name: str) -> AnyConfig:
         raise KeyError(f"unknown arch {name!r}; choose from {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def get_input_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]
 
 
 def smoke_variant(cfg: AnyConfig) -> AnyConfig:

@@ -23,6 +23,21 @@ collectives the ring backend is held against: the same strip ownership
 (flat group member i owns chunk i) and the same wire-dtype semantics (they
 reduce in the dtype they are handed).  They take the schedules' canonical
 1-D buffers (one per member).
+
+The model axis (paper §3.3) adds the pair a column-parallel product needs,
+each a ``torch.autograd.Function`` (``core.sharding.ShardingCtx.column``):
+
+    copy_to_model   forward the identity, one copy of the input for each
+                    model member held here; backward the sum of the
+                    members' input gradients over the model group
+    gather_model    forward the members' output blocks joined along the
+                    last dim; backward each member keeps its own slice
+
+On a local mesh all M model members are here (M copies, a ``cat``); on a
+process mesh the rank is one of them (an ``all_reduce`` and an
+``all_gather`` over its model group, staged through host memory over
+gloo).  Without the pair, or with one of it doubled, the gradients are off
+by a factor M or miss terms, and training still runs.
 """
 from __future__ import annotations
 
@@ -173,3 +188,73 @@ def flatten_pad(x: torch.Tensor, group: int) -> torch.Tensor:
 
 def unflatten(flat: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return flat[:math.prod(shape)].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# The model axis: the two autograd functions of a column-parallel product
+# ---------------------------------------------------------------------------
+def _model_group(mesh):
+    return mesh.group(("model",))
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        n = mesh.model_ways if mesh.member_dims else 1
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        if mesh.member_dims:
+            g = grads[0]
+            for other in grads[1:]:
+                g = g + other
+            return g, None
+        import torch.distributed as dist
+        g = grads[0]
+        pg = _model_group(mesh)[0]
+        buf = staged_for(g, pg).clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, group=pg)
+        return buf.to(g.device), None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *ys):
+        ctx.mesh = mesh
+        if mesh.member_dims:
+            ctx.sizes = [y.shape[-1] for y in ys]
+            return torch.cat(ys, -1)
+        import torch.distributed as dist
+        (y,) = ys
+        pg, ranks = _model_group(mesh)
+        ctx.index, ctx.width = ranks.index(mesh.rank), y.shape[-1]
+        src = staged_for(y, pg).contiguous()
+        out = src.new_empty(len(ranks) * src.numel())
+        dist.all_gather_into_tensor(out, src.reshape(-1), group=pg)
+        # (M, ..., c) -> (..., M, c) -> (..., M * c)
+        out = out.view(len(ranks), *y.shape).movedim(0, -2)
+        return out.reshape(*y.shape[:-1], -1).to(y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.mesh.member_dims:
+            return (None, *(p.contiguous() for p in g.split(ctx.sizes, -1)))
+        lo = ctx.index * ctx.width
+        return None, g[..., lo:lo + ctx.width].contiguous()
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> Tuple[torch.Tensor, ...]:
+    """The input of a column-parallel product, once per model member held
+    here (M on a local mesh, 1 on a process mesh); the backward sums the
+    members' gradients over the model group."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def gather_model(ys, mesh) -> torch.Tensor:
+    """The model members' output blocks (those held here, in model order)
+    joined along the last dim, on every member; the backward hands each
+    member its own slice of the output gradient."""
+    return _GatherModel.apply(mesh, *ys)

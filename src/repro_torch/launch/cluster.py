@@ -86,13 +86,26 @@ def resolve_comm_backends(args) -> None:
 
 
 def check_cluster_args(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse, before any worker starts, the plain cross-pod reduce-scatter
-    of card buffers over gloo: every worker would raise in its first step
-    and the supervisor would shrink the world until one process, which
-    sums nothing, trains alone."""
+    """Refuse, before any worker starts, model ways (one member a process)
+    and the plain sums of card buffers over gloo (the cross-pod
+    reduce-scatter on lax, dp's and zero1-gspmd's gradient sums): every
+    worker would raise in its first step and the supervisor would shrink
+    the world until one process, which sums nothing, trains alone."""
     import torch
     from repro_torch.api import MODE_CAPS
     from repro_torch.api.assemble import default_comm
+    if args.model_ways > 1:
+        ap.error(f"--model-ways {args.model_ways} on a cluster is not ported "
+                 "yet (ROADMAP.md Queue A item 9b): a cluster runs one "
+                 "member a process; model ways run in one process "
+                 "(repro_torch.launch.train --model-ways)")
+    shared = (args.processes > 1
+              and torch.device(args.device or "cuda").type == "cuda"
+              and ranks_share_cards(args.processes))
+    if shared and args.parallel in ("dp", "zero1-gspmd"):
+        ap.error(f"--parallel {args.parallel} would all-reduce the card's "
+                 "gradients over gloo in host memory; when ranks share a "
+                 "card run zero1 on pallas-ring (the default)")
     if (args.processes > 1 and MODE_CAPS[args.parallel].comm
             and default_comm(args.parallel, cluster=True).hierarchical
             and args.cross_backend == "lax"

@@ -1,39 +1,52 @@
-"""Meshes of data-parallel members (``repro.launch.mesh``).
+"""Meshes of members (``repro.launch.mesh``).
 
-The reference runs G members as G devices of a ``jax`` mesh, on the CPU as
-G forced host devices.  The port has two kinds of mesh with the same axes,
-``("data",)`` or ``("pod", "data")`` when ``pods > 1``:
+The reference runs its members as the devices of a ``jax`` mesh, on the
+CPU as forced host devices.  The port has two kinds of mesh with the
+reference's axes, ``("data", "model")``, or ``("pod", "data", "model")``
+when ``pods > 1``: the G = pods x data data-parallel members of the
+paper's §3.3 groups, each group split ``model_ways`` ways.  Flat member
+index m is row-major over the axes, so the model members of one data group
+are consecutive.
 
-:class:`LocalMesh`    all G members on one device: a member tensor carries a
-                      leading dimension of G in flat member order (row-major
-                      over the axes, ``core.collectives.flat_group_index``).
-                      This is how one card runs the §3.4 update of G members;
-                      its ring is the reference's stacked single-core ring.
+:class:`LocalMesh`    all G x model_ways members on one device: a member
+                      tensor carries a leading dimension of the member
+                      count in flat member order
+                      (``core.collectives.flat_group_index``).  This is how
+                      one card runs the §3.4 update of G members; its ring
+                      is the reference's stacked single-core ring.
 :class:`ProcessMesh`  one member per rank of an initialised
-                      ``torch.distributed`` group; member tensors carry no
-                      member dimension.
+                      ``torch.distributed`` group, rank = flat member index;
+                      member tensors carry no member dimension.  Each axis
+                      set has its own process group (the model group and
+                      the data group of every rank among them).
 
 Which layout a member tensor has is the mesh's one decision: the
 collectives, backends, schedules, ``optim.dist.UpdatePlan``, the data
 placer and the checkpoints are written once against the methods below
 (``member_dims``, ``per_member``, ``replicated``, ``own``, ``one``,
-``map_members``, ``collective``, ``gather_members`` and ``batch_shard``),
-which each mesh implements for its layout.  A local mesh's members all see
-the full batch; a process mesh's rank sees its rows of it.
+``map_members``, ``collective``, ``gather_members``, ``batch_shard`` and
+``model_blocks``), which each mesh implements for its layout.  A local
+mesh's members all see the full batch; a process mesh's rank sees its data
+group's rows of it, the same rows as the other model members of its group.
+
+The §3.4 strip update runs over the data axes alone, on ``data_view()``:
+the mesh of the G data members (model axis 1), which the model members of
+a group share (``optim.dist.ModelGatheredUpdate``).  The model-sharded
+params and the model-axis collectives are ``core.sharding`` and
+``core.collectives``.
 
 :func:`make_cluster_mesh` is the mesh of a cluster run
 (``MeshSpec(cluster=True)``): one member a process, the pod axis the
-process boundary.
+process boundary; it refuses model ways (ROADMAP Queue A item 9b).
 
 A mesh's device defaults to the GPU (``device.resolve_device``): pass
 ``device="cpu"`` to hold the members on the CPU.
-
-Model ways (the reference's ``"model"`` axis) are not ported: a
-``model_ways > 1`` raises.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,16 +55,53 @@ from repro_torch.device import resolve_device
 
 
 def _axes_for(pods: int) -> Tuple[str, ...]:
-    return ("pod", "data") if pods > 1 else ("data",)
+    return ("pod", "data", "model") if pods > 1 else ("data", "model")
 
 
-def _check_extents(members: int, pods: int, model_ways: int) -> None:
-    if model_ways != 1:
-        raise NotImplementedError(
-            f"model_ways={model_ways}: model-parallel meshes are not ported "
-            "yet; the port's meshes are data-parallel only")
-    if pods < 1 or members < 1 or members % pods:
-        raise ValueError(f"{members} members do not split into {pods} pods")
+def _shape_for(data_members: int, pods: int, model_ways: int
+               ) -> Dict[str, int]:
+    """The axes' extents of ``data_members`` data members in ``pods`` pods,
+    each split ``model_ways`` ways."""
+    if (pods < 1 or model_ways < 1 or data_members < 1
+            or data_members % pods):
+        raise ValueError(f"{data_members} data members do not split into "
+                         f"{pods} pods (model_ways={model_ways})")
+    ext = ((pods, data_members // pods) if pods > 1
+           else (data_members,)) + (model_ways,)
+    return dict(zip(_axes_for(pods), ext))
+
+
+def _divisible_factorization(n: int, model_ways: int, pods: int):
+    """Largest factorization (model_ways', pods') with model_ways' <=
+    model_ways and pods' <= pods such that ``pods' * model_ways'`` divides
+    ``n``, so that the data axis absorbs every member.  Model ways take
+    priority (shrinking the model group changes the math less than
+    training on fewer members); always terminates at (1, 1)."""
+    for mw in range(model_ways, 0, -1):
+        for p in range(min(pods, n // mw), 0, -1):
+            if n % (mw * p) == 0:
+                return mw, p
+    return 1, 1
+
+
+def fit_world(n: int, model_ways: int = 1, pods: int = 1
+              ) -> Tuple[int, int]:
+    """(model_ways, pods) for a world of ``n`` members, as the reference's
+    ``make_host_mesh`` clamps them: both counts clamped to what the world
+    holds, and a request that does not divide it replaced, with a warning,
+    by :func:`_divisible_factorization` (no member goes unused)."""
+    model_ways = max(1, min(model_ways, n))
+    pods = max(1, min(pods, n // model_ways))
+    if n % (model_ways * pods):
+        dropped = n - pods * (n // (model_ways * pods)) * model_ways
+        mw2, p2 = _divisible_factorization(n, model_ways, pods)
+        warnings.warn(
+            f"make_process_mesh: model_ways={model_ways} x pods={pods} does "
+            f"not divide the {n} ranks and would drop {dropped} of them; "
+            f"using the largest divisible factorization model_ways={mw2} x "
+            f"pods={p2} instead (all {n} ranks used)", stacklevel=3)
+        model_ways, pods = mw2, p2
+    return model_ways, pods
 
 
 class _Mesh:
@@ -61,6 +111,21 @@ class _Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The data-parallel group axes: ``("pod", "data")`` or
+        ``("data",)``."""
+        return tuple(a for a in self.axis_names if a != "model")
+
+    @property
+    def data_size(self) -> int:
+        """G, the data-parallel members (groups of the paper's §3.3)."""
+        return math.prod(self.shape[a] for a in self.data_axes)
+
+    @property
+    def model_ways(self) -> int:
+        return self.shape["model"]
 
     def coords(self, member: int) -> Dict[str, int]:
         """Axis coordinates of flat member index ``member`` (row-major)."""
@@ -128,6 +193,18 @@ class LocalMesh(_Mesh):
 
     batch_shard = None     # every member sees the whole batch
 
+    def model_blocks(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each model member's block of a model-sharded leaf in member
+        layout (``core.sharding``: ``(M, *block)``), contiguous views."""
+        return x.unbind(0)
+
+    def data_view(self) -> "LocalMesh":
+        """The mesh of the G data members alone (module docstring)."""
+        if self.model_ways == 1:
+            return self
+        return LocalMesh(self.data_size, self.shape.get("pod", 1),
+                         device=self.device)
+
     def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
                    stacked: Collective, over_ranks: Collective
                    ) -> torch.Tensor:
@@ -146,11 +223,11 @@ class LocalMesh(_Mesh):
 
     def __init__(self, members: int, pods: int = 1, model_ways: int = 1,
                  device: Optional[torch.device] = None):
-        _check_extents(members, pods, model_ways)
-        self.axis_names = _axes_for(pods)
-        self.shape = dict(zip(self.axis_names,
-                              (pods, members // pods) if pods > 1
-                              else (members,)))
+        """``members`` data members (``MeshSpec.members_per_device``) in
+        ``pods`` pods, each split ``model_ways`` ways: members x model_ways
+        members in all."""
+        self.shape = _shape_for(members, pods, model_ways)
+        self.axis_names = tuple(self.shape)
         self.device = resolve_device(device)
 
     def __repr__(self) -> str:
@@ -159,8 +236,9 @@ class LocalMesh(_Mesh):
 
 class ProcessMesh(_Mesh):
     """One member per rank of the initialised default process group, flat
-    member index = rank.  Builds one process group per collective axis set
-    (every rank must construct the mesh, in the same order)."""
+    member index = rank.  Builds one process group per set of axes (the
+    model axis only when it is more than 1; every rank must construct the
+    mesh, in the same order)."""
     member_dims = 0
 
     def __init__(self, pods: int = 1, model_ways: int = 1,
@@ -170,30 +248,50 @@ class ProcessMesh(_Mesh):
             raise RuntimeError("ProcessMesh needs an initialised "
                                "torch.distributed process group")
         world = dist.get_world_size()
-        _check_extents(world, pods, model_ways)
-        self.axis_names = _axes_for(pods)
-        self.shape = dict(zip(self.axis_names,
-                              (pods, world // pods) if pods > 1
-                              else (world,)))
-        self.rank = dist.get_rank()
+        model_ways, pods = fit_world(world, model_ways, pods)
+        self.shape = _shape_for(world // model_ways, pods, model_ways)
+        self.axis_names = tuple(self.shape)
+        self.rank = self.member = dist.get_rank()
         self.device = resolve_device(device)
         self._groups = {}
-        subsets = [self.axis_names] + ([(a,) for a in self.axis_names]
-                                       if pods > 1 else [])
-        for axes in subsets:
-            for ranks in self.groups(axes):
-                pg = dist.group.WORLD if len(ranks) == world \
-                    else dist.new_group(ranks)
-                if self.rank in ranks:
-                    self._groups[axes] = (pg, ranks)
+        live = [a for a in self.axis_names
+                if a != "model" or model_ways > 1]
+        for n in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                for ranks in self.groups(axes):
+                    pg = dist.group.WORLD if len(ranks) == world \
+                        else dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[axes] = (pg, ranks)
+
+    def data_view(self) -> "ProcessMesh":
+        """The mesh of the G data members alone (module docstring): this
+        rank's data group, its member index the rank's place there; it
+        shares this mesh's process groups."""
+        if self.model_ways == 1:
+            return self
+        v = object.__new__(ProcessMesh)
+        v.shape = {**self.shape, "model": 1}
+        v.axis_names = self.axis_names
+        v.rank, v.device = self.rank, self.device
+        v.member = self._groups[self._key(self.data_axes)][1].index(
+            self.rank)
+        v._groups = {k: g for k, g in self._groups.items()
+                     if "model" not in k}
+        return v
+
+    def _key(self, axes) -> Tuple[str, ...]:
+        """``axes`` without a model axis of 1 (it changes no group)."""
+        return tuple(a for a in axes
+                     if a != "model" or self.shape["model"] > 1)
 
     def group(self, axes: Tuple[str, ...]):
         """(process group, its global ranks in flat group order) of this
         rank's group over ``axes``."""
-        return self._groups[tuple(axes)]
+        return self._groups[self._key(axes)]
 
     def per_member(self, fn: Callable[[int], int]) -> int:
-        return fn(self.rank)
+        return fn(self.member)
 
     def replicated(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -214,7 +312,7 @@ class ProcessMesh(_Mesh):
         import torch.distributed as dist
 
         from repro_torch.core.collectives import staged_for
-        pg, ranks = self.group(self.axis_names)
+        pg, ranks = self.group(self.data_axes)
         x = staged_for(x, pg).contiguous()
         out = x.new_empty(len(ranks) * x.numel())
         dist.all_gather_into_tensor(out, x.reshape(-1), group=pg)
@@ -222,9 +320,17 @@ class ProcessMesh(_Mesh):
 
     @property
     def batch_shard(self) -> Tuple[int, int]:
-        """(this rank, G): the rank keeps rows ``[r*B/G, (r+1)*B/G)`` of each
-        global batch (``data.pipeline.make_placer``)."""
-        return self.rank, self.size
+        """(d, G), d this rank's data-group index: the rank keeps rows
+        ``[d*B/G, (d+1)*B/G)`` of each global batch
+        (``data.pipeline.make_placer``), as do the other model members of
+        its group."""
+        from repro_torch.core.collectives import group_index
+        return (group_index(self, self.data_axes, self.member),
+                self.data_size)
+
+    def model_blocks(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """This rank's block of a model-sharded leaf: the leaf itself."""
+        return (x,)
 
     def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
                    stacked: Collective, over_ranks: Collective
@@ -241,30 +347,39 @@ class ProcessMesh(_Mesh):
 def make_local_mesh(members: int, pods: int = 1, model_ways: int = 1,
                     device=None) -> LocalMesh:
     """``members`` data-parallel members on ``device`` (default: the GPU),
-    in ``pods`` pods."""
+    in ``pods`` pods, each split ``model_ways`` ways."""
     return LocalMesh(members, pods, model_ways, device)
 
 
 def make_process_mesh(pods: int = 1, model_ways: int = 1,
                       device=None) -> ProcessMesh:
     """One member per rank of the initialised ``torch.distributed`` group,
-    in ``pods`` pods of consecutive ranks, on ``device`` (default: the
-    GPU)."""
+    in ``pods`` pods of consecutive ranks, ``model_ways`` consecutive ranks
+    a data group, on ``device`` (default: the GPU).  A world that
+    ``model_ways x pods`` does not divide takes the largest divisible
+    factorization, with a warning (:func:`fit_world`)."""
     return ProcessMesh(pods, model_ways, device)
 
 
 def make_cluster_mesh(model_ways: int = 1, device=None):
     """The mesh of a cluster run (``repro.launch.mesh.make_cluster_mesh``):
     the pod axis is the process boundary, one member a process, so axes
-    ``("pod", "data")`` = ``(world, 1)`` over the live process group, and
-    the reference's zero1 world layout for the same world.  With one
-    process (no group, or a group of one) it is a one-member local mesh, as
-    the reference falls back to the host mesh.
+    ``("pod", "data", "model")`` = ``(world, 1, 1)`` over the live process
+    group, and the reference's zero1 world layout for the same world.  With
+    one process (no group, or a group of one) it is a one-member local
+    mesh, as the reference falls back to the host mesh.  Model ways raise:
+    a cluster of one member a process has none to split (ROADMAP Queue A
+    item 9b), and shrinking a world with a model axis is later work.
 
     ``device`` defaults to the GPU: rank r takes ``cuda:(r % cards)``; pass
     ``device="cpu"`` for CPU ranks."""
     import torch.distributed as dist
-    _check_extents(1, 1, model_ways)
+    if model_ways != 1:
+        raise NotImplementedError(
+            f"model_ways={model_ways} on a cluster mesh is not ported yet "
+            "(ROADMAP.md Queue A item 9b): a cluster runs one member a "
+            "process; model ways run on make_local_mesh or "
+            "make_process_mesh")
     world = dist.get_world_size() if dist.is_initialized() else 1
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:

@@ -16,30 +16,32 @@ import argparse
 
 from repro_torch.api import Run, RunSpec, compile_run
 from repro_torch.configs.base import DNNConfig, ModelConfig
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.models import cnn, dnn, transformer
 from repro_torch.train import make_overlapped_train_step, make_train_step
 
 
-def kernel_loss(cfg):
+def kernel_loss(cfg, ctx: ShardingCtx = ShardingCtx()):
     """The family's loss on its kernel: a CNN's forward convs on the
     direct-conv kernel, a DNN's forward products on the blocked GEMM
-    (``forward(use_kernel=True)``), an LM's attention forwards on the flash
+    (``forward(use_kernel=True)``; under a model axis one launch per model
+    member's block, ``ctx``), an LM's attention forwards on the flash
     kernel (``lm_loss(use_kernel=True)``); the backward is PyTorch's (for
     attention, ``attention_ref``'s gradient)."""
     if isinstance(cfg, ModelConfig):
         return lambda p, b: transformer.lm_loss(p, cfg, b, use_kernel=True)
     model = dnn if isinstance(cfg, DNNConfig) else cnn
-    return lambda p, b: model.loss_fn(p, cfg, b, use_kernel=True)
+    return lambda p, b: model.loss_fn(p, cfg, b, use_kernel=True, ctx=ctx)
 
 
 def use_kernel(run: Run) -> Run:
     """Swap ``run``'s loss for :func:`kernel_loss`; the rest of the
     assembly (optimizer, schedule, data, trainer, the overlapped or
     monolithic update) is untouched."""
-    run.loss_fn = kernel_loss(run.cfg)
+    run.loss_fn = kernel_loss(run.cfg, run.ctx)
     if run.comm is not None and run.comm.overlap:
         run.train_step = make_overlapped_train_step(
-            run.loss_fn, run.lr_schedule, run.mesh, run.mesh.axis_names,
+            run.loss_fn, run.lr_schedule, run.mesh, run.mesh.data_axes,
             run.comm, run.dist_update, grad_clip=run.spec.grad_clip)
     else:
         run.train_step = make_train_step(run.loss_fn, run.optimizer,

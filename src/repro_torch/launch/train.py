@@ -6,10 +6,16 @@ A thin argparse layer over the run-assembly API: the flags build a
 and their choices are the reference's, plus ``--device`` and
 ``--use-kernel`` (the family's forward on the port's Hopper kernel, as
 ``launch.paper_cnn_training`` has it; the reference's launcher keeps its
-XLA route); what the port
-does not run yet (``--parallel dp|zero1-gspmd``, ``--model-ways > 1``)
-parses and then raises in ``compile_run``.  ``--parallel`` defaults to
-``serial``, since the reference's default (``dp``) is not ported.
+XLA route).  ``--parallel`` defaults to ``dp``, as in the reference.
+``--model-ways M`` splits each of the ``--pods`` data members M ways
+(paper §3.3, on one device: ``launch.mesh.LocalMesh``) for the CNN and DNN
+families; on an LM it parses and then raises in ``compile_run`` (ROADMAP
+Queue A item 9b).
+
+    # the paper's hybrid on the CPU: 2 data members x 2 model ways, each
+    # member's FC products on its own columns (the GEMM's plain version)
+    python -m repro_torch.launch.train --arch cd-dnn --smoke --device cpu \
+        --model-ways 2 --pods 2 --use-kernel
 
     # the paper's §3.4 strip update on the ring kernels, each bucket's
     # reduce issued inside backprop (one member a pod, on one card)
@@ -112,7 +118,7 @@ def spec_from_args(args, cluster: bool = False) -> RunSpec:
 
 
 def add_run_args(ap: argparse.ArgumentParser,
-                 parallel_default: str = "serial", cluster: bool = False):
+                 parallel_default: str = "dp", cluster: bool = False):
     """The training-run flags, shared with ``repro_torch.launch.cluster``
     so that a cluster run is configured with exactly the flags of a
     one-process run.  ``cluster`` leaves ``--comm-backend`` unset (None):
@@ -131,15 +137,18 @@ def add_run_args(ap: argparse.ArgumentParser,
                          "data-parallel ways, gradual warmup from lr)")
     ap.add_argument("--parallel", default=parallel_default,
                     choices=list(PARALLEL_MODES),
-                    help="serial | zero1 (explicit bucketed §3.4 strips) | "
-                         "stale-sync (the strips reduced a step earlier) | "
-                         "gossip (a rotating partner exchange) run in the "
-                         "port; dp and zero1-gspmd parse and are not ported "
-                         f"yet (default {parallel_default})")
+                    help="serial | dp (GSPMD data parallel) | zero1 "
+                         "(explicit bucketed §3.4 strips) | zero1-gspmd "
+                         "(per-leaf sharded optimizer state) | stale-sync "
+                         "(the strips reduced a step earlier) | gossip (a "
+                         "rotating partner exchange) "
+                         f"(default {parallel_default})")
     ap.add_argument("--pods", type=int, default=1,
                     help="pod axis extent (>1 adds the cross-pod "
                          "hierarchical hop)")
-    ap.add_argument("--model-ways", type=int, default=1)
+    ap.add_argument("--model-ways", type=int, default=1,
+                    help="model-parallel ways within each data-parallel "
+                         "group (paper §3.3; the CNN and DNN families)")
     ap.add_argument("--bucket-mb", type=float, default=None,
                     help="fusion-buffer size in MiB for --parallel zero1 "
                          "(default 4)")

@@ -6,6 +6,12 @@ across from the JAX package with no transpose.  Each layer's product
 ``h @ W`` is a plain ``@`` or, with ``use_kernel=True``, the Hopper blocked
 GEMM's autograd wrapper ``kernels.blocked_matmul.matmul``; the bias add and
 the sigmoid stay PyTorch, as in the reference.
+
+Under a model axis (``ctx``, ``core.sharding.ShardingCtx``) every layer's
+weight and bias shard their output ("ff") dim: each model member runs the
+product on its own contiguous block of columns (one GEMM launch a member
+on the kernel route) and ``gather_model`` joins the blocks, where the
+reference constrains the activation to ``("batch", "ff")``.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import DNNConfig
 from repro_torch.core.params import Spec, init_tree
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.device import resolve_device
 from repro_torch.kernels import blocked_matmul as kmm
 
@@ -43,24 +50,32 @@ def init_params(cfg: DNNConfig, seed: int = 0, device=None
 
 
 def forward(params, cfg: DNNConfig, x: torch.Tensor,
-            use_kernel: bool = False) -> torch.Tensor:
+            use_kernel: bool = False,
+            ctx: ShardingCtx = ShardingCtx()) -> torch.Tensor:
     """x: (N, input_dim) frames -> logits (N, output_dim); sigmoid on every
-    hidden layer, none on the last."""
+    hidden layer, none on the last.  ``params`` in ``ctx``'s member
+    layout."""
+    specs = param_specs(cfg)
+
+    def layer(x, w, b):
+        return (kmm.matmul(x, w) if use_kernel else x @ w) + b
+
     h = x
     n_layers = cfg.num_hidden + 1
     for i in range(n_layers):
-        w = params[f"fc{i:02d}_w"]
-        h = (kmm.matmul(h, w) if use_kernel else h @ w) \
-            + params[f"fc{i:02d}_b"]
+        keys = (f"fc{i:02d}_w", f"fc{i:02d}_b")
+        h = ctx.column(h, [params[k] for k in keys],
+                       [specs[k] for k in keys], layer)
         if i < n_layers - 1:
             h = torch.sigmoid(h)        # CD-DNN uses sigmoid hidden units
     return h
 
 
 def loss_fn(params, cfg: DNNConfig, batch: dict,
-            use_kernel: bool = False) -> torch.Tensor:
+            use_kernel: bool = False,
+            ctx: ShardingCtx = ShardingCtx()) -> torch.Tensor:
     """Mean frame cross-entropy over senones, ``logsumexp - logit[senone]``."""
-    lf = forward(params, cfg, batch["frames"], use_kernel).float()
+    lf = forward(params, cfg, batch["frames"], use_kernel, ctx).float()
     sen = batch["senones"].long()[:, None]
     nll = torch.logsumexp(lf, -1) - lf.gather(-1, sen)[:, 0]
     return nll.mean()

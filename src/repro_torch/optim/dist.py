@@ -40,6 +40,20 @@ partner exchange (``comm.backends.gossip``; the schedule carries the step,
 so the partner rotation advances).  The monolithic constructors'
 ``update_fn`` is a :class:`DistUpdate`, callable whole or in its reduce and
 apply halves (a process mesh's train step clips between them).
+
+Model ways (paper §3.3).  The reference runs these modes under
+``shard_map`` with params ``P()``: every member sees full leaves, plans its
+buckets over the full tree at G = the data extent, and every model member
+of a group updates the same strip.  :class:`ModelGatheredUpdate` does the
+same around any of them: it gathers the model shards into full gradients
+and params, runs the pipeline above on the mesh's ``data_view()``, and lets
+each member keep its columns; so the bucket plan, the strip layout and the
+checkpoints are those of ``model_ways=1``.  :class:`GspmdUpdate` is the
+reference's two GSPMD modes, per leaf on each member's own shard: ``dp``
+(the optimizer on the member's params and state, the gradient the mean over
+the data axes) and ``zero1-gspmd`` (each leaf's gradient reduce-scattered
+along its state's data dim, ``train.zero1_state_shardings``, the member's
+strip updated, the params all-gathered back).
 """
 from __future__ import annotations
 
@@ -64,7 +78,16 @@ from repro_torch.comm.schedule import (
     make_schedule,
     reduce_mean,
 )
-from repro_torch.core.params import tree_leaves
+from repro_torch.core import collectives as coll
+from repro_torch.core.params import map_tree, tree_leaves
+from repro_torch.core.sharding import (
+    ShardingCtx,
+    entry_axes,
+    from_members,
+    to_members,
+    used_axes,
+    zero1_state_spec,
+)
 from repro_torch.kernels.ref import topk_mask_ref
 
 DEFAULT_COMM = CommConfig()
@@ -396,3 +419,219 @@ def make_topk_ef_update(optimizer, mesh, data_axes=("data",),
                 {"residual": opt_state["residual"], "zero1": inner})
 
     return init_fn, DistUpdate(up, reduce, apply)
+
+
+class ModelGatheredUpdate:
+    """A :class:`DistUpdate` (zero1, stale-sync, gossip, top-k) at
+    model_ways > 1 (module docstring): ``params`` and ``grads`` enter in
+    ``ctx``'s member layout (``specs``: the param ``Spec`` tree); the
+    inner update, built on ``mesh.data_view()``, sees them whole, and its
+    state is the strip state of ``model_ways=1``.  The halves are
+    ``DistUpdate``'s, for a process mesh's train step."""
+
+    def __init__(self, inner: DistUpdate, ctx: ShardingCtx, specs):
+        self.inner, self.ctx, self.specs = inner, ctx, specs
+        self.plan = inner.plan
+
+    def _scatter(self, params, full):
+        """Each member keeps its columns of the updated full params."""
+        for p, f in zip(tree_leaves(params),
+                        tree_leaves(self.ctx.place(full, self.specs))):
+            if p is not f:
+                p.copy_(f)
+        return params
+
+    @torch.no_grad()
+    def __call__(self, params, grads, opt_state, lr, step=0):
+        full = self.ctx.full(params, self.specs)
+        full, opt_state = self.inner(full, self.ctx.full(grads, self.specs),
+                                     opt_state, lr, step)
+        return self._scatter(params, full), opt_state
+
+    @torch.no_grad()
+    def reduce(self, params, grads, opt_state, step=0):
+        full = self.ctx.full(grads, self.specs)
+        return self.inner.reduce(full, full, opt_state, step)
+
+    @torch.no_grad()
+    def local(self, params, g_strips, opt_state, lr, step=0):
+        full, opt_state = self.inner.local(
+            self.ctx.full(params, self.specs), g_strips, opt_state, lr, step)
+        return self._scatter(params, full), opt_state
+
+
+def make_model_gathered(make_update, optimizer, mesh, ctx: ShardingCtx,
+                        specs, **kw):
+    """``make_update`` (one of this module's constructors) at the model
+    ways of ``mesh``: ``(init_fn, update_fn)`` over ``mesh.data_view()``,
+    wrapped in :class:`ModelGatheredUpdate`; its ``init_fn`` takes the
+    member-layout params.  At model_ways 1 it is ``make_update`` itself."""
+    if mesh.model_ways == 1:
+        return make_update(optimizer, mesh, **kw)
+    init_fn, update = make_update(optimizer, mesh.data_view(), **kw)
+    return (lambda params: init_fn(ctx.full(params, specs)),
+            ModelGatheredUpdate(update, ctx, specs))
+
+
+def _data_dim(spec, axes) -> Optional[int]:
+    """The dim of ``spec`` that holds the data axes, or None; the data
+    axes must all sit on it (a split over two dims is FSDP's, item 9b)."""
+    dims = [i for i, e in enumerate(spec)
+            if set(entry_axes(e)) & {"pod", "data"}]
+    if not dims:
+        return None
+    if len(dims) > 1 or tuple(entry_axes(spec[dims[0]])) != tuple(axes):
+        raise NotImplementedError(
+            f"a state spec {spec} that splits the data axes {axes} other "
+            "than on one dim is not ported yet (ROADMAP.md Queue A item 9b)")
+    return dims[0]
+
+
+class GspmdUpdate:
+    """The reference's GSPMD update modes over ``mesh`` (module docstring):
+    ``dp`` (``zero1=False``) and ``zero1-gspmd`` (``zero1=True``).  Params
+    and gradients are in ``ctx``'s member layout (``specs``: the param
+    ``Spec`` tree).  The dp state has the params' layout; the zero1-gspmd
+    state the member layout of :func:`~repro_torch.core.sharding.
+    zero1_state_spec` (on a local mesh ``(G, M, ...)`` for a weight whose
+    rows take the data strip), the reference's ``opt_state`` placed by
+    ``zero1_state_shardings``.
+
+    On a local mesh every member's gradient is the whole batch's, so the
+    mean over the data axes is the gradient itself and the reduce-scatter
+    is a re-layout into strips.  On a process mesh each rank's gradient is
+    of its data group's rows: dp takes the mean over the data axes with
+    ``all_reduce``, zero1-gspmd each leaf's ``reduce_scatter_tensor`` along
+    its state's data dim; both refuse a card's buffers over gloo, as
+    ``core.collectives.part_reduce`` does (the sums would run in host
+    memory).
+
+    update_fn(params, grads, opt_state, lr, step=0) -> (params, opt_state),
+    both advanced in place; ``reduce`` and ``local`` are its halves and
+    ``clip`` the norm and clip between them (``train.make_train_step``)."""
+
+    def __init__(self, optimizer, mesh, ctx: ShardingCtx, specs,
+                 zero1: bool):
+        self.optimizer, self.mesh, self.zero1 = optimizer, mesh, zero1
+        self.axes, self.axis_arg, self.G = group_axes(mesh, mesh.data_axes)
+        self.plan = self            # the train step reads mesh, axis_arg, G
+        leaves = tree_leaves(specs)
+        self.held = [ctx.held(s) for s in leaves]
+        self.strip = [zero1_state_spec(s.axes, s.shape, mesh, ctx.rules)
+                      for s in leaves] if zero1 else self.held
+
+    def _map(self, fn, tree, *others):
+        """``fn(i, leaf, *other_leaves)`` over a tree of the params'
+        structure, i the leaf's index."""
+        its = [iter(tree_leaves(o)) for o in others]
+        idx = iter(range(len(self.held)))
+        return map_tree(lambda x: fn(next(idx), x, *(next(i) for i in its)),
+                        tree)
+
+    def _data_group(self, buf):
+        pg = self.mesh.group(self.axes)[0]
+        if coll.gloo_stages(buf, pg):
+            raise NotImplementedError(
+                "the plain all-reduce or reduce-scatter of a card's buffers "
+                "over gloo would sum them in host memory: run dp and "
+                "zero1-gspmd over NCCL (one rank per card), or zero1 on the "
+                "pallas-ring backend")
+        return pg
+
+    def _strips(self, tree):
+        """Each member's strips of a param-layout tree (no reduction)."""
+        if not self.zero1:
+            return tree
+        if self.mesh.member_dims:
+            return self._map(lambda i, x: to_members(
+                from_members(x, self.held[i], self.mesh), self.strip[i],
+                self.mesh), tree)
+
+        def own(i, x):
+            k = _data_dim(self.strip[i], self.axes)
+            if k is None:
+                return x.clone()
+            n = x.shape[k] // self.G
+            d = coll.group_index(self.mesh, self.axes, self.mesh.member)
+            return x.narrow(k, d * n, n).contiguous()
+        return self._map(own, tree)
+
+    @torch.no_grad()
+    def init_fn(self, params):
+        return self.optimizer.init(self._strips(params))
+
+    @torch.no_grad()
+    def reduce(self, params, grads, opt_state, step=0):
+        """The mean gradient over the data axes, in the state's layout."""
+        if self.mesh.member_dims or self.G == 1:
+            return self._strips(grads)
+        import torch.distributed as dist
+
+        def one(i, g):
+            pg = self._data_group(g)
+            k = _data_dim(self.strip[i], self.axes) if self.zero1 else None
+            if k is None:
+                dist.all_reduce(g, group=pg)
+                return g.div_(self.G)
+            x = g.movedim(k, 0).contiguous()
+            out = x.new_empty(x.shape[0] // self.G, *x.shape[1:])
+            dist.reduce_scatter_tensor(out, x, group=pg)
+            return out.div_(self.G).movedim(0, k).contiguous()
+        return self._map(one, grads)
+
+    @torch.no_grad()
+    def local(self, params, g, opt_state, lr, step=0):
+        """The optimizer on each member's strips, then (zero1-gspmd) the
+        params gathered back from the updated strips, in place."""
+        if not self.zero1:
+            return self.optimizer.update(g, opt_state, params, lr)
+        strips, opt_state = self.optimizer.update(g, opt_state,
+                                                  self._strips(params), lr)
+
+        def back(i, p, s):
+            if self.mesh.member_dims:
+                p.copy_(to_members(from_members(s, self.strip[i], self.mesh),
+                                   self.held[i], self.mesh))
+                return p
+            k = _data_dim(self.strip[i], self.axes)
+            if k is None or self.G == 1:
+                return p.copy_(s)
+            import torch.distributed as dist
+            x = s.movedim(k, 0).contiguous()
+            out = x.new_empty(x.shape[0] * self.G, *x.shape[1:])
+            dist.all_gather_into_tensor(out, x,
+                                        group=self.mesh.group(self.axes)[0])
+            return p.copy_(out.movedim(0, k))
+        self._map(back, params, strips)
+        return params, opt_state
+
+    def __call__(self, params, grads, opt_state, lr, step=0):
+        return self.local(params, self.reduce(params, grads, opt_state, step),
+                          opt_state, lr, step)
+
+    @torch.no_grad()
+    def clip(self, g, grad_clip: float) -> torch.Tensor:
+        """The global norm of the reduced gradient ``g`` (the state's
+        layout) and ``g`` clipped to ``grad_clip`` in place.  A block held
+        by several members (replicated over an axis its spec does not use)
+        counts once: on a process mesh only where its coordinate on those
+        axes is 0, before the sum over every rank."""
+        mesh = self.mesh
+        sq = []
+        for i, x in enumerate(tree_leaves(g)):
+            if not mesh.member_dims:
+                c = mesh.coords(mesh.member)
+                used = used_axes(self.strip[i], mesh)
+                if any(c[a] for a in mesh.axis_names if a not in used):
+                    continue
+            sq.append(torch.sum(torch.square(x.float())))
+        total = sum(sq) if sq else torch.zeros((), device=mesh.device)
+        if not mesh.member_dims:
+            total = coll.psum(total, mesh, mesh.axis_names)
+        gnorm = torch.sqrt(total)
+        if grad_clip > 0:
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+            for x in tree_leaves(g):
+                x.mul_(scale)
+        return gnorm

@@ -15,7 +15,15 @@ gradient).  On a process mesh (``launch.mesh.ProcessMesh``) each rank
 computes its own rows of the batch (``data.pipeline.make_placer``), as the
 reference's ranks do under ``bspec = P(axis)``: its gradient is its rows',
 so the step reduces first and takes the norm and the clip from the reduced
-strips (:func:`clip_strips`), and its loss is the group mean.
+strips (:func:`clip_strips`, or the update's own ``clip`` under dp and
+zero1-gspmd, ``optim.dist.GspmdUpdate``), and its loss is the group mean.
+
+Under a model axis the params and gradients are in member layout
+(``core.sharding``): on a local mesh every block once, so the global norm
+is :func:`global_norm` of the tree as it is; on a process mesh the update's
+``clip`` counts a model-sharded leaf's squares once over its model group
+and a replicated leaf once, not M times.  :func:`zero1_state_shardings` is
+the reference's metadata of the zero1-gspmd state.
 """
 from __future__ import annotations
 
@@ -27,11 +35,13 @@ from repro_torch.comm.overlap import make_overlap_grad
 from repro_torch.comm.schedule import group_axes
 from repro_torch.core import collectives as coll
 from repro_torch.core.params import map_tree, tree_leaves
+from repro_torch.core.sharding import ShardingRules, zero1_state_spec
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, leaves in sorted-key
-    order (the reference's ``jax.tree`` order), in f32."""
+    order (the reference's ``jax.tree`` order), in f32.  On a local mesh's
+    member layout every block is held once, so this is the full tree's."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 
@@ -102,11 +112,13 @@ def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update):
     reference's carry holds clipped means too); the reported norm is this
     step's."""
     up = dist_update.plan
+    clip = getattr(dist_update, "clip", None) or (
+        lambda g, c: clip_strips(g, up.mesh, up.axis_arg, c))
 
     def train_step(params, opt_state, step_idx, batch):
         loss, grads = _loss_and_grads(loss_fn, params, batch)
         g_strips = dist_update.reduce(params, grads, opt_state, step_idx)
-        gnorm = clip_strips(g_strips, up.mesh, up.axis_arg, grad_clip)
+        gnorm = clip(g_strips, grad_clip)
         lr = lr_schedule(step_idx)
         params, opt_state = dist_update.local(params, g_strips, opt_state,
                                               lr, step_idx)
@@ -169,3 +181,41 @@ def make_overlapped_train_step(loss_fn: Callable, lr_schedule, mesh,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def axes_leaves(tree) -> list:
+    """The logical-axes tuples of a ``param_axes`` tree, in leaf order."""
+    if _is_axes(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in axes_leaves(tree[k])]
+    return [a for t in tree for a in axes_leaves(t)]
+
+
+def zero1_state_shardings(opt_state, param_axes, mesh,
+                          rules: ShardingRules = ShardingRules()):
+    """ZeRO-1 (the paper's strip scheme as GSPMD places it): the spec of
+    every optimizer-state leaf, a tree of ``opt_state``'s structure.  A
+    state tensor takes its param's spec plus the data axes on the first
+    dim that is unsharded and divisible (``core.sharding.
+    zero1_state_spec``); a scalar takes ``()``.  The state fields repeat
+    the param tree, so leaves match the param axes cyclically, scalars
+    skipped, as in the reference."""
+    flat_axes = axes_leaves(param_axes)
+    n, pi = len(flat_axes), 0
+
+    def one(leaf):
+        nonlocal pi
+        if getattr(leaf, "ndim", 0) == 0:
+            return ()
+        spec = zero1_state_spec(flat_axes[pi % n], tuple(leaf.shape), mesh,
+                                rules)
+        pi += 1
+        return spec
+    return map_tree(one, opt_state)
+

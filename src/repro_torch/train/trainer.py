@@ -47,7 +47,7 @@ class TrainerConfig:
     #                                    re-plan at another world size:
     #                                    checkpoint.replan)
     ckpt_gather: Optional[Dict[str, Callable]] = None  # per tree name, the
-    #                                    collective that makes a leaf's
+    #                                    collective that makes the tree's
     #                                    global value (ckpt.save's gather)
     recorder: Optional[Any] = None     # span/count recorder; every phase of
     #                                    the loop becomes a span (step,

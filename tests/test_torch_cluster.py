@@ -105,7 +105,8 @@ def test_in_worker_detection():
 
 def test_cluster_mesh_of_one_process_is_a_one_member_local_mesh():
     mesh = make_cluster_mesh(device="cpu")
-    assert mesh.shape == {"data": 1} and mesh.batch_shard is None
+    assert mesh.shape == {"data": 1, "model": 1} \
+        and mesh.batch_shard is None
     with pytest.raises(NotImplementedError):
         make_cluster_mesh(model_ways=2, device="cpu")
 

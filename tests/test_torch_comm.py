@@ -271,7 +271,7 @@ def test_backends_match_reference_on_a_local_mesh(reference_backends,
     shape, axes = MESHES[mesh_name]
     mesh = make_local_mesh(4, pods=shape[0] if len(shape) == 2 else 1,
                            device="cpu")
-    assert mesh.axis_names == axes
+    assert mesh.data_axes == axes and mesh.shape["model"] == 1
     ax = axes if len(axes) > 1 else axes[0]
     tdt = torch.float32 if dt == "f32" else torch.bfloat16
     xs, r = _member_inputs(dt)

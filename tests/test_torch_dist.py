@@ -247,8 +247,8 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
                   if k.startswith(f"{pre}/p0/"))
     p0 = {k: reference[f"{pre}/p0/{k}"] for k in keys}
     run = compile_run(spec, device="cpu")
-    assert run.mesh.shape == ({"pod": 2, "data": 2} if hier
-                              else {"data": 4})
+    assert run.mesh.shape == ({"pod": 2, "data": 2, "model": 1} if hier
+                              else {"data": 4, "model": 1})
     got_s0 = run.opt_state.velocity
     want_s0 = _ref_leaves(reference, f"{pre}/s0")
     assert [tuple(s.shape) for s in got_s0] == [s.shape for s in want_s0]
@@ -271,10 +271,12 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
                                    rtol=1e-4, atol=1e-6)
 
 
-# stale-sync, gossip and comm="auto" are ported; with model ways (Queue A
-# item 9) they still raise before allocating
+# every mode is ported, and model ways on the CNN and DNN families; model
+# ways on an LM (Queue A item 9b) and on a cluster still raise before
+# allocating
 @pytest.mark.parametrize("kw", [
-    dict(parallel="dp"), dict(parallel="zero1-gspmd"),
+    dict(parallel="dp", mesh=MeshSpec(model_ways=2)),
+    dict(parallel="zero1-gspmd", mesh=MeshSpec(model_ways=2)),
     dict(parallel="stale-sync", mesh=MeshSpec(model_ways=2)),
     dict(parallel="gossip", mesh=MeshSpec(model_ways=2)),
     dict(parallel="zero1", comm="auto", mesh=MeshSpec(model_ways=2)),
@@ -286,8 +288,9 @@ def test_unported_modes_raise_before_allocating(kw, monkeypatch):
     def no_device(*a, **k):
         raise AssertionError("compile_run reached the device")
     monkeypatch.setattr(assemble, "resolve_device", no_device)
+    arch = "vgg-a" if kw["mesh"].cluster else "llama-100m"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        compile_run(RunSpec(arch="vgg-a", **kw))
+        compile_run(RunSpec(arch=arch, **kw))
 
 
 @pytest.mark.parametrize("kw", [dict(members_per_device=0),

@@ -251,7 +251,7 @@ def test_compile_run_zero1_matches_reference_and_serial(zero1_reference):
     run = compile_run(RunSpec(**SMOKE, **ZERO1,
                               mesh=MeshSpec(members_per_device=4)),
                       device="cpu")
-    assert run.mesh.shape == {"data": 4}
+    assert run.mesh.shape == {"data": 4, "model": 1}
     assert [tuple(s.shape) for s in run.opt_state.velocity] \
         == [s.shape for s in s0]
     run.params = params_from_numpy(p0, "cpu")

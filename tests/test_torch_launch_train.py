@@ -83,24 +83,36 @@ def test_check_run_args_rejects_what_the_reference_rejects(argv):
             _parse(mod, argv)
 
 
-# --comm auto is ported: its case ("auto") now takes zero1-gspmd, which
-# still raises, so that every case of the test stays
+# dp, zero1-gspmd and model ways on the CNN and DNN families are ported: the
+# cases are what the port still refuses, model ways on an LM, on the cluster
+# CLI and with --overlap, and the default (dp, as the reference's)
 @pytest.mark.parametrize("argv", [
-    [], ["--parallel", "dp"], ["--parallel", "zero1-gspmd"],
-    ["--parallel", "zero1", "--model-ways", "2"]],
+    [], ["--arch", "llama-100m", "--parallel", "dp", "--model-ways", "2"],
+    ["--parallel", "zero1", "--model-ways", "2", "--cluster"],
+    ["--parallel", "zero1", "--model-ways", "2", "--overlap"]],
     ids=["default", "dp", "auto", "model_ways"])
 def test_unported_flags_parse_then_raise_in_compile_run(argv, monkeypatch):
     def no_device(*a, **k):
         raise AssertionError("compile_run reached the device")
     monkeypatch.setattr(assemble, "resolve_device", no_device)
-    args = _parse(train, argv)
+    cluster = "--cluster" in argv
+    argv = [a for a in argv if a != "--cluster"]
     if not argv:
-        # the port's default mode is serial, which it runs
-        assert args.parallel == "serial"
+        # the default mode is the reference's, dp, which the port runs
+        args, jargs = _parse(train, argv), _parse(jtrain, argv)
+        assert args.parallel == jargs.parallel == "dp"
+        assert _fields(train.spec_from_args(args)) \
+            == _fields(jtrain.spec_from_args(jargs))
+        return
+    # a later --arch overrides _parse's vgg-a
+    spec = train.spec_from_args(_parse(train, argv), cluster=cluster)
+    if "--overlap" in argv:
+        with pytest.raises(ValueError, match="requires model_ways == 1"):
+            assemble.compile_run(spec)
         return
     with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP.md Queue A item 9\)"):
-        assemble.compile_run(train.spec_from_args(args))
+                       match=r"not ported yet \(ROADMAP.md Queue A item 9b\)"):
+        assemble.compile_run(spec)
 
 
 @pytest.mark.parametrize("argv", [

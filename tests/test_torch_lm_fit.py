@@ -141,7 +141,7 @@ def test_compile_run_zero1_matches_reference_and_serial(zero1_reference):
                    comm=CommConfig(backend="pallas-ring"),
                    mesh=MeshSpec(members_per_device=4))
     run = compile_run(spec, device="cpu")
-    assert run.mesh.shape == {"data": 4}
+    assert run.mesh.shape == {"data": 4, "model": 1}
     assert [tuple(s.shape) for s in run.opt_state.mu] \
         == [s.shape for s in _strips(ref, "mu")]
     it = iter(p0)

@@ -164,13 +164,11 @@ def test_runspec_takes_every_reference_mode():
 
 @pytest.mark.parametrize("mode", [m for m in PARALLEL_MODES if m != "serial"])
 def test_compile_run_rejects_unported_modes(mode):
-    # dp and zero1-gspmd are not ported; zero1, stale-sync and gossip are,
-    # and raise only with model ways (Queue A item 9)
-    kw = {} if mode in ("dp", "zero1-gspmd") \
-        else dict(mesh=MeshSpec(model_ways=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        compile_run(RunSpec(arch="vgg-a", smoke=True, parallel=mode, **kw),
-                    device="cpu")
+    # every mode is ported, with model ways on the CNN and DNN families;
+    # model ways on an LM raise (Queue A item 9b)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        compile_run(RunSpec(arch="llama-100m", smoke=True, parallel=mode,
+                            mesh=MeshSpec(model_ways=2)), device="cpu")
 
 
 def test_unported_pieces_raise():
