@@ -287,6 +287,36 @@ Phase 19 the paper's §3.3 hybrid (after phase 18): a model axis on the
          GEMM launches and one ``ring_hop_accum`` per bucket a step, its
          losses held to (a)'s local-mesh zero1 run at (a)'s loss gate;
          ranks leave as phase 7's do.
+Phase 20 the transformer family's model ways (after phase 19): every LM at
+         ``{data: 2, model: 2}`` on the card, random f32 weights from seed
+         0, the seeded streams, every attention forward on the flash
+         kernel once per model member.  Each part's gate is phase 13's on
+         the run's params after its fit and its next batch: the
+         model-ways route against the serial route on the same full
+         params, the loss within ``LM_LOSS_REL_TOL`` and every leaf's
+         gradient within 10x the serial route's one-ulp sensitivity, never
+         tighter than ``LM_GRAD_REL_L2_TOL``.  (a) gemma2-2b at full width
+         and depth under dp, 4 steps of 2 x 1024 tokens: exactly 52 flash
+         launches a step (2 members x 26 layers), step time, tokens/s, the
+         forward / backward / update split, peak memory, and the flash
+         kernel on one member's heads beside the whole layer's.  (b)
+         llama-100m at full width and depth under zero1-gspmd and zero1
+         (pallas-ring: one reduce-scatter and one all-gather per bucket of
+         the full tree a step), 4 steps of 8 x 512; gemma-2b at full width
+         and 2 layers under dp (4 q heads and the one kv head a member), 3
+         steps.  (c) qwen2-moe-a2.7b at full width and 2 layers, 1 x 128
+         tokens, dp, 3 steps: the experts on the model axis (30 a member),
+         then ``moe_expert_pad=4`` on ``moe_ep_block`` (32 a member);
+         router choices pinned to the serial pass's in the gate, and no
+         assignment dropped at either route's capacities.  (d) gemma-2b at
+         full width and depth through ``serve.decode`` with
+         ``hybrid.plan``'s rules (``cache_seq`` on "model"): a 2 x 64
+         prompt and 16 steps teacher-forced on the unsharded run, every
+         step's logits within 10x the one-ulp sensitivity (at least 4 bf16
+         ulps), the written slots equal and layer 0's bitwise.  (e) 4 gloo
+         ranks on the card, llama-100m zero1 on pallas-ring, 2 steps: each
+         rank 12 flash and one ``ring_hop_accum`` per bucket a step, its
+         losses within ``LM_LOSS_REL_TOL`` of (b)'s local run.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -312,7 +342,8 @@ resumed fit and on one rank of phase 15b's world-2 run, and
 fits, and the paged and flash rows' ``launches_moe``, on phase 17, and
 the flash row's ``launches_families``, on phase 18's fits, and the conv,
 GEMM and ring rows' ``launches_hybrid``, on phase 19's fits and one rank of
-19c), the last line
+19c, and the flash and ring rows' ``launches_lm_model``, on phase 20's
+fits and one rank of 20e), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -339,6 +370,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the card's data-sheet figures that every bound below divides by: device
 # memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s
 from repro_torch.configs.base import H100_SXM  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx  # noqa: E402
+
+# the models' sharding context with no mesh (the serial route), the
+# argument the LM functions take in the reference's position
+NO_MESH = ShardingCtx()
 
 REL_L2_TOL = 0.025             # kernel vs gather decode logits, phase 2
 LONG_CONTEXT = 4096             # positions a request, phase 1's long timing
@@ -2419,7 +2455,7 @@ def phase12_f32_path(dev, card):
     def run(uk):
         outs, grads = [], []
         for w in windows:
-            y, _ = layers.attention_block(p, x, cfg, pos, window=w,
+            y, _ = layers.attention_block(p, x, cfg, NO_MESH, pos, window=w,
                                           use_kernel=uk)
             grads.append(torch.autograd.grad(y.square().mean(), leaves))
             outs.append((y - x).detach())
@@ -2580,7 +2616,8 @@ def phase13(card):
 
     def loss_and_grads(uk):
         torch.cuda.reset_peak_memory_stats()
-        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        loss = transformer.lm_loss(run.params, cfg, NO_MESH, batch,
+                                   use_kernel=uk)
         grads = torch.autograd.grad(loss, leaves)
         return loss.item(), grads, torch.cuda.max_memory_allocated() / 1e9
 
@@ -3848,6 +3885,29 @@ def routes_pinned(choices):
         moe._top_k = real
 
 
+@contextmanager
+def flash_shapes_recorded(seen, tag):
+    """Adds ``tag`` to ``seen[shape]`` for every call of
+    ``kernels.flash_attention.attention`` (the LM blocks' kernel route),
+    ``shape`` being (dtype, B, Sq, Skv, Hq, Hkv, D, causal, window,
+    softcap) of the tensors it was handed."""
+    from repro_torch.kernels import flash_attention as kflash
+    real = kflash.attention
+
+    def spy(q, k, v, causal=True, window=0, logit_softcap=0.0):
+        B, Sq, Hq, D = q.shape
+        seen.setdefault((q.dtype, B, Sq, k.shape[1], Hq, k.shape[2], D,
+                         causal, window, float(logit_softcap)),
+                        set()).add(tag)
+        return real(q, k, v, causal, window, logit_softcap)
+
+    kflash.attention = spy
+    try:
+        yield seen
+    finally:
+        kflash.attention = real
+
+
 def route_flips(a, b):
     """(choices that differ between two recordings, counted per token and
     layer; the largest margin among them in either recording)."""
@@ -4063,7 +4123,7 @@ def phase17c(card):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(L))
                for L in rng.integers(64, 201, size=4)]
-    decode.generate(params, cfg, prompts[0][None], 2)       # warm-up
+    decode.generate(params, cfg, NO_MESH, prompts[0][None], 2)  # warm-up
 
     rec = []
     real_pre, real_step = decode.prefill, decode.decode_step
@@ -4085,7 +4145,8 @@ def phase17c(card):
     try:
         for p in prompts:
             rec.clear()
-            out = decode.generate(params, cfg, p[None], DECODE_NEW)
+            out = decode.generate(params, cfg, NO_MESH, p[None],
+                                  DECODE_NEW)
             check(tuple(out.shape) == (1, DECODE_NEW), f"tokens {out.shape}")
             gen_tok.append(out[0].cpu().numpy())
             gen_log.append(torch.cat(rec))
@@ -4101,10 +4162,12 @@ def phase17c(card):
     # one decode step's time against a prompt's ring (the same position
     # again each call: the write lands in the same slot)
     p = torch.as_tensor(prompts[0][None], device=server.device)
-    lg, caches = decode.prefill(params, cfg, p, p.shape[1] + DECODE_NEW)
+    lg, caches = decode.prefill(params, cfg, NO_MESH, p,
+                                p.shape[1] + DECODE_NEW)
     tok = lg.argmax(-1)[:, None]
     step_ms, _ = step_profile(
-        lambda: decode.decode_step(params, cfg, tok, p.shape[1], caches),
+        lambda: decode.decode_step(params, cfg, NO_MESH, tok, p.shape[1],
+                                   caches),
         f"one ring-buffer decode step (B 1, {p.shape[1]} cached)", card)
     del caches
 
@@ -4214,7 +4277,8 @@ def phase17d(card):
     names = list(_leaf_names(run.params))
 
     def loss_and_grads(uk):
-        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        loss = transformer.lm_loss(run.params, cfg, NO_MESH, batch,
+                                   use_kernel=uk)
         return loss.item(), torch.autograd.grad(loss, leaves)
 
     def rel_l2(ga, gb):
@@ -4223,7 +4287,7 @@ def phase17d(card):
     with routes_recorded() as plain_routes:
         lp, gp = loss_and_grads(False)
     with torch.no_grad(), routes_recorded() as kernel_routes:
-        transformer.lm_loss(run.params, cfg, batch, use_kernel=True)
+        transformer.lm_loss(run.params, cfg, NO_MESH, batch, use_kernel=True)
     flips, flip_margin = route_flips(plain_routes, kernel_routes)
     with routes_pinned(plain_routes):
         lk, gk = loss_and_grads(True)
@@ -4405,7 +4469,8 @@ def _route_gate(run, batch, card, tag):
     names = list(_leaf_names(run.params))
 
     def loss_and_grads(uk):
-        loss = transformer.lm_loss(run.params, cfg, batch, use_kernel=uk)
+        loss = transformer.lm_loss(run.params, cfg, NO_MESH, batch,
+                                   use_kernel=uk)
         return loss.item(), torch.autograd.grad(loss, leaves,
                                                 materialize_grads=True)
 
@@ -4474,10 +4539,10 @@ def _decode_consistency(params, cfg, gen, card, tag):
 
     def decode_logits():
         with torch.no_grad():
-            _, caches = decode.prefill(params, cfg, toks[:, :-1],
+            _, caches = decode.prefill(params, cfg, NO_MESH, toks[:, :-1],
                                        GEN_PROMPT + GEN_NEW)
-            return decode.decode_step(params, cfg, toks[:, -1:], GEN_PROMPT,
-                                      caches)[0].float()
+            return decode.decode_step(params, cfg, NO_MESH, toks[:, -1:],
+                                      GEN_PROMPT, caches)[0].float()
 
     def worst(dec, full, atol):
         """max of |dec - full| / (atol + rtol |full|): <= 1 passes."""
@@ -4525,11 +4590,11 @@ def _generate(params, cfg, gen, new, card, tag):
     from repro_torch.serve import decode
     prompt = torch.randint(1, cfg.vocab_size, (2, GEN_PROMPT),
                            generator=gen, device=gen.device)
-    decode.generate(params, cfg, prompt, 2)            # warm-up
+    decode.generate(params, cfg, NO_MESH, prompt, 2)   # warm-up
     torch.cuda.synchronize()
     _counts_zeroed()
     t0 = time.perf_counter()
-    out = decode.generate(params, cfg, prompt, new)
+    out = decode.generate(params, cfg, NO_MESH, prompt, new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -4567,11 +4632,11 @@ def _block_shares(run, batch):
     from repro_torch.models import transformer
     real, marks = transformer._apply_block, []
 
-    def timed(kind, p, shared_p, x, cfg, positions, **kw):
+    def timed(kind, p, shared_p, x, cfg, ctx, positions, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         x = _Mark.apply(ev[3], x)
         ev[0].record()
-        y, aux, nc = real(kind, p, shared_p, x, cfg, positions, **kw)
+        y, aux, nc = real(kind, p, shared_p, x, cfg, ctx, positions, **kw)
         ev[1].record()
         marks.append((kind, ev))
         return _Mark.apply(ev[2], y), aux, nc
@@ -5046,6 +5111,604 @@ def phase19(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the transformer family's model ways (paper §3.3 on the LMs)
+# ---------------------------------------------------------------------------
+# Every part runs at MeshSpec(members_per_device=2, model_ways=2) on one
+# card (2 data members x 2 model ways), from seed 0's random weights and
+# the seeded streams, every attention forward on the flash kernel.  The
+# gate of every part is phase 13's, on the run's params after its fit and
+# its next batch: one forward and backward on the model-ways route against
+# the serial route (``ShardingCtx()``) on the same full params, the loss
+# within LM_LOSS_REL_TOL and every leaf's gradient within
+# SENSITIVITY_FACTOR times the serial route's own one-ulp sensitivity
+# (every weight x (1 + 2^-23)), never tighter than LM_GRAD_REL_L2_TOL.  An
+# MoE's router choices in the model-ways pass are pinned to the serial
+# pass's (phase 17d), and the recorded choices must drop no assignment at
+# either route's capacities.
+LM_MODEL_MESH = {"members_per_device": 2, "model_ways": 2}
+LM_MODEL_STEPS = 4
+LM_MODEL_SMALL_STEPS = 3
+LLAMA100M_BATCH, LLAMA100M_SEQ = 8, 512
+MOE_MODEL_BATCH, MOE_MODEL_SEQ = 1, 128
+MOE_MODEL_CF = 16.0     # capacities above any expert's assignments here
+MOE_MODEL_PAD = 4
+MQA_LAYERS = 2
+SHARDED_DECODE_PROMPT, SHARDED_DECODE_NEW, SHARDED_DECODE_BATCH = 64, 16, 2
+LM_PROCESS_STEPS = 2
+LM_PROCESS_RANKS = 4
+# every flash kernel shape phase 20's fits launch, and the parts that
+# launched it (flash_shapes_recorded); phase20_flash_shapes holds the kernel
+# to its plain version at each
+FLASH_FIT_SHAPES = {}
+
+
+def _lm_cfg(arch, **kw):
+    """A registry config at full width, ``kw`` replaced (a rehearsal on the
+    CPU patches this to the smoke variant)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(**kw)
+
+
+def _lm_spec(cfg, batch, seq, steps, parallel="dp", comm=None, **kw):
+    from repro_torch.api import MeshSpec, RunSpec
+    return RunSpec(arch=cfg, steps=steps, batch=batch, seq=seq, seed=0,
+                   log_every=1, parallel=parallel, comm=comm,
+                   mesh=MeshSpec(**LM_MODEL_MESH), **kw)
+
+
+def _lm_fit(spec, card, tag, record=False):
+    """Compile ``spec`` on the kernel route and fit it, every count zeroed
+    just before and read just after (``record``: the router's choices
+    recorded); returns (run, history, counts, step spans, peak GB, the
+    recorded choices)."""
+    from repro_torch.api import compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    spans = SyncedSpans()
+    t0 = time.perf_counter()
+    run = use_kernel(compile_run(spec, recorder=spans))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zeroed()
+    with (routes_recorded() if record else nullcontext([])) as routes, \
+            flash_shapes_recorded(FLASH_FIT_SHAPES, tag):
+        hist = run.fit(log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(hist) == spec.steps and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+        f"20{tag}: history {hist}")
+    print(f"  20{tag}: {run.cfg.name} {spec.parallel}"
+          f"{f' ({spec.comm.backend})' if spec.comm else ''} on {run.mesh} "
+          f"compiled in {init_s:.2f} s; {spec.steps} steps of "
+          f"{spec.batch} x {spec.seq} tokens: losses "
+          f"{[h['loss'] for h in hist]}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return run, hist, counts, spans.samples["step"], peak, list(routes)
+
+
+def _rel_l2(ga, gb_host):
+    return [((a - b.to(a.device)).norm() / b.norm().to(a.device)).item()
+            for a, b in zip(ga, gb_host)]
+
+
+def _lm_pass(loss_fn, params, batch):
+    """One forward and backward: (loss, gradient leaves)."""
+    from repro_torch.core.params import tree_leaves
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss = loss_fn(params, batch)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _lm_gate(run, batch, card, tag):
+    """Phase 13's gate (module comment) of ``run``'s model-ways route
+    against the serial route on the same full params; frees the run's
+    optimizer state first and its params after.  Returns the serial
+    pass's router choices."""
+    from repro_torch.core.params import map_tree, tree_leaves
+    from repro_torch.models import transformer
+    run.close()
+    run.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, ctx = run.cfg, run.ctx
+    specs = run.family.param_specs(cfg)
+    names = list(_leaf_names(run.params))
+    held = {id(p) for p in tree_leaves(run.params)}
+    full = map_tree(lambda x: x.detach().clone() if id(x) in held
+                    else x.detach(), ctx.full(run.params, specs))
+
+    def serial(p, b):
+        return transformer.lm_loss(p, cfg, NO_MESH, b, use_kernel=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with routes_recorded() as routes:
+        ls, gs = _lm_pass(serial, full, batch)
+    gs = [g.cpu() for g in gs]
+    with routes_pinned(routes):
+        lm, gm = _lm_pass(run.loss_fn, run.params, batch)
+    it = iter(gm)
+    gm = tree_leaves(ctx.full(map_tree(lambda _: next(it), run.params),
+                              specs))
+    rel = _rel_l2(gm, gs)
+    del gm
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        for p in tree_leaves(full):
+            p.mul_(1 + 2.0 ** -23)
+    with routes_pinned(routes):
+        _, gu = _lm_pass(serial, full, batch)
+    floor = _rel_l2(gu, gs)
+    del gu, gs, full
+    run.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(np.isfinite(lm) and np.isfinite(ls), f"20{tag}: non-finite loss")
+    loss_rel = abs(lm - ls) / abs(ls)
+    tol = max(LM_GRAD_REL_L2_TOL, SENSITIVITY_FACTOR * max(floor))
+    worst = int(np.argmax(rel))
+    print(f"  20{tag} gate, one forward and backward on the params after the "
+          f"fit and its next batch{', router choices pinned to the serial pass' if routes else ''}: "
+          f"model ways {lm} vs serial {ls} (relative {loss_rel}, tolerance "
+          f"{LM_LOSS_REL_TOL}); worst leaf's gradient relative L2 {rel[worst]} "
+          f"at {names[worst]}; serial with every weight x (1 + 2^-23): worst "
+          f"{max(floor)}; tolerance max({LM_GRAD_REL_L2_TOL}, "
+          f"{SENSITIVITY_FACTOR} x sensitivity) = {tol}; peak of the two "
+          f"passes {peak} GB [{card}]")
+    check(loss_rel <= LM_LOSS_REL_TOL, f"20{tag}: losses differ")
+    check(max(rel) <= tol, f"20{tag}: gradients differ at {names[worst]}")
+    return routes
+
+
+def _lm_split(run, batch, card, tag):
+    """One step's forward / backward / update split, CUDA events, median
+    of 3."""
+    from repro_torch.core.params import tree_leaves
+    split = {"forward": [], "backward": [], "step": []}
+    for i in range(3):
+        leaves = [p.requires_grad_() for p in tree_leaves(run.params)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = run.loss_fn(run.params, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        del loss, grads
+        run.step(batch, step_idx=100 + i)
+        ev[3].record()
+        ev[3].synchronize()
+        for k, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3))):
+            split[k].append(ev[a].elapsed_time(ev[b]))
+    fwd, bwd, step = (float(np.median(split[k])) for k in split)
+    print(f"  20{tag} one step by CUDA events: train_step {step} ms; forward "
+          f"alone {fwd} ms, backward alone {bwd} ms, so norm, clip and the "
+          f"update about {step - fwd - bwd} ms [{card}]")
+    return fwd, bwd, step
+
+
+def _flash_member_ms(card, cfg, B, S):
+    """The flash kernel on one model member's heads (Hq/2, Hkv/2) against
+    the whole layer's, at ``cfg``'s global-attention shape."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for name, hq, hk in (("whole", cfg.num_heads, cfg.num_kv_heads),
+                         ("member", cfg.num_heads // 2,
+                          max(1, cfg.num_kv_heads // 2))):
+        q, k, v = (torch.randn(B, S, h, cfg.head_dim, generator=gen,
+                               device=dev, dtype=torch.bfloat16)
+                   for h in (hq, hk, hk))
+        out[name] = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, logit_softcap=cfg.attn_logit_softcap))
+    print(f"  20a flash kernel forward at {B} x {S}, head dim "
+          f"{cfg.head_dim}: the whole layer's {cfg.num_heads} q / "
+          f"{cfg.num_kv_heads} kv heads {out['whole']} ms, one member's "
+          f"{cfg.num_heads // 2} / {max(1, cfg.num_kv_heads // 2)} "
+          f"{out['member']} ms [{card}]")
+
+
+def phase20a(card):
+    """gemma2-2b at full width and depth, dp at model ways 2."""
+    from repro_torch.core.params import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg("gemma2-2b")
+    spec = _lm_spec(cfg, LM_BATCH, LM_SEQ, LM_MODEL_STEPS)
+    print(f"phase 20a: {cfg.name} at full width and depth, dp on a "
+          f"{LM_MODEL_MESH} mesh: each model member on {cfg.num_heads // 2} "
+          f"of {cfg.num_heads} q heads, {cfg.num_kv_heads // 2} of "
+          f"{cfg.num_kv_heads} kv heads, {cfg.d_ff // 2} of {cfg.d_ff} GeGLU "
+          f"columns and {cfg.vocab_size // 2} of {cfg.vocab_size} vocab rows")
+    run, hist, counts, steps, peak, _ = _lm_fit(spec, card, "a")
+    n_params = sum(p.numel() for p in tree_leaves(run.full_params()))
+    check(n_params == LM_PARAMS, f"20a: {n_params} params, want {LM_PARAMS}")
+    per_step = 2 * cfg.num_layers
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = spec.steps * per_step
+    check(counts == want, f"20a: launches {counts}, want {want}")
+    tokens = spec.batch * spec.seq
+    print(f"  20a: flash_attention {counts['flash_attention']} = "
+          f"{spec.steps} x {per_step} (2 members x {cfg.num_layers} layers), "
+          f"every other kernel 0; step median over steps 2-{spec.steps} "
+          f"{float(np.median(steps[1:])) * 1e3} ms "
+          f"({tokens * len(steps[1:]) / sum(steps[1:])} tokens/s of step "
+          f"time); first step {steps[0] * 1e3} ms; peak memory {peak} GB "
+          f"[{card}]")
+    batch = next(run.data)
+    _lm_split(run, batch, card, "a")
+    _lm_gate(run, batch, card, "a")
+    _flash_member_ms(card, cfg, LM_BATCH, LM_SEQ)
+    return counts
+
+
+def _ring_want(run, steps):
+    """The zero1 ring kernels' launches of a ``steps``-step fit: one
+    reduce-scatter and one all-gather a bucket of the full tree's plan."""
+    n = run.dist_update.plan.buckets(run.full_params()).n_collectives
+    return {"ring_reduce_scatter": steps * n, "ring_all_gather": steps * n}
+
+
+def phase20b(card):
+    """llama-100m under zero1-gspmd and zero1, gemma-2b's MQA under dp."""
+    from repro_torch.comm import CommConfig
+    cfg = _lm_cfg("llama-100m")
+    print(f"phase 20b: {cfg.name} at full width and depth under zero1-gspmd "
+          f"and zero1 (pallas-ring), gemma-2b at full width and "
+          f"{MQA_LAYERS} layers under dp (4 q heads and the one kv head a "
+          f"member), on a {LM_MODEL_MESH} mesh")
+    total, zero1_losses = {}, None
+    for parallel, comm in (("zero1-gspmd", None),
+                           ("zero1", CommConfig(backend="pallas-ring"))):
+        spec = _lm_spec(cfg, LLAMA100M_BATCH, LLAMA100M_SEQ, LM_MODEL_STEPS,
+                        parallel, comm)
+        run, hist, counts, steps, peak, _ = _lm_fit(spec, card, "b")
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = spec.steps * 2 * cfg.num_layers
+        if parallel == "zero1":
+            want.update(_ring_want(run, spec.steps))
+            zero1_losses = [h["loss"] for h in hist]
+        check(counts == want, f"20b {parallel}: launches {counts}, want "
+              f"{want}")
+        print(f"  20b {parallel}: step median "
+              f"{float(np.median(steps[1:])) * 1e3} ms, peak {peak} GB; "
+              f"launches as planned [{card}]")
+        total = _sum_counts(total, counts)
+        _lm_gate(run, next(run.data), card, "b " + parallel)
+    mqa = _lm_cfg("gemma-2b", num_layers=MQA_LAYERS,
+                  pattern_repeats=MQA_LAYERS)
+    spec = _lm_spec(mqa, LM_BATCH, LM_SEQ, LM_MODEL_SMALL_STEPS)
+    run, hist, counts, steps, peak, _ = _lm_fit(spec, card, "b")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = spec.steps * 2 * mqa.num_layers
+    check(counts == want, f"20b gemma-2b: launches {counts}, want {want}")
+    total = _sum_counts(total, counts)
+    _lm_gate(run, next(run.data), card, "b gemma-2b")
+    return total, zero1_losses
+
+
+def _moe_drops(cfg, routes, B, S, ep_members=0):
+    """Assignments over capacity in the recorded router choices (one (B, S,
+    k) per MoE layer): the capacity-bounded route's per-sample expert
+    capacity, or (``ep_members`` = n) ``moe_ep_block``'s per-destination
+    and per-expert capacities."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    Ep = E + cfg.moe_expert_pad
+    cf = cfg.moe_capacity_factor
+    drops = 0
+    for idx, _ in routes:
+        idx = idx.reshape(B, S * k).long()
+        if not ep_members:
+            C = max(1, int(S * k / E * cf))
+            per = torch.nn.functional.one_hot(idx, Ep).sum(1)
+            drops += int((per - C).clamp(min=0).sum())
+            continue
+        n = ep_members
+        T = B * S * k
+        Ts, E_loc = T // n, Ep // n
+        C = max(1, int(Ts / n * cf))
+        Ce = max(1, int(n * C / E_loc * cf))
+        flat = idx.reshape(T)
+        for m in range(n):
+            dest = flat[m * Ts:(m + 1) * Ts] // E_loc
+            drops += int((torch.bincount(dest, minlength=n) - C)
+                         .clamp(min=0).sum())
+        drops += int((torch.bincount(flat, minlength=Ep) - Ce)
+                     .clamp(min=0).sum())
+    return drops
+
+
+def phase20c(card):
+    """qwen2-moe-a2.7b at full width and 2 layers: the expert-sharded
+    route, then moe_ep_block with 4 padded experts."""
+    print(f"phase 20c: qwen2-moe-a2.7b at full width and "
+          f"{MOE_TRAIN_LAYERS} layers, dp on a {LM_MODEL_MESH} mesh, batch "
+          f"{MOE_MODEL_BATCH} x {MOE_MODEL_SEQ}, capacity factor "
+          f"{MOE_MODEL_CF}")
+    total = {}
+    for pad, route in ((0, "experts on the model axis"),
+                       (MOE_MODEL_PAD, "moe_ep_block")):
+        cfg = _lm_cfg("qwen2-moe-a2.7b", num_layers=MOE_TRAIN_LAYERS,
+                      pattern_repeats=MOE_TRAIN_LAYERS,
+                      moe_capacity_factor=MOE_MODEL_CF,
+                      moe_expert_pad=pad)
+        Ep = cfg.num_experts + pad
+        spec = _lm_spec(cfg, MOE_MODEL_BATCH, MOE_MODEL_SEQ,
+                        LM_MODEL_SMALL_STEPS)
+        run, hist, counts, steps, peak, fit_routes = _lm_fit(
+            spec, card, "c", record=True)
+        w = run.params["blocks"][0]["moe"]["w_gate"]
+        check(w.shape[0] == 2 and w.shape[2] == Ep // 2,
+              f"20c {route}: w_gate held as {tuple(w.shape)}")
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = spec.steps * 2 * cfg.num_layers
+        check(counts == want, f"20c {route}: launches {counts}, want {want}")
+        total = _sum_counts(total, counts)
+        gate_routes = _lm_gate(run, next(run.data), card, f"c {route}")
+        # the fit's choices at its own route's capacities; the gate's (the
+        # serial pass's, which both passes take) at both routes'
+        n = 2 if pad else 0
+        drops = (_moe_drops(cfg, fit_routes, MOE_MODEL_BATCH, MOE_MODEL_SEQ,
+                            n),
+                 _moe_drops(cfg, gate_routes, MOE_MODEL_BATCH,
+                            MOE_MODEL_SEQ, n)
+                 + _moe_drops(cfg, gate_routes, MOE_MODEL_BATCH,
+                              MOE_MODEL_SEQ))
+        print(f"  20c {route}: {Ep} experts, {Ep // 2} a member (w_gate "
+              f"held as {tuple(w.shape)}); step median "
+              f"{float(np.median(steps[1:])) * 1e3} ms, peak {peak} GB; "
+              f"dropped assignments in the fit's and the gate's router "
+              f"choices {drops} [{card}]")
+        check(drops == (0, 0), f"20c {route}: dropped assignments {drops}")
+    return total
+
+
+def phase20d(card):
+    """gemma-2b at full width and depth through serve.decode with a
+    sequence-sharded cache, teacher-forced on the unsharded run."""
+    from repro_torch.configs.base import H100_SXM, InputShape
+    from repro_torch.core import hybrid
+    from repro_torch.core.sharding import from_members
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers, transformer
+    from repro_torch.serve import decode
+    cfg = _lm_cfg("gemma-2b")
+    dev = torch.device("cuda")
+    params = transformer.init_params(cfg, 0, dev)
+    mesh = make_local_mesh(LM_MODEL_MESH["members_per_device"],
+                           model_ways=LM_MODEL_MESH["model_ways"], device=dev)
+    B, S, new = (SHARDED_DECODE_BATCH, SHARDED_DECODE_PROMPT,
+                 SHARDED_DECODE_NEW)
+    plan = hybrid.plan(cfg, InputShape("decode", S + new, B, "decode"), mesh,
+                       H100_SXM)
+    check(plan.rules.rules["cache_seq"] == ("model",),
+          f"20d: plan {plan.rules.rules['cache_seq']}, {plan.notes}")
+    ctx = ShardingCtx(mesh, plan.rules)
+    specs = transformer.param_specs(cfg)
+    placed = ctx.place(params, specs)
+    prompt = torch.tensor(np.random.default_rng(20).integers(
+        1, cfg.vocab_size, (B, S)), device=dev)
+    cap = S + new
+    print(f"phase 20d: {cfg.name} at full width and depth through "
+          f"serve.decode on {mesh}, hybrid.plan's rules for a decode of "
+          f"batch {B}: cache_seq {plan.rules.rules['cache_seq']} "
+          f"({'; '.join(plan.notes)}); prompt {B} x {S}, {new} decode steps "
+          f"teacher-forced on the unsharded run's tokens")
+
+    def run(p, c, forced=None):
+        t0 = time.perf_counter()
+        lg, caches = decode.prefill(p, cfg, c, prompt, cap)
+        logs, toks = [lg.float()], []
+        for i in range(new):
+            tok = (forced[:, i:i + 1] if forced is not None
+                   else torch.argmax(lg, -1)[:, None])
+            toks.append(tok)
+            lg, caches = decode.decode_step(p, cfg, c, tok, S + i, caches)
+            logs.append(lg.float())
+        torch.cuda.synchronize()
+        return logs, torch.cat(toks, 1), caches, time.perf_counter() - t0
+
+    want, toks, w_caches, w_s = run(params, NO_MESH)
+    got, _, g_caches, g_s = run(placed, ctx, toks)
+    with torch.no_grad():
+        for p in _leaves(params):
+            p.mul_(1 + 2.0 ** -23)
+    ulp, _, u_caches, _ = run(params, NO_MESH, toks)
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want)) / scale
+    sens = max((u - w).abs().max().item() for u, w in zip(ulp, want)) / scale
+    tol = max(SENSITIVITY_FACTOR * sens, 4 * 2.0 ** -8)
+    kc = g_caches[0]
+    check(isinstance(kc, layers.SeqShardedCache), f"20d: cache {type(kc)}")
+    spec = (None, None, "model")
+    exact, slots_ok = True, True
+    # every layer's keys and values against the unsharded run's, relative
+    # to the layer's largest |value|: (difference, the one-ulp run's, layer)
+    c_err = c_sens = (0.0, "")
+    for i, (wc, gc_, uc) in enumerate(zip(w_caches, g_caches, u_caches)):
+        for name, a, b, u in (("k", wc.k, gc_.k, uc.k),
+                              ("v", wc.v, gc_.v, uc.v)):
+            full = torch.stack([from_members(b[r], spec[1:], mesh)
+                                for r in range(b.shape[0])])
+            written_w = a.abs().amax((-1, -2)) > 0
+            written_g = full.abs().amax((-1, -2)) > 0
+            slots_ok &= bool(torch.equal(written_w, written_g))
+            exact &= bool(torch.equal(a[0], full[0]))
+            for r in range(a.shape[0]):
+                big = a[r].float().abs().max().item()
+                at = f"stack {i} layer {r} {name}"
+                c_err = max(c_err, ((full[r].float() - a[r].float()).abs()
+                                    .max().item() / big, at))
+                c_sens = max(c_sens, ((u[r].float() - a[r].float()).abs()
+                                      .max().item() / big, at))
+        check(torch.equal(wc.length, gc_.length), "20d: cache lengths")
+    c_tol = max(SENSITIVITY_FACTOR * c_sens[0], 4 * 2.0 ** -8)
+    print(f"  20d: unsharded {w_s} s, sharded {g_s} s for prefill and {new} "
+          f"steps; the sharded cache held as {tuple(kc.k.shape)} (R, "
+          f"shards, B, C / 2, Hkv, D) per layer stack; logits' largest "
+          f"difference {err} of their largest magnitude over prefill and "
+          f"{new} steps (the unsharded run with every weight x (1 + "
+          f"2^-23): {sens}; tolerance max({SENSITIVITY_FACTOR} x that, "
+          f"4 bf16 ulps) = {tol}); written slots equal in every layer "
+          f"{slots_ok}, layer 0's keys and values bitwise {exact}; every "
+          f"layer's keys and values, largest difference {c_err[0]} of the "
+          f"layer's largest magnitude at {c_err[1]} (the one-ulp run: "
+          f"{c_sens[0]} at {c_sens[1]}; tolerance max({SENSITIVITY_FACTOR} "
+          f"x that, 4 bf16 ulps) = {c_tol}) [{card}]")
+    check(err <= tol, f"20d: logits differ by {err}")
+    check(slots_ok and exact, "20d: cache slots differ")
+    check(c_err[0] <= c_tol, f"20d: cached keys or values differ by "
+          f"{c_err[0]} at {c_err[1]}")
+
+
+def _lm_member(rank, world, init_file, results):
+    """One rank of phase 20e: llama-100m zero1 on pallas-ring over a
+    ``{data: 2, model: 2}`` ProcessMesh on the card."""
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        from repro_torch.api import compile_run
+        from repro_torch.comm import CommConfig
+        from repro_torch.launch.mesh import make_process_mesh
+        from repro_torch.launch.paper_cnn_training import use_kernel
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_process_mesh(model_ways=2, device=torch.device("cuda", 0))
+        spec = _lm_spec(_lm_cfg("llama-100m"), LLAMA100M_BATCH,
+                        LLAMA100M_SEQ, LM_PROCESS_STEPS, "zero1",
+                        CommConfig(backend="pallas-ring"))
+        spans = SyncedSpans()
+        run = use_kernel(compile_run(spec, recorder=spans, mesh=mesh))
+        n_buckets = run.dist_update.plan.buckets(
+            run.full_params()).n_collectives
+        torch.cuda.synchronize()
+        _counts_zeroed()
+        with flash_shapes_recorded({}, "e") as shapes:
+            hist = run.fit(log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _counts().items() if v}
+        results.put((rank, ([h["loss"] for h in hist], counts, n_buckets,
+                            spans.samples["step"], repr(mesh), list(shapes)),
+                           None))
+        code = 0
+    except Exception:
+        results.put((rank, None, traceback.format_exc()))
+        code = 1
+    results.close()
+    results.join_thread()
+    if code == 0:
+        dist.barrier()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def phase20e(card, local_losses):
+    cfg = _lm_cfg("llama-100m")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = os.path.join(tempfile.mkdtemp(), "init")
+    procs = [ctx.Process(target=_lm_member,
+                         args=(r, LM_PROCESS_RANKS, init_file, results))
+             for r in range(LM_PROCESS_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = sorted(results.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    for rank, out, err in got:
+        check(err is None, f"20e rank {rank} failed:\n{err}")
+    for rank, p in enumerate(procs):
+        check(p.exitcode == 0, f"20e rank {rank} exited with code "
+              f"{p.exitcode}")
+    steps = LM_PROCESS_STEPS
+    for rank, out, _ in got:
+        losses, counts, n_buckets, spans, mesh, shapes = out
+        for shape in shapes:
+            FLASH_FIT_SHAPES.setdefault(shape, set()).add("e")
+        want = {"flash_attention": steps * cfg.num_layers,
+                "ring_hop_accum": steps * n_buckets}
+        check(counts == want, f"20e rank {rank}: launches {counts}, want "
+              f"{want}")
+        dl = max(abs(a - b) for a, b in zip(losses, local_losses[:steps]))
+        print(f"  20e rank {rank} of {mesh}: {steps} zero1 steps of "
+              f"{cfg.name} (its data pair's {LLAMA100M_BATCH // 2} rows, its "
+              f"model member's heads, ff columns and vocab rows; messages "
+              f"staged through host memory over gloo): steps "
+              f"{[s * 1e3 for s in spans]} ms; launches {counts}; losses "
+              f"{losses} against 20b's local run "
+              f"{local_losses[:steps]}: |delta| {dl} (gate "
+              f"{LM_LOSS_REL_TOL} x loss) [{card}]")
+        check(dl <= LM_LOSS_REL_TOL * abs(local_losses[0]),
+              f"20e rank {rank}: losses {losses}")
+    print(f"  20e: {LM_PROCESS_RANKS} ranks in {wall} s, spawn and exit "
+          f"included")
+    return got[0][1][1]
+
+
+def phase20_flash_shapes(card):
+    """Phase 12's check at every shape phase 20's fits handed the flash
+    kernel (one model member's heads): the kernel against its plain version
+    on the same inputs, to one bf16 ulp of each (batch, head)'s largest
+    |plain| (f32: FLASH_F32_TOL), with their times."""
+    dev = torch.device("cuda")
+    print(f"phase 20 flash shapes: the kernel against its plain version at "
+          f"the {len(FLASH_FIT_SHAPES)} shapes phase 20's fits launched it "
+          f"at, on seeded inputs; tolerance as phase 12's")
+    check(FLASH_FIT_SHAPES, "20: no flash shape recorded")
+    for (dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap), parts in \
+            sorted(FLASH_FIT_SHAPES.items(), key=str):
+        check(causal and Sq == Skv, f"20: flash shape causal {causal}, Sq "
+              f"{Sq}, Skv {Skv} outside the check's (causal, Sq = Skv)")
+        flash_model_shape(dev, card, dtype, f"20{'/'.join(sorted(parts))} "
+                          f"member, B {B} S {Sq}", B, Sq, Hq, Hkv, D, window,
+                          softcap)
+
+
+def phase20(card):
+    """Phase 20's five parts and the flash kernel at their shapes; the kernels' launches over its fits (20e's
+    one rank's)."""
+    walls = {}
+    t0 = time.perf_counter()
+    a = phase20a(card)
+    walls["20a"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b, zero1_losses = phase20b(card)
+    walls["20b"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = phase20c(card)
+    walls["20c"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase20d(card)
+    walls["20d"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e = phase20e(card, zero1_losses)
+    walls["20e"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    phase20_flash_shapes(card)
+    walls["flash shapes"] = round(time.perf_counter() - t0, 1)
+    total = _sum_counts(a, b, c, e)
+    print(f"  phase 20 wall seconds by part {walls}; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -5374,6 +6037,11 @@ def main() -> int:
     flash["launches_families"] = timed("18", phase18, card)
     flash["launches"] += flash["launches_families"]
     hybrid = timed("19", phase19, card)
+    lm_model = timed("20", phase20, card)
+    # the LMs' model-ways path's launches (phase 20; 20e's one rank's)
+    for row, name in ((flash, "flash_attention"), (hop, "ring_hop_accum"),
+                      (rs, "ring_reduce_scatter"), (ag, "ring_all_gather")):
+        row["launches_lm_model"] = lm_model.get(name, 0)
     # the hybrid path's launches (phase 19; 19c's one rank) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
                       (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),
@@ -5382,6 +6050,8 @@ def main() -> int:
     hop["launches"], ov["ring_hop_accum"] = timed("7", phase7, card)
     for row in (conv, gemm, hop, rs, ag):
         row["launches"] += row["launches_hybrid"]
+    for row in (flash, hop, rs, ag):
+        row["launches"] += row["launches_lm_model"]
     # the overlapped path's launches (phases 14 and 7) beside each row's
     for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
                       (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),

@@ -7,9 +7,12 @@ its smoke variant) -> family adapter -> recorder (``telemetry.
 make_recorder(spec.telemetry)``) -> mesh (none for ``serial``) -> params
 on the device -> optimizer and LR schedule -> update path -> train step.
 Params are placed by the logical-axis sharding rules
-(``core.sharding.ShardingCtx``): under a model axis each model member holds
-its own columns of every "ff"-sharded leaf.  The update path is the serial
-``optimizer.update``; or the reference's two GSPMD modes,
+(``core.sharding.ShardingCtx``), for every family: under a model axis each
+model member holds its own block of every model-sharded leaf (a CNN's or
+DNN's "ff" columns; an LM's heads, kv heads, ff columns, vocab rows,
+experts and SSM dims), and the family's loss runs its blocks on them.  The
+update path is the serial ``optimizer.update``; or the reference's two
+GSPMD modes,
 ``optim.dist.GspmdUpdate``:
 
 * ``dp``: the optimizer on each member's own shard of params and state,
@@ -53,9 +56,9 @@ autotuner (``telemetry.autotune``) times the real collectives on the live
 mesh and picks the bucket size, backend and wire format from the §3.2
 balance model with the measured constants.  On a card the run holds f32
 (``device.hold_f32``: no TF32 in cuDNN or cuBLAS).  What is not ported yet
-(``model_ways > 1`` on the transformer family or a cluster mesh: ROADMAP
-Queue A item 9b) raises before anything is allocated, as does the
-reference's refusal of ``comm.overlap`` with model ways.
+(``model_ways > 1`` on a cluster mesh: ROADMAP Queue A item 9d) raises
+before anything is allocated, as does the reference's refusal of
+``comm.overlap`` with model ways.
 """
 from __future__ import annotations
 
@@ -122,24 +125,21 @@ def _make_schedule(spec: RunSpec, data_ways: int = 1):
     return warmup_cosine(spec.lr, warmup, spec.steps)
 
 
-def _check_ported(spec: RunSpec, cfg, model_ways=None) -> None:
+def _check_ported(spec: RunSpec, model_ways=None) -> None:
     """Raise for what the port does not run yet, before any allocation
     (``model_ways``: a caller-built mesh's, else ``spec.mesh``'s)."""
     def missing(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                                   f"Queue A item {item}): the port runs "
                                   f"parallel in {PORTED_MODES}, and model "
-                                  f"ways on the CNN and DNN families")
+                                  f"ways on a local or process mesh")
     if spec.parallel not in PORTED_MODES:
         missing(f"parallel={spec.parallel!r}", 9)
     M = spec.mesh.model_ways if model_ways is None else model_ways
     if spec.parallel == "serial" or M == 1:
         return
-    if isinstance(cfg, ModelConfig):
-        missing(f"model_ways={M} on the transformer family ({cfg.name})",
-                "9b")
     if spec.mesh.cluster:
-        missing(f"model_ways={M} on a cluster mesh", "9b")
+        missing(f"model_ways={M} on a cluster mesh", "9d")
     if isinstance(spec.comm, CommConfig) and spec.comm.overlap:
         raise ValueError(
             "CommConfig.overlap runs the whole step inside a shard_map over "
@@ -200,7 +200,7 @@ def compile_run(spec: RunSpec, device=None, recorder=None,
     process group, model ways and all), on its device.
     """
     cfg = _resolve_config(spec)
-    _check_ported(spec, cfg, None if mesh is None else mesh.model_ways)
+    _check_ported(spec, None if mesh is None else mesh.model_ways)
     dev = resolve_device(device)
     family = adapter_for(cfg)
     if recorder is None:

@@ -30,9 +30,8 @@ class FamilyAdapter:
 
     init:         (cfg, seed, device) -> param tree
     make_loss:    (cfg, ctx) -> loss_fn(params, batch) -> scalar, params in
-                  ``ctx``'s member layout (``core.sharding.ShardingCtx``;
-                  the transformer family runs at model_ways 1 only, item
-                  9b, and ignores it)
+                  ``ctx``'s member layout (``core.sharding.ShardingCtx``),
+                  every family on its mesh's model axis
     param_specs:  cfg -> tree of ``core.params.Spec`` (shapes and logical
                   axes), the structure of the param tree
     stream:       (cfg, batch, seq, seed) -> iterator of host batches
@@ -108,7 +107,8 @@ def _transformer_stream(cfg: ModelConfig, batch: int, seq: int, seed: int):
 TRANSFORMER_FAMILY = register_family(FamilyAdapter(
     family="transformer", config_cls=ModelConfig,
     init=transformer.init_params,
-    make_loss=lambda cfg, ctx: lambda p, b: transformer.lm_loss(p, cfg, b),
+    make_loss=lambda cfg, ctx: lambda p, b: transformer.lm_loss(p, cfg, ctx,
+                                                                 b),
     param_specs=transformer.param_specs,
     stream=_transformer_stream,
     default_optimizer="adamw",

@@ -5,8 +5,8 @@ serve.
 ``RunSpec`` accepts every parallel mode name of the reference and validates
 it, its ``MeshSpec`` and its ``CommConfig`` as the reference does
 (``MODE_CAPS``); ``compile_run`` assembles every mode, with model ways on
-the CNN and DNN families (on the transformer family and a cluster mesh
-they raise "not ported yet", ROADMAP Queue A item 9b).
+every family (on a cluster mesh they raise "not ported yet", ROADMAP Queue
+A item 9d).
 """
 from __future__ import annotations
 

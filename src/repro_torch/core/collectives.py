@@ -24,20 +24,33 @@ collectives the ring backend is held against: the same strip ownership
 reduce in the dtype they are handed).  They take the schedules' canonical
 1-D buffers (one per member).
 
-The model axis (paper §3.3) adds the pair a column-parallel product needs,
-each a ``torch.autograd.Function`` (``core.sharding.ShardingCtx.column``):
+The model axis (paper §3.3) adds the functions a column-parallel and a
+row-parallel product, expert parallelism and the sequence-sharded decode
+need, each a ``torch.autograd.Function`` (``core.sharding.ShardingCtx``):
 
-    copy_to_model   forward the identity, one copy of the input for each
-                    model member held here; backward the sum of the
-                    members' input gradients over the model group
-    gather_model    forward the members' output blocks joined along the
-                    last dim; backward each member keeps its own slice
+    copy_to_model     forward the identity, one copy of the input for each
+                      model member held here; backward the sum of the
+                      members' input gradients over the model group
+    gather_model      forward the members' output blocks joined along the
+                      last dim; backward each member keeps its own slice
+    reduce_from_model forward the sum of the members' partial outputs over
+                      the group (the model axis, or the axes a decode
+                      cache's sequence is split over); backward the
+                      identity to every member
+    all_to_all_model  forward: dim 0 split into M blocks, block j sent to
+                      model member j; backward the inverse all-to-all
+    gather_leaf       forward a model-sharded leaf made whole on every
+                      member; backward each member keeps its slice (the
+                      leaf must feed a computation every member repeats
+                      alike, so that each holds the whole gradient)
 
-On a local mesh all M model members are here (M copies, a ``cat``); on a
-process mesh the rank is one of them (an ``all_reduce`` and an
-``all_gather`` over its model group, staged through host memory over
-gloo).  Without the pair, or with one of it doubled, the gradients are off
-by a factor M or miss terms, and training still runs.
+and a forward-only ``pmax`` over a group (the decode partials' maximum).
+On a local mesh all M model members are here (M copies, a ``cat``, a sum,
+a transpose of the ``(M_src, M_dst, ...)`` blocks); on a process mesh the
+rank is one of them (``all_reduce``, ``all_gather`` and
+``all_to_all_single`` over its model group, staged through host memory
+over gloo).  Without a pair, or with one of it doubled, the gradients are
+off by a factor M or miss terms, and training still runs.
 """
 from __future__ import annotations
 
@@ -258,3 +271,119 @@ def gather_model(ys, mesh) -> torch.Tensor:
     joined along the last dim, on every member; the backward hands each
     member its own slice of the output gradient."""
     return _GatherModel.apply(mesh, *ys)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *ys):
+        ctx.n = len(ys)
+        if mesh.member_dims:
+            out = ys[0]
+            for y in ys[1:]:
+                out = out + y
+            return out
+        import torch.distributed as dist
+        (y,) = ys
+        pg = mesh.group(axes)[0]
+        buf = staged_for(y, pg).clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, group=pg)
+        return buf.to(y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(g for _ in range(ctx.n)))
+
+
+def reduce_from_model(ys, mesh, axes: AxisNames = "model") -> torch.Tensor:
+    """The sum of the partial outputs ``ys`` of the members held here (in
+    group order) over the group of ``axes``, on every member; the backward
+    hands every member the whole output gradient.  The sum runs in the
+    partials' dtype: a caller that wants one rounding hands f32."""
+    return _ReduceFromModel.apply(mesh, axes_tuple(axes), *ys)
+
+
+@torch.no_grad()
+def pmax(ys, mesh, axes: AxisNames = "model") -> torch.Tensor:
+    """The elementwise maximum of the members' ``ys`` over the group of
+    ``axes``, on every member; forward only (the decode partials)."""
+    if mesh.member_dims:
+        out = ys[0]
+        for y in ys[1:]:
+            out = torch.maximum(out, y)
+        return out
+    import torch.distributed as dist
+    (y,) = ys
+    pg = mesh.group(axes_tuple(axes))[0]
+    buf = staged_for(y, pg).clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=pg)
+    return buf.to(y.device)
+
+
+def _a2a(xs, mesh):
+    """The all-to-all of the members' ``xs`` over the model group: member
+    j receives block j of dim 0 of every member's tensor, in member
+    order."""
+    if mesh.member_dims:
+        n = len(xs)
+        blocks = [x.chunk(n) for x in xs]
+        return tuple(torch.cat([blocks[i][j] for i in range(n)])
+                     for j in range(n))
+    import torch.distributed as dist
+    (x,) = xs
+    pg = _model_group(mesh)[0]
+    src = staged_for(x, pg).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=pg)
+    return (out.to(x.device),)
+
+
+class _AllToAllModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return _a2a(xs, mesh)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # block j of member i went to member j as its block i: the same
+        # exchange sends every gradient block back where it came from
+        return (None, *_a2a([g.contiguous() for g in gs], ctx.mesh))
+
+
+def all_to_all_model(xs, mesh) -> Tuple[torch.Tensor, ...]:
+    """``xs`` (one tensor per model member held here, dim 0 a multiple of
+    M): dim 0 split into M blocks and block j sent to model member j,
+    which gets the M blocks addressed to it in member order.  On a local
+    mesh a transpose of the ``(M_src, M_dst, ...)`` blocks; on a process
+    mesh ``all_to_all_single`` over the model group.  The backward is the
+    inverse all-to-all.  With one model member, ``xs`` itself."""
+    if mesh.shape.get("model", 1) == 1:
+        return tuple(xs)
+    return _AllToAllModel.apply(mesh, *xs)
+
+
+class _GatherLeafRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, spec, mesh):
+        from repro_torch.core.sharding import from_members
+        ctx.spec, ctx.mesh = spec, mesh
+        return from_members(w, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.sharding import to_members
+        return to_members(g, ctx.spec, ctx.mesh), None, None
+
+
+def gather_leaf(w: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """Member-layout leaf ``w`` (held spec ``spec``) made whole on every
+    member.  Its backward keeps each member's slice of the whole gradient,
+    so the computation that reads it must be one every member of the group
+    repeats alike on the same inputs (the gradient is then whole and equal
+    on every member).  On a local mesh a differentiable re-layout (autograd
+    sums the members' uses before it splits the gradient); on a process
+    mesh an ``all_gather`` over the model group."""
+    if mesh.member_dims:
+        from repro_torch.core.sharding import full_shape, join_blocks
+        return join_blocks(w, spec, full_shape(w, spec, mesh), mesh)
+    return _GatherLeafRanks.apply(w, spec, mesh)

@@ -10,9 +10,12 @@ A mesh realizes the paper's scheme directly:
 (``core.balance.optimal_group_count``), so that the chosen mesh can be
 judged against the paper's own rule, and the ``ShardingRules`` each (arch x
 input shape) pair takes, with the reference's overrides and notes: FSDP
-weight sharding over "data" and the two decode-cache layouts.  In the port
-those overrides are metadata: nothing executes them until the transformer
-family's model ways are ported (ROADMAP Queue A item 9b).
+weight sharding over "data" and the two decode-cache layouts.  The port
+executes them: ``fsdp`` as placement metadata (a param's data-axis
+entries, ``"embed_fsdp"``, are the reference's placement, and every data
+member holds its params whole: ``core.sharding.held_spec``), and
+``cache_seq`` as the sequence-sharded decode of ``serve.decode`` with a
+``ShardingCtx(mesh, plan.rules)`` (``layers.sharded_decode_attention``).
 """
 from __future__ import annotations
 

@@ -25,10 +25,26 @@ Params take their spec's model entries only (:func:`held_spec`): a
 data-axis entry of a param (``"embed_fsdp"``, FSDP) is placement metadata
 here, and every data member holds its params whole.  :class:`ShardingCtx`
 is the models' seam, the port's counterpart of ``constrain``: it places a
-tree in its member layout, gathers it back, and runs a column-parallel
-layer (:meth:`ShardingCtx.column`) on each model member's columns with the
-model-axis collectives of ``core.collectives``.  On a mesh whose model
-axis is 1 (or no mesh) it changes nothing.
+tree in its member layout, gathers it back, and runs a layer on each model
+member's blocks with the model-axis collectives of ``core.collectives``:
+
+* :meth:`ShardingCtx.column`: a column-parallel layer, the members'
+  outputs joined along the last dim;
+* :meth:`ShardingCtx.row`: a row-parallel product of a replicated input,
+  each member on its own slice of the input and its rows of the leaf, the
+  partial products summed;
+* :meth:`ShardingCtx.members` and :meth:`ShardingCtx.reduce` /
+  :meth:`ShardingCtx.gather`: any block run once per model member on its
+  own blocks of several leaves (attention's heads: ``wq``/``wk``/``wv``
+  by column, ``wo`` by row), every replicated input and whole leaf handed
+  to it through ``copy_to_model``, so that its gradient sums over the
+  members;
+* :meth:`ShardingCtx.gather_leaf`: a leaf made whole for a block whose
+  held blocks do not line up with its computation, which every member
+  then repeats alike.
+
+On a mesh whose model axis is 1 (or no mesh) each of these is the plain
+call.
 """
 from __future__ import annotations
 
@@ -205,6 +221,15 @@ def from_members(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
         out = src.new_empty(len(ranks) * src.numel())
         dist.all_gather_into_tensor(out, src.reshape(-1), group=pg)
         x = out.view(*(mesh.shape[a] for a in used), *x.shape).to(x.device)
+    return join_blocks(x, spec, shape, mesh)
+
+
+def join_blocks(x: torch.Tensor, spec: Sequence, shape: Sequence[int],
+                mesh) -> torch.Tensor:
+    """The full tensor (``shape``) of ``x``, its blocks under ``spec``
+    stacked on leading dims in the order of the spec's mesh axes (a local
+    mesh's member layout): one reshape, permute and reshape, so it is
+    differentiable."""
     split, perm = _split(spec, shape, mesh)
     inv = sorted(range(len(perm)), key=perm.__getitem__)
     return x.reshape([split[p] for p in perm]).permute(inv).reshape(shape)
@@ -259,6 +284,97 @@ class ShardingCtx:
             lambda s, x: from_members(x, self.held(s), self.mesh), specs,
             tree)
 
+    def model_members(self) -> List[int]:
+        """The model indices of the members held here, in model order:
+        all M on a local mesh, this rank's on a process mesh."""
+        if self.model_ways == 1:
+            return [0]
+        if self.mesh.member_dims:
+            return list(range(self.model_ways))
+        return [self.mesh.coords(self.mesh.member)["model"]]
+
+    def members(self, fn: Callable, xs: Sequence[torch.Tensor],
+                leaves: Sequence[torch.Tensor] = (),
+                specs: Sequence[Optional[Spec]] = ()) -> list:
+        """``[fn(m, *xs_m, *leaves_m) for m in model_members()]``: each
+        model member held here runs ``fn`` on its own block of every
+        model-sharded leaf (``specs[i]`` its ``Spec``; None for a leaf to
+        hand whole, such as one :meth:`gather_leaf` made whole), while the
+        replicated inputs ``xs`` and the whole leaves go through
+        ``copy_to_model``, so that their gradients sum over the members.
+        Combine the outputs with :meth:`reduce` (partial sums) or
+        :meth:`gather` (column blocks)."""
+        if self.model_ways == 1:
+            return [fn(0, *xs, *leaves)]
+        from repro_torch.core.collectives import copy_to_model
+        mesh = self.mesh
+        cols = [copy_to_model(x, mesh) for x in xs]
+        for w, s in zip(leaves, specs):
+            cols.append(mesh.model_blocks(w) if s is not None
+                        and self.sharded(s) else copy_to_model(w, mesh))
+        return [fn(m, *(c[i] for c in cols))
+                for i, m in enumerate(self.model_members())]
+
+    def reduce(self, outs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of the members' partial outputs over the model group
+        (``reduce_from_model``), added in f32 and cast back to the
+        partials' dtype: one rounding of the whole sum."""
+        if self.model_ways == 1:
+            return outs[0]
+        from repro_torch.core.collectives import reduce_from_model
+        return reduce_from_model([o.float() for o in outs],
+                                 self.mesh).to(outs[0].dtype)
+
+    def summed(self, fn: Callable, xs: Sequence[torch.Tensor],
+               leaves: Sequence[torch.Tensor],
+               specs: Sequence[Optional[Spec]]) -> torch.Tensor:
+        """:meth:`reduce` of :meth:`members`: a block whose output is the
+        sum of its members' partial outputs over their blocks of the
+        model-sharded leaves (an MLP: ``w_gate``/``w_up`` by column,
+        ``w_down`` by row).  With no leaf sharded, ``fn(0, *xs, *leaves)``
+        once."""
+        if not any(s is not None and self.sharded(s) for s in specs):
+            return fn(0, *xs, *leaves)
+        return self.reduce(self.members(fn, xs, leaves, specs))
+
+    def gather(self, outs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The members' column blocks joined along the last dim
+        (``gather_model``)."""
+        if self.model_ways == 1:
+            return outs[0]
+        from repro_torch.core.collectives import gather_model
+        return gather_model(outs, self.mesh)
+
+    def gather_leaf(self, w: torch.Tensor, s: Spec) -> torch.Tensor:
+        """Leaf ``w`` (``Spec`` ``s``) whole on every member
+        (``core.collectives.gather_leaf``); ``w`` itself when it is not
+        model-sharded."""
+        if not self.sharded(s):
+            return w
+        from repro_torch.core.collectives import gather_leaf
+        return gather_leaf(w, self.held(s), self.mesh)
+
+    def row(self, x: torch.Tensor, leaves: Sequence[torch.Tensor],
+            specs: Sequence[Spec], fn: Callable) -> torch.Tensor:
+        """``fn(x, *leaves)`` for a product whose leaves shard their first
+        dim (the input features) over the model axis and whose input ``x``
+        every member holds whole: each member computes ``fn`` on its slice
+        of ``x``'s last dim and its rows of every leaf, and the partial
+        products are summed (:meth:`reduce`).  Unsharded leaves:
+        ``fn(x, *leaves)`` once."""
+        flags = [self.sharded(s) for s in specs]
+        if not any(flags):
+            return fn(x, *leaves)
+        if not all(flags):
+            raise ValueError(
+                f"a row-parallel product needs every leaf on the model "
+                f"axis or none: {[s.axes for s in specs]} over {self.mesh}")
+        n = x.shape[-1] // self.model_ways
+
+        def one(m, xm, *blocks):
+            return fn(xm[..., m * n:(m + 1) * n], *blocks)
+        return self.reduce(self.members(one, [x], leaves, specs))
+
     def column(self, x: torch.Tensor, leaves: Sequence[torch.Tensor],
                specs: Sequence[Spec], fn: Callable) -> torch.Tensor:
         """``fn(x, *leaves)`` for a layer whose leaves shard their last
@@ -273,11 +389,8 @@ class ShardingCtx:
             raise ValueError(
                 f"a column-parallel layer needs every leaf on the model "
                 f"axis or none: {[s.axes for s in specs]} over {self.mesh}")
-        from repro_torch.core.collectives import copy_to_model, gather_model
-        xs = copy_to_model(x, self.mesh)
-        blocks = zip(*(self.mesh.model_blocks(w) for w in leaves))
-        return gather_model([fn(xi, *b) for xi, b in zip(xs, blocks)],
-                            self.mesh)
+        return self.gather(self.members(lambda m, xm, *b: fn(xm, *b), [x],
+                                        leaves, specs))
 
 
 def zero1_state_spec(axes: Sequence[Optional[str]], shape: Sequence[int],

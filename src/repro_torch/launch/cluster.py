@@ -96,7 +96,7 @@ def check_cluster_args(ap: argparse.ArgumentParser, args) -> None:
     from repro_torch.api.assemble import default_comm
     if args.model_ways > 1:
         ap.error(f"--model-ways {args.model_ways} on a cluster is not ported "
-                 "yet (ROADMAP.md Queue A item 9b): a cluster runs one "
+                 "yet (ROADMAP.md Queue A item 9d): a cluster runs one "
                  "member a process; model ways run in one process "
                  "(repro_torch.launch.train --model-ways)")
     shared = (args.processes > 1

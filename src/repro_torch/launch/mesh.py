@@ -37,7 +37,7 @@ params and the model-axis collectives are ``core.sharding`` and
 
 :func:`make_cluster_mesh` is the mesh of a cluster run
 (``MeshSpec(cluster=True)``): one member a process, the pod axis the
-process boundary; it refuses model ways (ROADMAP Queue A item 9b).
+process boundary; it refuses model ways (ROADMAP Queue A item 9d).
 
 A mesh's device defaults to the GPU (``device.resolve_device``): pass
 ``device="cpu"`` to hold the members on the CPU.
@@ -369,7 +369,7 @@ def make_cluster_mesh(model_ways: int = 1, device=None):
     one process (no group, or a group of one) it is a one-member local
     mesh, as the reference falls back to the host mesh.  Model ways raise:
     a cluster of one member a process has none to split (ROADMAP Queue A
-    item 9b), and shrinking a world with a model axis is later work.
+    item 9d), and shrinking a world with a model axis is later work.
 
     ``device`` defaults to the GPU: rank r takes ``cuda:(r % cards)``; pass
     ``device="cpu"`` for CPU ranks."""
@@ -377,7 +377,7 @@ def make_cluster_mesh(model_ways: int = 1, device=None):
     if model_ways != 1:
         raise NotImplementedError(
             f"model_ways={model_ways} on a cluster mesh is not ported yet "
-            "(ROADMAP.md Queue A item 9b): a cluster runs one member a "
+            "(ROADMAP.md Queue A item 9d): a cluster runs one member a "
             "process; model ways run on make_local_mesh or "
             "make_process_mesh")
     world = dist.get_world_size() if dist.is_initialized() else 1

@@ -24,12 +24,13 @@ from repro_torch.train import make_overlapped_train_step, make_train_step
 def kernel_loss(cfg, ctx: ShardingCtx = ShardingCtx()):
     """The family's loss on its kernel: a CNN's forward convs on the
     direct-conv kernel, a DNN's forward products on the blocked GEMM
-    (``forward(use_kernel=True)``; under a model axis one launch per model
-    member's block, ``ctx``), an LM's attention forwards on the flash
-    kernel (``lm_loss(use_kernel=True)``); the backward is PyTorch's (for
-    attention, ``attention_ref``'s gradient)."""
+    (``forward(use_kernel=True)``), an LM's attention forwards on the flash
+    kernel (``lm_loss(use_kernel=True)``); under a model axis one launch
+    per model member's block or heads (``ctx``).  The backward is
+    PyTorch's (for attention, ``attention_ref``'s gradient)."""
     if isinstance(cfg, ModelConfig):
-        return lambda p, b: transformer.lm_loss(p, cfg, b, use_kernel=True)
+        return lambda p, b: transformer.lm_loss(p, cfg, ctx, b,
+                                                use_kernel=True)
     model = dnn if isinstance(cfg, DNNConfig) else cnn
     return lambda p, b: model.loss_fn(p, cfg, b, use_kernel=True, ctx=ctx)
 

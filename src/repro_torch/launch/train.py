@@ -8,14 +8,19 @@ and their choices are the reference's, plus ``--device`` and
 ``launch.paper_cnn_training`` has it; the reference's launcher keeps its
 XLA route).  ``--parallel`` defaults to ``dp``, as in the reference.
 ``--model-ways M`` splits each of the ``--pods`` data members M ways
-(paper §3.3, on one device: ``launch.mesh.LocalMesh``) for the CNN and DNN
-families; on an LM it parses and then raises in ``compile_run`` (ROADMAP
-Queue A item 9b).
+(paper §3.3, on one device: ``launch.mesh.LocalMesh``) for every arch: a
+CNN's or DNN's columns, an LM's heads, ff columns, vocab rows, experts and
+SSM dims.
 
     # the paper's hybrid on the CPU: 2 data members x 2 model ways, each
     # member's FC products on its own columns (the GEMM's plain version)
     python -m repro_torch.launch.train --arch cd-dnn --smoke --device cpu \
         --model-ways 2 --pods 2 --use-kernel
+
+    # an LM at 2 model ways on the CPU: each member on its 2 of gemma-2b's
+    # 4 smoke q heads and the one kv head
+    python -m repro_torch.launch.train --arch gemma-2b --smoke --device cpu \
+        --model-ways 2
 
     # the paper's §3.4 strip update on the ring kernels, each bucket's
     # reduce issued inside backprop (one member a pod, on one card)

@@ -2,10 +2,22 @@
 
 ``repro.models.layers`` with the reference's numerics: f32 norms and RoPE
 angles, bf16 activations, every matmul bf16 @ ``w.to(bf16)``.  Layout is
-(B, S, H, D) throughout.  Not ported: the sequence-sharded decode
-(``sharded_decode_attention``, which needs a mesh axis over the cache's
-sequence that the port's meshes do not have).  The MoE layer is
-``models.moe``; the SSM blocks are ``models.ssm``.
+(B, S, H, D) throughout.  The MoE layer is ``models.moe``; the SSM blocks
+are ``models.ssm``.
+
+Under a model axis (``ctx``, ``core.sharding.ShardingCtx``) the blocks
+run once per model member on its own blocks: attention on the member's q
+heads (``wq`` by column, ``wo`` by row; the flash kernel, under
+``use_kernel``, once per member) and the MLP on its ``ff`` columns
+(``w_gate``/``w_up`` by column, ``w_down`` by row); the members' partial
+outputs are summed (``ShardingCtx.reduce``), where the reference
+constrains the activations.  Kv heads that do not split over the members
+(``Hkv % M != 0``: gemma-2b's one kv head at M = 2) are projected whole on
+every member (``ShardingCtx.gather_leaf``), and each member attends the
+global kv heads of its q heads.  :func:`sharded_decode_attention` is one
+decode token over a ring cache whose sequence is split over the mesh axes
+``cache_seq`` maps to: each member's f32 partials, combined by ``pmax``
+and sums over those axes.
 
 The reference's functions are pure and return new caches.  Here cache
 writes happen IN PLACE on the tensors the cache objects hold (the page
@@ -21,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as coll
 from repro_torch.core.params import Spec
+from repro_torch.core.sharding import ShardingCtx, to_members
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.ref import decode_attention_ref
 
@@ -172,6 +186,14 @@ class AttnCache:
     length: torch.Tensor     # () int32 — total tokens seen
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShardedCache(AttnCache):
+    """An :class:`AttnCache` whose sequence is split over the mesh axes
+    ``seq_axes`` (:func:`shard_cache`), ``k`` and ``v`` in member
+    layout."""
+    seq_axes: tuple = ()
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int,
                     dtype=torch.bfloat16, device=None) -> AttnCache:
     shp = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
@@ -243,40 +265,134 @@ def paged_decode_attention_block(cache: PagedKVState, q: torch.Tensor,
     return out[:, None], dataclasses.replace(cache, lengths=total)
 
 
-def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                    positions: torch.Tensor, *, window: int = 0,
-                    cache=None, update_cache: bool = False,
-                    use_kernel: bool = False):
-    """Pre-norm attention.  Returns (residual_out, new_cache_or_None).
-    ``positions`` are (B, S), or (B, S, 3) M-RoPE positions when
-    ``cfg.mrope``, on every route.
+def cache_seq_axes(ctx: ShardingCtx, capacity: int) -> tuple:
+    """The mesh axes ``ctx.rules`` maps ``cache_seq`` to, when they have
+    an extent > 1 that divides ``capacity`` (the reference's test for its
+    sharded decode), else ``()``."""
+    if ctx.mesh is None:
+        return ()
+    rule = ctx.rules.rules.get("cache_seq") or ()
+    axes = tuple(a for a in ctx.mesh.axis_names if a in rule)
+    n = coll.axis_size(ctx.mesh, axes) if axes else 1
+    return axes if n > 1 and capacity % n == 0 else ()
 
-    Train/prefill: full-sequence chunked attention (+ a fresh ring-buffer
-    write when ``update_cache``, for any S, one token included).  With
-    ``use_kernel`` and no cache (the training path) the attention is
-    ``kernels.flash_attention.attention`` instead: the flash kernel forward
-    (on CPU tensors its plain version) and ``attention_ref``'s gradient
-    backward; the reference's models always run chunked attention, so the
-    switch is the port's own, as for the CNN and the DNN.  Decode (S == 1):
-    one token against the paged pool (the serving engine's path) or against
-    the ring buffer (``serve.decode``'s), the latter through the plain
-    ``decode_attention_ref``, as in the reference."""
-    B, S, _ = x.shape
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    q = _rotate(q, positions, cfg)
-    k = _rotate(k, positions, cfg)
 
+def shard_cache(cache: AttnCache, ctx: ShardingCtx) -> AttnCache:
+    """A whole (R-stacked or per-layer) ring cache with its sequence split
+    over :func:`cache_seq_axes`, each layer's ``(B, C, Hkv, D)`` in the
+    member layout of spec ``(None, axes)``: ``(n, B, C / n, Hkv, D)`` on a
+    local mesh, the rank's ``(B, C / n, Hkv, D)`` on a process mesh.  The
+    cache itself when there is no such axis."""
+    stacked = cache.k.dim() == 5
+    axes = cache_seq_axes(ctx, cache.k.shape[-3])
+    if not axes or isinstance(cache, SeqShardedCache):
+        return cache
+    spec = (None, axes if len(axes) > 1 else axes[0])
+
+    def place(t):
+        if stacked:
+            return torch.stack([to_members(t[r], spec, ctx.mesh)
+                                for r in range(t.shape[0])])
+        return to_members(t, spec, ctx.mesh)
+    return SeqShardedCache(place(cache.k), place(cache.v), cache.length,
+                           axes)
+
+
+def sharded_decode_attention(ctx: ShardingCtx, q: torch.Tensor,
+                             cache: SeqShardedCache, k_new: torch.Tensor,
+                             v_new: torch.Tensor, *, logit_softcap: float):
+    """One-token attention over a sequence-sharded ring cache
+    (:func:`shard_cache`): the paper's part-reduce pattern applied to
+    attention partials.  Each shard i of the n over ``cache.seq_axes``
+    writes the new key and value into its slice iff it owns slot
+    ``length % C``, and computes its f32 partials over its ``C / n``
+    slots (masked logits, the local maximum, the exp-sum and the weighted
+    values); ``pmax`` and ``reduce_from_model`` over those axes combine
+    them.  As in the reference: no ``window`` mask, and the denominator
+    floored at ``1e-30``.  q, k_new, v_new: (B, 1, H, D), q whole.
+    Returns (out (B, 1, Hq, D), cache with length + 1)."""
+    mesh, axes = ctx.mesh, cache.seq_axes
+    local = bool(mesh.member_dims)
+    n = coll.axis_size(mesh, axes)
+    shards = range(n) if local else \
+        [coll.group_index(mesh, axes, mesh.member)]
+    Cs = cache.k.shape[-3]
+    C = Cs * n
+    D = cache.k.shape[-1]
+    g = q.shape[2] // cache.k.shape[-2]
+    length = cache.length
+    slot = (length % C).reshape(1).long()
+    qf = q[:, 0].float() * (D ** -0.5)                        # (B, Hq, D)
+    logits, values = [], []
+    for j, i in enumerate(shards):
+        kc = cache.k[j] if local else cache.k
+        vc = cache.v[j] if local else cache.v
+        at = slot - i * Cs
+        own = (at >= 0) & (at < Cs)
+        at = torch.clamp(at, 0, Cs - 1)
+        for c, new in ((kc, k_new), (vc, v_new)):
+            c.index_copy_(1, at, torch.where(own, new.to(c.dtype),
+                                             c.index_select(1, at)))
+        kf, vf = kc.float(), vc.float()
+        if g > 1:
+            kf = kf.repeat_interleave(g, dim=2)
+            vf = vf.repeat_interleave(g, dim=2)
+        s = torch.einsum("bhd,bkhd->bhk", qf, kf)             # (B, Hq, Cs)
+        if logit_softcap > 0:
+            s = torch.tanh(s / logit_softcap) * logit_softcap
+        gidx = i * Cs + torch.arange(Cs, device=q.device)
+        valid = gidx[None, None, :] < torch.clamp(length + 1, max=C)
+        logits.append(torch.where(valid, s, NEG_INF))
+        values.append(vf)
+    m = coll.pmax([s.amax(-1) for s in logits], mesh, axes)   # (B, Hq)
+    ps = [torch.exp(s - m[..., None]) for s in logits]
+    denom = coll.reduce_from_model([p.sum(-1) for p in ps], mesh, axes)
+    o = coll.reduce_from_model(
+        [torch.einsum("bhk,bkhd->bhd", p, vf) for p, vf in zip(ps, values)],
+        mesh, axes)
+    out = (o / torch.clamp(denom, min=1e-30)[..., None])[:, None]
+    return out.to(q.dtype), dataclasses.replace(cache, length=length + 1)
+
+
+def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, n * D) -> (B, S, n, D)."""
+    return t.reshape(*t.shape[:2], n, -1)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def _kv_of(m: int, hq: int, group: int):
+    """The global kv heads that model member m's q heads ``[m * hq, (m +
+    1) * hq)`` read (q head h reads kv head ``h // group``): a slice when
+    they form whole groups or lie in one group, else the index of each q
+    head's kv head (the kv heads repeated to the member's q heads)."""
+    lo = m * hq
+    if hq % group == 0:
+        return slice(lo // group, (lo + hq) // group)
+    if group % hq == 0:
+        return slice(lo // group, lo // group + 1)
+    return [(lo + j) // group for j in range(hq)]
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, window: int, cache,
+            update_cache: bool, use_kernel: bool, kv=None):
+    """Attention of q (B, S, Hq, D) over k, v, which ``cache`` (when
+    given) takes; ``kv`` selects the kv heads q reads from k, v and the
+    cache (None: all of them).  Returns (out (B, S, Hq, D), new cache or
+    None)."""
+    def sel(t):
+        return t if kv is None else t[:, :, kv]
+    B, S = q.shape[:2]
     new_cache = None
     if isinstance(cache, PagedKVState):
         if S != 1:
             raise ValueError("the paged KV cache is decode-only (S == 1)")
-        out, new_cache = paged_decode_attention_block(
+        return paged_decode_attention_block(
             cache, q, k, v, window=window,
             logit_softcap=cfg.attn_logit_softcap)
-    elif cache is not None and S == 1 and not update_cache:
+    if cache is not None and S == 1 and not update_cache:
         # append to the ring buffer at slot length % C (in place), attend
         # over its min(length + 1, C) resident entries
         C = cache.k.shape[1]
@@ -284,14 +400,17 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
         cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
         valid = torch.clamp(cache.length + 1, max=C).expand(B)
-        out = decode_attention_ref(q, cache.k, cache.v, valid, window=window,
+        out = decode_attention_ref(q, sel(cache.k), sel(cache.v), valid,
+                                   window=window,
                                    logit_softcap=cfg.attn_logit_softcap)
         new_cache = dataclasses.replace(cache, length=cache.length + 1)
     elif use_kernel and cache is None:
-        out = flash_attention.attention(q, k, v, True, window,
+        out = flash_attention.attention(q, sel(k).contiguous(),
+                                        sel(v).contiguous(), True, window,
                                         cfg.attn_logit_softcap)
     else:
-        out = chunked_attention(q, k, v, causal=True, window=window,
+        out = chunked_attention(q, sel(k), sel(v), causal=True,
+                                window=window,
                                 logit_softcap=cfg.attn_logit_softcap)
         if update_cache:
             # write the last min(S, C) tokens into the ring buffer so that
@@ -307,8 +426,103 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache.v[:, :S] = v.to(cache.v.dtype)
             new_cache = dataclasses.replace(
                 cache, length=torch.full_like(cache.length, S))
-    out = out.reshape(B, S, cfg.q_dim)
-    y = out @ p["wo"].to(out.dtype)
+    return out, new_cache
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    ctx: ShardingCtx, positions: torch.Tensor, *,
+                    window: int = 0, cache=None, update_cache: bool = False,
+                    use_kernel: bool = False):
+    """Pre-norm attention.  Returns (residual_out, new_cache_or_None).
+    ``positions`` are (B, S), or (B, S, 3) M-RoPE positions when
+    ``cfg.mrope``, on every route.  ``p`` in ``ctx``'s member layout.
+
+    Train/prefill: full-sequence chunked attention (+ a fresh ring-buffer
+    write when ``update_cache``, for any S, one token included).  With
+    ``use_kernel`` and no cache (the training path) the attention is
+    ``kernels.flash_attention.attention`` instead: the flash kernel forward
+    (on CPU tensors its plain version) and ``attention_ref``'s gradient
+    backward; the reference's models always run chunked attention, so the
+    switch is the port's own, as for the CNN and the DNN.  Decode (S == 1):
+    one token against the paged pool (the serving engine's path), against
+    a sequence-sharded ring cache (:func:`sharded_decode_attention`) or
+    against a whole one (``serve.decode``'s), the last through the plain
+    ``decode_attention_ref``, as in the reference.
+
+    Under a model axis each member projects its own q heads (and its kv
+    heads, when they split) and attends them; its ``wo`` rows give a
+    partial output, and the members' partials are summed (module
+    docstring).  A whole ring cache is then written by each member on its
+    own kv heads (all of them when they do not split)."""
+    B, S, _ = x.shape
+    sp = attn_specs(cfg)
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if isinstance(cache, SeqShardedCache) and S == 1 and not update_cache:
+        q = _rotate(_heads(ctx.column(h, [p["wq"]], [sp["wq"]], _mm), Hq),
+                    positions, cfg)
+        # the kv heads' projections whole, as the prefill's (the same
+        # product, so a cache's keys are the unsharded run's bits)
+        k = _rotate(_heads(_mm(h, ctx.gather_leaf(p["wk"], sp["wk"])), Hkv),
+                    positions, cfg)
+        v = _heads(_mm(h, ctx.gather_leaf(p["wv"], sp["wv"])), Hkv)
+        out, new_cache = sharded_decode_attention(
+            ctx, q, cache, k, v, logit_softcap=cfg.attn_logit_softcap)
+        y = ctx.row(out.reshape(B, S, cfg.q_dim), [p["wo"]], [sp["wo"]],
+                    _mm)
+        return x + y, new_cache
+    M = ctx.model_ways
+    kw = dict(window=window, update_cache=update_cache,
+              use_kernel=use_kernel)
+    if not ctx.sharded(sp["wq"]):
+        wq, wk, wv, wo = (ctx.gather_leaf(p[n], sp[n])
+                          for n in ("wq", "wk", "wv", "wo"))
+        q = _rotate(_heads(_mm(h, wq), Hq), positions, cfg)
+        k = _rotate(_heads(_mm(h, wk), Hkv), positions, cfg)
+        v = _heads(_mm(h, wv), Hkv)
+        out, new_cache = _attend(q, k, v, cfg, cache=cache, **kw)
+        return x + _mm(out.reshape(B, S, cfg.q_dim), wo), new_cache
+    if Hq % M:
+        raise NotImplementedError(
+            f"{Hq} q heads do not split over {M} model members")
+    if isinstance(cache, PagedKVState):
+        raise ValueError("the paged KV cache serves with no model axis, as "
+                         "the reference's compile_serve does")
+    hq = Hq // M
+    split_kv = Hkv % M == 0 and ctx.sharded(sp["wk"])
+    hk = Hkv // M if split_kv else Hkv
+    if split_kv:
+        xs, names = [h], ("wq", "wo", "wk", "wv")
+    else:
+        # every member projects the kv heads whole, once per member alike
+        k = _rotate(_heads(_mm(h, ctx.gather_leaf(p["wk"], sp["wk"])), Hkv),
+                    positions, cfg)
+        v = _heads(_mm(h, ctx.gather_leaf(p["wv"], sp["wv"])), Hkv)
+        xs, names = [h, k, v], ("wq", "wo")
+
+    def member(m, hm, *rest):
+        if split_kv:
+            wq, wo, wk, wv = rest
+            k = _rotate(_heads(_mm(hm, wk), hk), positions, cfg)
+            v = _heads(_mm(hm, wv), hk)
+            kv, mc = None, cache
+            if isinstance(cache, AttnCache):
+                heads = slice(m * hk, (m + 1) * hk)
+                mc = dataclasses.replace(cache, k=cache.k[:, :, heads],
+                                         v=cache.v[:, :, heads])
+        else:
+            k, v, wq, wo = rest
+            kv, mc = _kv_of(m, hq, Hq // Hkv), cache
+        q = _rotate(_heads(_mm(hm, wq), hq), positions, cfg)
+        out, nc = _attend(q, k, v, cfg, cache=mc, kv=kv, **kw)
+        return _mm(out.reshape(B, S, hq * cfg.head_dim), wo), nc
+
+    outs = ctx.members(member, xs, [p[n] for n in names],
+                       [sp[n] for n in names])
+    y = ctx.reduce([o for o, _ in outs])
+    nc = outs[0][1]
+    new_cache = None if nc is None else dataclasses.replace(
+        cache, length=nc.length)
     return x + y, new_cache
 
 
@@ -338,10 +552,22 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardingCtx) -> torch.Tensor:
+    """Pre-norm MLP; under a model axis each member on its ``ff`` columns
+    (module docstring).  ``p`` in ``ctx``'s member layout."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        u = _act(cfg, h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
-    else:
-        u = _act(cfg, h @ p["w_up"].to(h.dtype))
-    return x + u @ p["w_down"].to(u.dtype)
+    sp = mlp_specs(cfg)
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    names = ("w_gate", "w_up", "w_down") if gated else ("w_up", "w_down")
+
+    def member(m, h, *ws):
+        if gated:
+            wg, wu, wd = ws
+            u = _act(cfg, h @ wg.to(h.dtype)) * (h @ wu.to(h.dtype))
+        else:
+            wu, wd = ws
+            u = _act(cfg, h @ wu.to(h.dtype))
+        return u @ wd.to(u.dtype)
+    return x + ctx.summed(member, [h], [p[n] for n in names],
+                          [sp[n] for n in names])

@@ -18,6 +18,22 @@ masked entries' gradients are zero and not NaN.
 Caches are frozen dataclasses of tensors with the reference's fields; a
 block returns a new cache object (the states are not written in place, as
 the attention caches' key and value buffers are).
+
+Under a model axis (``ctx``, ``core.sharding.ShardingCtx``) the fused
+projections' contiguous column blocks do not line up with the blocks' own
+segments (Mamba's ``in_proj`` is ``[z | x | B | C | dt]`` over
+``"ssm_inner"``, mLSTM's ``up_proj`` ``[x | z]``), so such leaves are
+gathered whole (``ShardingCtx.gather_leaf``) and every member repeats the
+computation that reads them.  Computed on the members' own blocks:
+
+* ``mamba``: ``out_proj`` by row (each member's ``din`` slice of the
+  gated output); gathered: ``in_proj``, ``conv_w``, ``conv_b``,
+  ``A_log``, ``D``, ``dt_bias``, ``gate_norm``;
+* ``mlstm``: ``wq``, ``wk``, ``wv``, ``w_if`` and ``down_proj`` by row;
+  gathered: ``up_proj``, ``b_if``, ``out_norm``;
+* ``slstm``: ``W`` and ``b`` by column, ``R`` on each member's heads at
+  every step of the scan (the members' recurrent terms joined); whole:
+  ``out_proj`` (``("embed", "embed")``, never sharded).
 """
 from __future__ import annotations
 
@@ -29,9 +45,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.models.layers import rms_norm
 
 NEG = -1e30
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def _whole(p: dict, specs: dict, ctx: ShardingCtx, keep=()) -> dict:
+    """``p`` with every model-sharded leaf but those named in ``keep``
+    gathered whole (module docstring)."""
+    return {k: w if k in keep else ctx.gather_leaf(w, specs[k])
+            for k, w in p.items()}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -158,10 +186,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: Optional[MambaCache] = None):
+                ctx: ShardingCtx, cache: Optional[MambaCache] = None):
     """Pre-norm Mamba2 block.  Returns (residual_out, new_cache_or_None).
     With a cache and S == 1 it takes one recurrent step; with a cache and
-    S > 1 (prefill) it runs the chunked form and fills the cache."""
+    S > 1 (prefill) it runs the chunked form and fills the cache.  ``p``
+    in ``ctx``'s member layout (module docstring)."""
+    sp = mamba_specs(cfg)
+    out_proj = p["out_proj"]
+    p = _whole(p, sp, ctx, keep=("out_proj",))
     Bsz, S, _ = x.shape
     din, H, P = mamba_dims(cfg)
     N = cfg.ssm_state
@@ -199,7 +231,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                    torch.full_like(cache.length, S))
     # gated output norm (Mamba2): y * silu(z), RMS-normed
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(y.dtype)
+    out = ctx.row(y, [out_proj], [sp["out_proj"]], _mm)
     return x + out, new_cache
 
 
@@ -306,15 +338,24 @@ def _mlstm_chunk_scan(q, k, v, log_f, log_i, chunk: int,
 
 
 def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: Optional[MlstmCache] = None, chunk: int = 256):
+                ctx: ShardingCtx, cache: Optional[MlstmCache] = None,
+                chunk: int = 256):
+    """Pre-norm mLSTM block, ``p`` in ``ctx``'s member layout (module
+    docstring).  Returns (residual_out, new_cache_or_None)."""
+    sp = mlstm_specs(cfg)
+    rows = ("wq", "wk", "wv", "w_if", "down_proj")
+    p = _whole(p, sp, ctx, keep=rows)
+
+    def row(x, name):
+        return ctx.row(x, [p[name]], [sp[name]], _mm)
     Bsz, S, _ = x.shape
     din, H, P = mlstm_dims(cfg)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     u, z = torch.chunk(h @ p["up_proj"].to(h.dtype), 2, dim=-1)
-    q = (u @ p["wq"].to(u.dtype)).reshape(Bsz, S, H, P).float()
-    k = (u @ p["wk"].to(u.dtype)).reshape(Bsz, S, H, P).float()
-    v = (u @ p["wv"].to(u.dtype)).reshape(Bsz, S, H, P).float()
-    gates = u @ p["w_if"].to(u.dtype) + p["b_if"].to(u.dtype)
+    q = row(u, "wq").reshape(Bsz, S, H, P).float()
+    k = row(u, "wk").reshape(Bsz, S, H, P).float()
+    v = row(u, "wv").reshape(Bsz, S, H, P).float()
+    gates = row(u, "w_if") + p["b_if"].to(u.dtype)
     gates = gates.reshape(Bsz, S, 2, H)
     log_i = gates[:, :, 0].float()
     log_f = F.logsigmoid(gates[:, :, 1].float())
@@ -325,8 +366,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         new_cache = MlstmCache(Cf, nf, mf, cache.length + S)
     y = y.reshape(Bsz, S, din).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = y @ p["down_proj"].to(y.dtype)
-    return x + out, new_cache
+    return x + row(y, "down_proj"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +408,17 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _slstm_step(p, H, P, carry, wx):
-    """One sLSTM step; wx: (B, 4d) = W x + b precomputed; carry (h,c,n,m)."""
+def _slstm_step(p, H, P, carry, wx, rec_fn=None):
+    """One sLSTM step; wx: (B, 4d) = W x + b precomputed; carry (h,c,n,m).
+    ``rec_fn(h (B, H, P)) -> (B, 4d)`` replaces the recurrent product
+    with ``p["R"]`` (the model-axis form, :func:`slstm_block`)."""
     h, c, n, m = carry
     B = h.shape[0]
-    rec = torch.einsum("bhp,hpq->bhq", h.reshape(B, H, P),
-                       p["R"]).reshape(B, 4 * H * P)
+    if rec_fn is None:
+        rec = torch.einsum("bhp,hpq->bhq", h.reshape(B, H, P),
+                           p["R"]).reshape(B, 4 * H * P)
+    else:
+        rec = rec_fn(h.reshape(B, H, P))
     z_pre, i_pre, f_pre, o_pre = torch.chunk(wx + rec, 4, dim=-1)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
@@ -387,24 +432,38 @@ def _slstm_step(p, H, P, carry, wx):
     return (h_new, c_new, n_new, m_new)
 
 
-def slstm_scan(p, H: int, P: int, carry, wx: torch.Tensor):
+def slstm_scan(p, H: int, P: int, carry, wx: torch.Tensor, rec_fn=None):
     """The sLSTM recurrence over the S steps of ``wx`` (B, S, 4d): one
     :func:`_slstm_step` a token, as the reference's ``lax.scan``.  Returns
     (h of every step (B, S, d), the last carry)."""
     hs = []
     for t in range(wx.shape[1]):
-        carry = _slstm_step(p, H, P, carry, wx[:, t])
+        carry = _slstm_step(p, H, P, carry, wx[:, t], rec_fn)
         hs.append(carry[0])
     return torch.stack(hs, dim=1), carry
 
 
 def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: Optional[SlstmCache] = None):
+                ctx: ShardingCtx, cache: Optional[SlstmCache] = None):
+    """Pre-norm sLSTM block, ``p`` in ``ctx``'s member layout (module
+    docstring).  Returns (residual_out, new_cache_or_None)."""
+    sp = slstm_specs(cfg)
     Bsz, S, d = x.shape
     H = cfg.num_heads
     P = d // H
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    wx = (h @ p["W"].to(h.dtype) + p["b"].to(h.dtype)).float()
+    W = ctx.column(h, [p["W"], p["b"]], [sp["W"], sp["b"]],
+                   lambda h, w, b: h @ w.to(h.dtype) + b.to(h.dtype))
+    wx = W.float()
+    rec_fn = None
+    if ctx.sharded(sp["R"]):
+        hm = H // ctx.model_ways
+
+        def rec_fn(hh):
+            def member(m, hh, r):
+                return torch.einsum("bhp,hpq->bhq", hh[:, m * hm:(m + 1) * hm],
+                                    r).reshape(Bsz, -1)
+            return ctx.gather(ctx.members(member, [hh], [p["R"]], [sp["R"]]))
     if cache is None:
         z = torch.zeros((Bsz, d), dtype=torch.float32, device=x.device)
         carry = (z, z, z, torch.full((Bsz, d), NEG, dtype=torch.float32,
@@ -412,7 +471,7 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         carry = (cache.h.float(), cache.c.float(), cache.n.float(),
                  cache.m.float())
-    ys, (hf, cf, nf, mf) = slstm_scan(p, H, P, carry, wx)
+    ys, (hf, cf, nf, mf) = slstm_scan(p, H, P, carry, wx, rec_fn)
     y = ys.to(x.dtype)                                    # (B,S,d)
     new_cache = None
     if cache is not None:

@@ -15,6 +15,19 @@ a tuple (one entry per pattern position) of cache objects whose tensors
 carry the leading R axis.  An attention layer writes its keys and values
 through its view of them in place; an SSM layer returns new states, which
 the forward stacks into the returned caches.
+
+Under a model axis (``ctx``, ``core.sharding.ShardingCtx``) the params are
+in ``ctx``'s member layout: a model-sharded stacked leaf is ``(M, R,
+...)`` on a local mesh, so that member m's block of layer r, ``w[m][r]``,
+is contiguous and no step copies it, and the rank's ``(R, ...)`` block on
+a process mesh.  The embedding is vocab-parallel: each member looks up the
+tokens in its row range (zeros elsewhere) and the members' rows are summed.
+The tied head, ``lm_head`` and ``codebook_heads`` are column-parallel over
+``"vocab"``: each member's logits over its vocab columns, joined by
+``gather_model`` into the whole logits, and the CE is the reference's on
+them.  The blocks are ``layers``', ``moe``'s and ``ssm``'s own model-axis
+forms.  ``seq_shard_carry`` (the reference's layout hint for the residual
+stream) changes nothing here.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.core.params import Spec, init_tree, map_tree, tree_leaves
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import attention_block, mlp_block, rms_norm
@@ -190,12 +204,20 @@ def _restack(stacked, per_layer):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _unstack(tree, repeats: int) -> list:
-    """The ``repeats`` per-layer trees of a tree of R-stacked weights.  Each
-    leaf is unbound once: the backward of ``torch.unbind`` stacks the R
-    layer gradients in one allocation, where indexing ``w[r]`` in every
-    layer would add R zero-filled gradients of the whole stacked leaf."""
-    cols = [torch.unbind(w) for w in tree_leaves(tree)]
+def _unstack(tree, repeats: int, specs=None,
+             ctx: ShardingCtx = ShardingCtx()) -> list:
+    """The ``repeats`` per-layer trees of a tree of R-stacked weights
+    (``specs``: its ``Spec`` tree, needed under a model axis).  Each leaf
+    is unbound once: the backward of ``torch.unbind`` stacks the R layer
+    gradients in one allocation, where indexing ``w[r]`` in every layer
+    would add R zero-filled gradients of the whole stacked leaf.  A model-sharded leaf
+    on a local mesh, ``(M, R, ...)``, is unbound along R: layer r's leaf is
+    its ``(M, ...)`` view."""
+    leaves = tree_leaves(tree)
+    local = ctx.model_ways > 1 and ctx.mesh.member_dims
+    flags = [local and ctx.sharded(s) for s in tree_leaves(specs)] \
+        if local else [False] * len(leaves)
+    cols = [torch.unbind(w, 1 if f else 0) for w, f in zip(leaves, flags)]
 
     def layer(r):
         it = iter([c[r] for c in cols])
@@ -204,40 +226,89 @@ def _unstack(tree, repeats: int) -> list:
     return [layer(r) for r in range(repeats)]
 
 
-def _apply_block(kind: str, p, shared_p, x, cfg: ModelConfig, positions, *,
-                 long_ctx: bool, cache, update_cache: bool, use_kernel: bool):
+def _apply_block(kind: str, p, shared_p, x, cfg: ModelConfig,
+                 ctx: ShardingCtx, positions, *, long_ctx: bool, cache,
+                 update_cache: bool, use_kernel: bool):
     """One block of the pattern.  Returns (x, aux loss or None, new cache
     or None)."""
     aux = None
     if kind in ATTN_KINDS:
         pp = shared_p if kind == BLOCK_SHARED_ATTN else p
         x, nc = attention_block(
-            pp["attn"], x, cfg, positions,
+            pp["attn"], x, cfg, ctx, positions,
             window=effective_window(cfg, kind, long_ctx), cache=cache,
             update_cache=update_cache, use_kernel=use_kernel)
         if "moe" in pp:
-            x, aux = moe.moe_block(pp["moe"], x, cfg)
+            x, aux = moe.moe_block(pp["moe"], x, cfg, ctx)
         else:
-            x = mlp_block(pp["mlp"], x, cfg)
+            x = mlp_block(pp["mlp"], x, cfg, ctx)
     elif kind == BLOCK_MAMBA:
-        x, nc = ssm.mamba_block(p["mamba"], x, cfg, cache=cache)
+        x, nc = ssm.mamba_block(p["mamba"], x, cfg, ctx, cache=cache)
     elif kind == BLOCK_MLSTM:
-        x, nc = ssm.mlstm_block(p["mlstm"], x, cfg, cache=cache)
+        x, nc = ssm.mlstm_block(p["mlstm"], x, cfg, ctx, cache=cache)
     elif kind == BLOCK_SLSTM:
-        x, nc = ssm.slstm_block(p["slstm"], x, cfg, cache=cache)
+        x, nc = ssm.slstm_block(p["slstm"], x, cfg, ctx, cache=cache)
     else:
         raise ValueError(kind)
     return x, aux, nc
 
 
-def forward(params, cfg: ModelConfig, *,
+def shard_caches(caches, ctx: ShardingCtx):
+    """The R-stacked caches with every attention ring cache's sequence
+    split over the mesh axes ``ctx.rules`` maps ``cache_seq`` to
+    (``layers.shard_cache``); unchanged without such an axis."""
+    return tuple(layers.shard_cache(c, ctx)
+                 if isinstance(c, layers.AttnCache) else c for c in caches)
+
+
+def _embed(params, cfg: ModelConfig, ctx: ShardingCtx,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The scaled token embeddings in f32, vocab-parallel under a model
+    axis (module docstring): exact, one member's row plus zeros."""
+    emb_scale = float(np.float32(cfg.d_model ** 0.5))
+    spec = param_specs(cfg)["embed"]
+    if not ctx.sharded(spec):
+        return params["embed"][tokens.long()] * emb_scale
+    rows = cfg.vocab_size // ctx.model_ways
+
+    def member(m, tok, w):
+        at = tok.long() - m * rows
+        mine = (at >= 0) & (at < rows)
+        got = w[torch.where(mine, at, 0)] * emb_scale
+        return got * mine[..., None].to(got.dtype)
+    return ctx.summed(member, [tokens], [params["embed"]], [spec])
+
+
+def _head(params, cfg: ModelConfig, ctx: ShardingCtx,
+          x: torch.Tensor) -> torch.Tensor:
+    """The logits of hidden ``x``: the codebook heads, the tied embedding
+    or ``lm_head``, softcapped; column-parallel over ``"vocab"`` under a
+    model axis, the members' columns joined (module docstring)."""
+    sp = param_specs(cfg)
+    name = ("codebook_heads" if cfg.num_codebooks else
+            "embed" if cfg.tie_embeddings else "lm_head")
+
+    def fn(x, w):
+        if cfg.num_codebooks:
+            logits = torch.einsum("bsd,kdv->bskv", x, w.to(x.dtype))
+        else:
+            logits = x @ (w.T if cfg.tie_embeddings else w).to(x.dtype)
+        if cfg.final_logit_softcap:
+            c = cfg.final_logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
+    return ctx.column(x, [params[name]], [sp[name]], fn)
+
+
+def forward(params, cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx(), *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, caches=None,
             update_cache: bool = False, long_ctx: bool = False,
             return_hidden: bool = False, use_kernel: bool = False):
     """Returns (logits, aux_loss, new_caches), or the final-normed hidden
-    states in place of the logits when ``return_hidden``.
+    states in place of the logits when ``return_hidden``.  ``params`` in
+    ``ctx``'s member layout (module docstring).
 
     ``tokens`` (B, S) and/or ``embeds`` (B, S_e, d): for a VLM the two are
     concatenated, vision first; for audio only the embeds are used.  Both
@@ -252,9 +323,7 @@ def forward(params, cfg: ModelConfig, *,
     if embeds is not None:
         parts.append(embeds.to(ACTIVATION_DTYPE))
     if tokens is not None:
-        emb_scale = float(np.float32(cfg.d_model ** 0.5))
-        parts.append((params["embed"][tokens.long()] * emb_scale)
-                     .to(ACTIVATION_DTYPE))
+        parts.append(_embed(params, cfg, ctx, tokens).to(ACTIVATION_DTYPE))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
@@ -266,12 +335,14 @@ def forward(params, cfg: ModelConfig, *,
     have_cache = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = [[] for _ in cfg.block_pattern]
-    blocks = [_unstack(bp, cfg.pattern_repeats) for bp in params["blocks"]]
+    specs = param_specs(cfg)["blocks"]
+    blocks = [_unstack(bp, cfg.pattern_repeats, sp, ctx)
+              for bp, sp in zip(params["blocks"], specs)]
     for r in range(cfg.pattern_repeats):
         for j, kind in enumerate(cfg.block_pattern):
             cache = _at(caches[j], r) if have_cache else None
             x, aux_j, nc = _apply_block(
-                kind, blocks[j][r], shared_p, x, cfg, positions,
+                kind, blocks[j][r], shared_p, x, cfg, ctx, positions,
                 long_ctx=long_ctx, cache=cache, update_cache=update_cache,
                 use_kernel=use_kernel)
             if aux_j is not None:
@@ -284,17 +355,7 @@ def forward(params, cfg: ModelConfig, *,
                   if have_cache else None)
     if return_hidden:
         return x, aux, new_caches
-    if cfg.num_codebooks:
-        logits = torch.einsum("bsd,kdv->bskv", x,
-                              params["codebook_heads"].to(x.dtype))
-    elif cfg.tie_embeddings:
-        logits = x @ params["embed"].T.to(x.dtype)
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
-    if cfg.final_logit_softcap:
-        c = cfg.final_logit_softcap
-        logits = torch.tanh(logits / c) * c
-    return logits, aux, new_caches
+    return _head(params, cfg, ctx, x), aux, new_caches
 
 
 # ---------------------------------------------------------------------------
@@ -307,60 +368,55 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (torch.logsumexp(lf, dim=-1) - gold).mean()
 
 
-def chunked_lm_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
-                    labels: torch.Tensor, n_chunks: int) -> torch.Tensor:
+def chunked_lm_loss(params, cfg: ModelConfig, ctx: ShardingCtx,
+                    hidden: torch.Tensor, labels: torch.Tensor,
+                    n_chunks: int) -> torch.Tensor:
     """CE over sequence chunks, so the (B, S, V) f32 logits are never whole
-    (the reference's perf knob ``loss_chunk``)."""
+    (the reference's perf knob ``loss_chunk``); each chunk's logits
+    column-parallel under a model axis, as the forward's."""
     B, S, _ = hidden.shape
     Sm1 = S - 1
     chunk = -(-Sm1 // n_chunks)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
         lo = i * chunk
         hi = min(lo + chunk, Sm1)
         if lo >= hi:
             break
-        hc = hidden[:, lo:hi]
-        logits = hc @ w.to(hc.dtype)
-        if cfg.final_logit_softcap:
-            c = cfg.final_logit_softcap
-            logits = torch.tanh(logits / c) * c
-        lf = logits.float()
+        lf = _head(params, cfg, ctx, hidden[:, lo:hi]).float()
         # hidden positions lo..hi-1 predict tokens lo+1..hi
         gold = torch.gather(lf, -1, labels[:, lo + 1:hi + 1, None].long())
         total = total + (torch.logsumexp(lf, -1) - gold[..., 0]).sum()
     return total / (B * Sm1)
 
 
-def lm_loss(params, cfg: ModelConfig, batch: dict,
+def lm_loss(params, cfg: ModelConfig, ctx: ShardingCtx, batch: dict,
             use_kernel: bool = False) -> torch.Tensor:
-    """Next-token CE for every family.  ``batch`` keys: ``tokens`` (B, S)
-    for the token LMs (dense, MoE, SSM, hybrid); for a vision frontend also
-    ``patch_embeds`` (B, S_img, d) and optionally M-RoPE ``positions`` (B,
-    S_img + S, 3), the CE over the text positions only; for audio
-    ``frame_embeds`` (B, S, d) and ``codebook_labels`` (B, S, K), the CE
-    over every codebook.  With ``cfg.loss_chunk`` a token LM's CE runs over
-    sequence chunks.  ``use_kernel`` puts every attention forward on the
-    flash kernel."""
+    """Next-token CE for every family, ``params`` in ``ctx``'s member
+    layout.  ``batch`` keys: ``tokens`` (B, S) for the token LMs (dense,
+    MoE, SSM, hybrid); for a vision frontend also ``patch_embeds`` (B,
+    S_img, d) and optionally M-RoPE ``positions`` (B, S_img + S, 3), the CE
+    over the text positions only; for audio ``frame_embeds`` (B, S, d) and
+    ``codebook_labels`` (B, S, K), the CE over every codebook.  With
+    ``cfg.loss_chunk`` a token LM's CE runs over sequence chunks.
+    ``use_kernel`` puts every attention forward on the flash kernel."""
     kw = dict(use_kernel=use_kernel)
     if cfg.frontend == "audio":
-        logits, aux, _ = forward(params, cfg, embeds=batch["frame_embeds"],
-                                 **kw)
+        logits, aux, _ = forward(params, cfg, ctx,
+                                 embeds=batch["frame_embeds"], **kw)
         labels = batch["codebook_labels"]                    # (B, S, K)
         return _ce(logits[:, :-1], labels[:, 1:]) + aux
     if cfg.frontend == "vision":
-        logits, aux, _ = forward(params, cfg, tokens=batch["tokens"],
+        logits, aux, _ = forward(params, cfg, ctx, tokens=batch["tokens"],
                                  embeds=batch["patch_embeds"],
                                  positions=batch.get("positions"), **kw)
         s_img = batch["patch_embeds"].shape[1]
         return _ce(logits[:, s_img:-1], batch["tokens"][:, 1:]) + aux
     tokens = batch["tokens"]
     if cfg.loss_chunk and not cfg.num_codebooks:
-        hidden, aux, _ = forward(params, cfg, tokens=tokens,
-                                 return_hidden=True, use_kernel=use_kernel)
-        return chunked_lm_loss(params, cfg, hidden, tokens,
+        hidden, aux, _ = forward(params, cfg, ctx, tokens=tokens,
+                                 return_hidden=True, **kw)
+        return chunked_lm_loss(params, cfg, ctx, hidden, tokens,
                                cfg.loss_chunk) + aux
-    logits, aux, _ = forward(params, cfg, tokens=tokens,
-                             use_kernel=use_kernel)
+    logits, aux, _ = forward(params, cfg, ctx, tokens=tokens, **kw)
     return _ce(logits[:, :-1], tokens[:, 1:]) + aux

@@ -474,17 +474,23 @@ def make_model_gathered(make_update, optimizer, mesh, ctx: ShardingCtx,
 
 
 def _data_dim(spec, axes) -> Optional[int]:
-    """The dim of ``spec`` that holds the data axes, or None; the data
-    axes must all sit on it (a split over two dims is FSDP's, item 9b)."""
+    """The dim of ``spec`` that holds the data axes ``axes``, None when no
+    dim holds any, and -1 when they sit on several dims (FSDP's
+    ``"embed_fsdp"`` on one, the other data axes on another: mixtral's
+    zero1-gspmd state with ``pods > 1``)."""
     dims = [i for i, e in enumerate(spec)
             if set(entry_axes(e)) & {"pod", "data"}]
     if not dims:
         return None
     if len(dims) > 1 or tuple(entry_axes(spec[dims[0]])) != tuple(axes):
-        raise NotImplementedError(
-            f"a state spec {spec} that splits the data axes {axes} other "
-            "than on one dim is not ported yet (ROADMAP.md Queue A item 9b)")
+        return -1
     return dims[0]
+
+
+def _data_only(spec) -> tuple:
+    """``spec`` with its model entries dropped: the data axes' placement
+    of a block that every model member of a data group holds alike."""
+    return tuple(None if "model" in entry_axes(e) else e for e in spec)
 
 
 class GspmdUpdate:
@@ -548,12 +554,9 @@ class GspmdUpdate:
                 self.mesh), tree)
 
         def own(i, x):
-            k = _data_dim(self.strip[i], self.axes)
-            if k is None:
+            if _data_dim(self.strip[i], self.axes) is None:
                 return x.clone()
-            n = x.shape[k] // self.G
-            d = coll.group_index(self.mesh, self.axes, self.mesh.member)
-            return x.narrow(k, d * n, n).contiguous()
+            return to_members(x, _data_only(self.strip[i]), self.mesh)
         return self._map(own, tree)
 
     @torch.no_grad()
@@ -570,9 +573,13 @@ class GspmdUpdate:
         def one(i, g):
             pg = self._data_group(g)
             k = _data_dim(self.strip[i], self.axes) if self.zero1 else None
-            if k is None:
+            if k is None or k < 0:
+                # the mean whole, then (data axes on several dims) the
+                # member's strip of it
                 dist.all_reduce(g, group=pg)
-                return g.div_(self.G)
+                g.div_(self.G)
+                return g if k is None else to_members(
+                    g, _data_only(self.strip[i]), self.mesh)
             x = g.movedim(k, 0).contiguous()
             out = x.new_empty(x.shape[0] // self.G, *x.shape[1:])
             dist.reduce_scatter_tensor(out, x, group=pg)
@@ -593,15 +600,10 @@ class GspmdUpdate:
                 p.copy_(to_members(from_members(s, self.strip[i], self.mesh),
                                    self.held[i], self.mesh))
                 return p
-            k = _data_dim(self.strip[i], self.axes)
-            if k is None or self.G == 1:
+            if _data_dim(self.strip[i], self.axes) is None or self.G == 1:
                 return p.copy_(s)
-            import torch.distributed as dist
-            x = s.movedim(k, 0).contiguous()
-            out = x.new_empty(x.shape[0] * self.G, *x.shape[1:])
-            dist.all_gather_into_tensor(out, x,
-                                        group=self.mesh.group(self.axes)[0])
-            return p.copy_(out.movedim(0, k))
+            return p.copy_(from_members(s, _data_only(self.strip[i]),
+                                        self.mesh))
         self._map(back, params, strips)
         return params, opt_state
 

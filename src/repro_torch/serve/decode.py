@@ -18,6 +18,14 @@ buffer through the plain ``kernels.ref.decode_attention_ref``, as the
 reference does; the serving engine decodes through the paged kernel
 instead.
 
+``ctx`` (``core.sharding.ShardingCtx``, in the reference's position) runs
+the model on its mesh's model axis, ``params`` in its member layout; with
+a ``cache_seq`` rule that maps onto mesh axes of extent > 1 dividing the
+capacity (``core.hybrid.plan`` picks ``("model",)`` when the kv heads do
+not split over the model ways), ``prefill`` hands back its ring caches
+sequence-sharded (``transformer.shard_caches``) and every decode step
+attends them through ``layers.sharded_decode_attention``.
+
 With M-RoPE (qwen2-vl) a decode step's position is the scalar position
 repeated three times, as in the reference: after a prefill with image
 embeddings, whose M-RoPE text positions start past the image grid
@@ -31,27 +39,30 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding import ShardingCtx
 from repro_torch.models import transformer
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
-            capacity: int, *, embeds: Optional[torch.Tensor] = None,
-            long_ctx: bool = False):
+def prefill(params, cfg: ModelConfig, ctx: ShardingCtx,
+            tokens: Optional[torch.Tensor], capacity: int, *,
+            embeds: Optional[torch.Tensor] = None, long_ctx: bool = False):
     """tokens: (B, S) and/or embeds: (B, S_e, d) (``transformer.forward``'s
-    inputs).  Returns (last_logits (B, V), caches)."""
+    inputs).  Returns (last_logits (B, V), caches), the ring caches
+    sequence-sharded under a ``cache_seq`` rule (module docstring)."""
     first = tokens if tokens is not None else embeds
     caches = transformer.init_caches(cfg, first.shape[0], capacity,
                                      long_ctx=long_ctx, device=first.device)
     logits, _, caches = transformer.forward(
-        params, cfg, tokens=tokens, embeds=embeds, caches=caches,
+        params, cfg, ctx, tokens=tokens, embeds=embeds, caches=caches,
         update_cache=True, long_ctx=long_ctx)
-    return logits[:, -1], caches
+    return logits[:, -1], transformer.shard_caches(caches, ctx)
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
-                caches, *, long_ctx: bool = False):
+def decode_step(params, cfg: ModelConfig, ctx: ShardingCtx,
+                tokens: torch.Tensor, pos, caches, *,
+                long_ctx: bool = False):
     """tokens: (B, 1) the latest sampled token; pos: an int or (B,) absolute
     position.  Returns (logits (B, V), new_caches)."""
     B = tokens.shape[0]
@@ -60,20 +71,20 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     if cfg.mrope:
         pos_b = pos_b[..., None].expand(B, 1, 3)
     logits, _, caches = transformer.forward(
-        params, cfg, tokens=tokens, positions=pos_b, caches=caches,
+        params, cfg, ctx, tokens=tokens, positions=pos_b, caches=caches,
         long_ctx=long_ctx)
     return logits[:, -1], caches
 
 
-def generate(params, cfg: ModelConfig, prompt, max_new_tokens: int, *,
-             temperature: float = 0.0,
+def generate(params, cfg: ModelConfig, ctx: ShardingCtx, prompt,
+             max_new_tokens: int, *, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              capacity: Optional[int] = None) -> torch.Tensor:
     """Greedy (``temperature`` 0: the first maximum on ties) or sampled
     generation.  prompt: (B, S) ints.  Sampling draws from ``generator``
     (default: one seeded with 0 on the params' device).  Returns (B,
     max_new_tokens) int64 on the params' device."""
-    dev = params["embed"].device
+    dev = params["final_norm"].device
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
     capacity = capacity or (S + max_new_tokens)
@@ -86,11 +97,12 @@ def generate(params, cfg: ModelConfig, prompt, max_new_tokens: int, *,
         probs = torch.softmax(lg.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
-    logits, caches = prefill(params, cfg, prompt, capacity)
+    logits, caches = prefill(params, cfg, ctx, prompt, capacity)
     cur = sample(logits)[:, None]
     toks = [cur]
     for i in range(1, max_new_tokens):
-        logits, caches = decode_step(params, cfg, cur, S + i - 1, caches)
+        logits, caches = decode_step(params, cfg, ctx, cur, S + i - 1,
+                                     caches)
         cur = sample(logits)[:, None]
         toks.append(cur)
     return torch.cat(toks, dim=1)

@@ -49,6 +49,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.serve import decode as jdecode  # noqa: E402
 from repro_torch.configs import ARCHS, ModelConfig, get_config  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.configs import smoke_variant  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.kernels import paged_attn  # noqa: E402
@@ -58,6 +59,7 @@ from repro_torch.serve import decode as tdecode  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 MAX_ULPS, MEAN_ULPS = 4, 0.75
 NEW_ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x22b", "gemma-2b",
              "h2o-danube-3-4b", "llama-100m"]
@@ -209,11 +211,12 @@ def test_prefill_and_decode_steps_match_reference(arch, over):
 
     def trun():
         logs = []
-        lg, caches = tdecode.prefill(tp, tc, torch.tensor(prompt), capacity)
+        lg, caches = tdecode.prefill(tp, tc, TCTX, torch.tensor(prompt),
+                                     capacity)
         logs.append(lg.float().numpy())
         for i in range(steps):
             lg, caches = tdecode.decode_step(
-                tp, tc, torch.tensor(forced[:, i:i + 1]), S + i, caches)
+                tp, tc, TCTX, torch.tensor(forced[:, i:i + 1]), S + i, caches)
             logs.append(lg.float().numpy())
         return logs, caches
 
@@ -253,7 +256,7 @@ def test_generate_greedy_matches_reference(arch, over):
     B, S, new = 3, 12, 12
     prompt = rng.integers(1, jc.vocab_size, size=(B, S)).astype(np.int32)
     before = paged_attn.launches
-    got = tdecode.generate(tp, tc, prompt, new)
+    got = tdecode.generate(tp, tc, TCTX, prompt, new)
     assert paged_attn.launches == before
     assert got.shape == (B, new) and got.dtype == torch.int64
     got = got.numpy()
@@ -281,14 +284,15 @@ def test_generate_greedy_matches_reference(arch, over):
 def test_generate_samples_from_the_callers_generator():
     _, tc, _, tp = _models("llama3-8b", {}, seed=6)
     prompt = np.random.default_rng(7).integers(1, tc.vocab_size, (2, 8))
-    draws = [tdecode.generate(tp, tc, prompt, 6, temperature=0.9,
+    draws = [tdecode.generate(tp, tc, TCTX, prompt, 6, temperature=0.9,
                               generator=torch.Generator().manual_seed(s))
              for s in (11, 11, 12)]
     assert torch.equal(draws[0], draws[1])
     assert not torch.equal(draws[0], draws[2])
     assert int(draws[0].min()) >= 0 and int(draws[0].max()) < tc.vocab_size
-    assert torch.equal(tdecode.generate(tp, tc, prompt, 6, temperature=0.9),
-                       tdecode.generate(tp, tc, prompt, 6, temperature=0.9))
+    assert torch.equal(
+        tdecode.generate(tp, tc, TCTX, prompt, 6, temperature=0.9),
+        tdecode.generate(tp, tc, TCTX, prompt, 6, temperature=0.9))
 
 
 def test_ring_decode_writes_slot_length_mod_capacity():
@@ -297,11 +301,11 @@ def test_ring_decode_writes_slot_length_mod_capacity():
     _, tc, _, tp = _models("gemma2-2b", {"sliding_window": 4}, seed=8)
     prompt = torch.tensor(np.random.default_rng(9).integers(
         1, tc.vocab_size, (2, 5)))
-    _, caches = tdecode.prefill(tp, tc, prompt, capacity=16)
+    _, caches = tdecode.prefill(tp, tc, TCTX, prompt, capacity=16)
     local = caches[0]                       # gemma2's (local, global) unit
     assert local.k.shape[2] == 4 and caches[1].k.shape[2] == 16
     before = local.k.clone()
-    _, caches = tdecode.decode_step(tp, tc, prompt[:, -1:], 5, caches)
+    _, caches = tdecode.decode_step(tp, tc, TCTX, prompt[:, -1:], 5, caches)
     after = caches[0].k
     assert int(caches[0].length[0]) == 6
     changed = (after != before).flatten(3).any(-1)            # (R, B, C)

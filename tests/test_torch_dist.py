@@ -271,26 +271,30 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
                                    rtol=1e-4, atol=1e-6)
 
 
-# every mode is ported, and model ways on the CNN and DNN families; model
-# ways on an LM (Queue A item 9b) and on a cluster still raise before
-# allocating
+# every mode is ported, with model ways on every family; model ways on a
+# cluster mesh (Queue A item 9d) still raise before allocating, under every
+# mode and on an LM as on a CNN
+CLUSTER_MW = MeshSpec(cluster=True, model_ways=2)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(parallel="dp", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="zero1-gspmd", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="stale-sync", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="gossip", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="zero1", comm="auto", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="zero1", mesh=MeshSpec(model_ways=2)),
-    dict(parallel="zero1", mesh=MeshSpec(cluster=True, model_ways=2))],
+    dict(parallel="dp", mesh=CLUSTER_MW),
+    dict(parallel="zero1-gspmd", mesh=CLUSTER_MW),
+    dict(parallel="stale-sync", mesh=CLUSTER_MW),
+    dict(parallel="gossip", mesh=CLUSTER_MW),
+    dict(parallel="zero1", comm="auto", mesh=CLUSTER_MW),
+    dict(parallel="zero1", mesh=CLUSTER_MW),
+    dict(parallel="zero1", mesh=CLUSTER_MW, arch="vgg-a")],
     ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "model_ways",
          "cluster"])
 def test_unported_modes_raise_before_allocating(kw, monkeypatch):
     def no_device(*a, **k):
         raise AssertionError("compile_run reached the device")
     monkeypatch.setattr(assemble, "resolve_device", no_device)
-    arch = "vgg-a" if kw["mesh"].cluster else "llama-100m"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        compile_run(RunSpec(arch=arch, **kw))
+    kw = {"arch": "llama-100m", **kw}
+    with pytest.raises(NotImplementedError,
+                       match=r"not ported yet \(ROADMAP.md Queue A item 9d\)"):
+        compile_run(RunSpec(**kw))
 
 
 @pytest.mark.parametrize("kw", [dict(members_per_device=0),

@@ -84,6 +84,7 @@ from repro.core.sharding import ShardingCtx  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.serve import decode as jdecode  # noqa: E402
 from repro_torch.api import MeshSpec, RunSpec, ServeSpec  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.api import compile_run, compile_serve  # noqa: E402
 from repro_torch.comm import CommConfig  # noqa: E402
 from repro_torch.comm.bucketer import plan_buckets  # noqa: E402
@@ -97,6 +98,7 @@ from repro_torch.serve import decode as tdecode  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 FAMILY_ARCHS = ["xlstm-125m", "zamba2-2.7b", "qwen2-vl-2b",
                 "musicgen-medium"]
 LOSS_REL = 1e-3
@@ -234,7 +236,8 @@ def _port_loss_and_grads(case, nparams, b, route, f32=False):
     batch = {k: torch.tensor(np.asarray(v)) for k, v in b.items()}
     with _activations(f32):
         before = fa.launches
-        loss = tt.lm_loss(params, tc, batch, use_kernel=route == "kernel")
+        loss = tt.lm_loss(params, tc, TCTX, batch,
+                          use_kernel=route == "kernel")
         assert fa.launches == before       # CPU tensors: the plain version
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss, grads
@@ -304,13 +307,15 @@ def test_prefill_and_decode_steps_match_reference(arch):
                                                            i, c))
     lg, jc_ = jpre(jp, jnp.asarray(prompt))
     jlogs = [np.asarray(lg, np.float32)]
-    tl, tc_ = tdecode.prefill(tp, tc, torch.tensor(prompt), S + steps)
+    tl, tc_ = tdecode.prefill(tp, tc, TCTX, torch.tensor(prompt),
+                                  S + steps)
     tlogs = [tl.float().numpy()]
     for i in range(steps):
         lg, jc_ = jstep(jp, jnp.asarray(forced[:, i:i + 1]), jnp.asarray(S + i),
                         jc_)
         jlogs.append(np.asarray(lg, np.float32))
-        tl, tc_ = tdecode.decode_step(tp, tc, torch.tensor(forced[:, i:i + 1]),
+        tl, tc_ = tdecode.decode_step(tp, tc, TCTX,
+                                        torch.tensor(forced[:, i:i + 1]),
                                       S + i, tc_)
         tlogs.append(tl.float().numpy())
     scale = 2 if arch in SPREAD else 1
@@ -339,8 +344,9 @@ def test_prefill_plus_decode_is_the_full_forward(arch):
         0, tc.vocab_size, (2, 17)))
     with torch.no_grad():
         full = tt.forward(tp, tc, tokens=tokens)[0]
-        _, caches = tdecode.prefill(tp, tc, tokens[:, :16], 24)
-        dec, _ = tdecode.decode_step(tp, tc, tokens[:, 16:17], 16, caches)
+        _, caches = tdecode.prefill(tp, tc, TCTX, tokens[:, :16], 24)
+        dec, _ = tdecode.decode_step(tp, tc, TCTX, tokens[:, 16:17], 16,
+                                     caches)
     np.testing.assert_allclose(dec.float().numpy(),
                                full[:, 16].float().numpy(),
                                rtol=DECODE_RTOL, atol=DECODE_ATOL)
@@ -352,7 +358,7 @@ def test_generate_greedy_matches_reference(arch):
     B, S, new = 2, 12, 10
     prompt = np.random.default_rng(5).integers(1, jc.vocab_size, (B, S)) \
         .astype(np.int32)
-    got = tdecode.generate(tp, tc, prompt, new)
+    got = tdecode.generate(tp, tc, TCTX, prompt, new)
     assert got.shape == (B, new) and got.dtype == torch.int64
     got = got.numpy()
     ref = np.asarray(jdecode.generate(jp, jc, CTX, jnp.asarray(prompt), new))
@@ -386,7 +392,7 @@ def test_vision_prefill_takes_embeds():
         0, tc.vocab_size, (2, 8)))
     with torch.no_grad():
         full = tt.forward(tp, tc, tokens=toks, embeds=emb)[0]
-        last, caches = tdecode.prefill(tp, tc, toks, 40, embeds=emb)
+        last, caches = tdecode.prefill(tp, tc, TCTX, toks, 40, embeds=emb)
     assert torch.equal(last, full[:, -1])
     assert int(caches[0].length[0]) == tc.vision_tokens + 8
 

@@ -36,6 +36,7 @@ from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import frontends as jfront  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.api import adapter_for  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
@@ -45,6 +46,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 torch.set_num_threads(min(2, torch.get_num_threads()))
 jax.config.update("jax_default_matmul_precision", "highest")
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 F32_TOL = 1e-5
 
 
@@ -198,16 +200,16 @@ def test_mrope_attention_block_matches_reference(route):
             cache=jcache)
         tcache = tlayers.init_attn_cache(tc, 2, S, torch.float32)
         _, tcache = tlayers.attention_block(
-            tp, torch.tensor(x[:, :-1]), tc, torch.tensor(pos[:, :-1]),
+            tp, torch.tensor(x[:, :-1]), tc, TCTX, torch.tensor(pos[:, :-1]),
             cache=tcache, update_cache=True)
         got, _ = tlayers.attention_block(
-            tp, torch.tensor(x[:, -1:]), tc, torch.tensor(pos[:, -1:]),
+            tp, torch.tensor(x[:, -1:]), tc, TCTX, torch.tensor(pos[:, -1:]),
             cache=tcache)
     else:
         want, _ = jlayers.attention_block(jp, jnp.asarray(x), jc, CTX,
                                           jnp.asarray(pos))
         got, _ = tlayers.attention_block(
-            tp, torch.tensor(x), tc, torch.tensor(pos),
+            tp, torch.tensor(x), tc, TCTX, torch.tensor(pos),
             use_kernel=route == "kernel")
     _close(got.numpy(), want)
 

@@ -83,11 +83,12 @@ def test_check_run_args_rejects_what_the_reference_rejects(argv):
             _parse(mod, argv)
 
 
-# dp, zero1-gspmd and model ways on the CNN and DNN families are ported: the
-# cases are what the port still refuses, model ways on an LM, on the cluster
-# CLI and with --overlap, and the default (dp, as the reference's)
+# dp, zero1-gspmd and model ways on every family are ported: the cases are
+# what the port still refuses, model ways on a cluster (an LM's and a
+# CNN's) and with --overlap, and the default (dp, as the reference's)
 @pytest.mark.parametrize("argv", [
-    [], ["--arch", "llama-100m", "--parallel", "dp", "--model-ways", "2"],
+    [], ["--arch", "llama-100m", "--parallel", "dp", "--model-ways", "2",
+         "--cluster"],
     ["--parallel", "zero1", "--model-ways", "2", "--cluster"],
     ["--parallel", "zero1", "--model-ways", "2", "--overlap"]],
     ids=["default", "dp", "auto", "model_ways"])
@@ -111,7 +112,7 @@ def test_unported_flags_parse_then_raise_in_compile_run(argv, monkeypatch):
             assemble.compile_run(spec)
         return
     with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP.md Queue A item 9b\)"):
+                       match=r"not ported yet \(ROADMAP.md Queue A item 9d\)"):
         assemble.compile_run(spec)
 
 

@@ -24,12 +24,14 @@ from repro.core.sharding import ShardingCtx  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro_torch.configs import ModelConfig, get_config, smoke_variant  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -154,7 +156,7 @@ def test_attention_block_prefill_and_cache(arch, window, S, cap):
     jy, jnc = jl.attention_block(jb["attn"], jnp.asarray(x), jc, CTX,
                                  jnp.asarray(pos), window=window,
                                  cache=jcache, update_cache=True)
-    ty, tnc = tl.attention_block(tb["attn"], _t(x), tc, _t(pos),
+    ty, tnc = tl.attention_block(tb["attn"], _t(x), tc, TCTX, _t(pos),
                                  window=window, cache=tcache,
                                  update_cache=True)
     np.testing.assert_allclose(ty.numpy(), _np(jy), **TOL)
@@ -181,7 +183,8 @@ def test_attention_block_ring_decode(arch, window, S, cap, steps):
         window=window, cache=jl.init_attn_cache(jc, 2, cap, jnp.float32),
         update_cache=True)
     _, tcache = tl.attention_block(
-        tb["attn"], _t(x[:, :S]), tc, _t(pos[:, :S]), window=window,
+        tb["attn"], _t(x[:, :S]), tc, TCTX, _t(pos[:, :S]),
+        window=window,
         cache=tl.init_attn_cache(tc, 2, cap, torch.float32),
         update_cache=True)
     for i in range(S, S + steps):
@@ -189,7 +192,7 @@ def test_attention_block_ring_decode(arch, window, S, cap, steps):
             jb["attn"], jnp.asarray(x[:, i:i + 1]), jc, CTX,
             jnp.asarray(pos[:, i:i + 1]), window=window, cache=jcache)
         ty, tcache = tl.attention_block(
-            tb["attn"], _t(x[:, i:i + 1]), tc, _t(pos[:, i:i + 1]),
+            tb["attn"], _t(x[:, i:i + 1]), tc, TCTX, _t(pos[:, i:i + 1]),
             window=window, cache=tcache)
         np.testing.assert_allclose(ty.numpy(), _np(jy), **TOL)
         np.testing.assert_allclose(tcache.k.numpy(), _np(jcache.k), **TOL)
@@ -204,7 +207,7 @@ def test_mlp_block(arch):
     x = np.random.default_rng(4).standard_normal(
         (2, 5, jc.d_model)).astype(np.float32)
     np.testing.assert_allclose(
-        tl.mlp_block(tb["mlp"], _t(x), tc).numpy(),
+        tl.mlp_block(tb["mlp"], _t(x), tc, TCTX).numpy(),
         _np(jl.mlp_block(jb["mlp"], jnp.asarray(x), jc, CTX)), **TOL)
 
 

@@ -44,6 +44,7 @@ from repro.optim.adamw import AdamW as JAdamW  # noqa: E402
 from repro.optim.sgd import MomentumSGD as JMomentumSGD  # noqa: E402
 from repro.train.train_step import make_train_step as jmake_step  # noqa: E402
 from repro_torch.api import RunSpec, adapter_for, compile_run  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.configs import ModelConfig, get_config  # noqa: E402
 from repro_torch.core.params import map_tree, tree_leaves  # noqa: E402
 from repro_torch.data.pipeline import lm_token_stream  # noqa: E402
@@ -56,6 +57,7 @@ from repro_torch.train import make_train_step  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 LOSS_REL = 1e-3
 GRAD_REL_L2 = 5e-2
 
@@ -133,7 +135,8 @@ def test_lm_loss_and_grads_match_reference(case, route):
     _, tc = _cfgs(arch, **over)
     params = params_from_numpy(nparams, "cpu")
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
-    loss = tt.lm_loss(params, tc, {"tokens": torch.tensor(b["tokens"])},
+    loss = tt.lm_loss(params, tc, TCTX,
+                      {"tokens": torch.tensor(b["tokens"])},
                       use_kernel=route == "kernel")
     grads = torch.autograd.grad(loss, leaves)
     assert abs(loss.item() - jloss) <= LOSS_REL * abs(jloss), (loss, jloss)
@@ -149,8 +152,8 @@ def test_chunked_loss_equals_the_whole_ce(arch, n_chunks):
     params = tt.init_params(tc, seed=1, device="cpu")
     tokens = torch.tensor(next(lm_token_stream(tc.vocab_size, 2, 64, 1))
                           ["tokens"])
-    whole = tt.lm_loss(params, tc, {"tokens": tokens})
-    chunked = tt.lm_loss(params, tc.replace(loss_chunk=n_chunks),
+    whole = tt.lm_loss(params, tc, TCTX, {"tokens": tokens})
+    chunked = tt.lm_loss(params, tc.replace(loss_chunk=n_chunks), TCTX,
                          {"tokens": tokens})
     assert abs(chunked.item() - whole.item()) <= 1e-5 * abs(whole.item())
 
@@ -254,7 +257,7 @@ def test_grads_tree_keeps_the_param_tree_structure():
             seen["grads"] = grads
             return p, state
 
-    step = make_train_step(lambda p, b: tt.lm_loss(p, tc, b), Spy(),
+    step = make_train_step(lambda p, b: tt.lm_loss(p, tc, TCTX, b), Spy(),
                            lambda s: 0.0)
     tokens = torch.tensor(next(lm_token_stream(tc.vocab_size, 2, 32, 0))
                           ["tokens"])

@@ -60,6 +60,7 @@ from repro.models import layers as jl  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro_torch.api import RunSpec, compile_run  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.core.params import tree_leaves  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
@@ -71,6 +72,7 @@ from repro_torch.models import transformer as tt  # noqa: E402
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 F32_REL, AUX_REL = 1e-5, 1e-6
 BF16_MAX_ULPS, BF16_MEAN_ULPS = 1, 0.25
 LOSS_REL, GRAD_REL_L2, GNORM_REL = 1e-3, 5e-2, 1e-2
@@ -98,7 +100,7 @@ def _both(jc, tc, jp, tp, x, dtype):
     xt = torch.tensor(np.asarray(xj.astype(jnp.float32))).to(
         torch.float32 if dtype == jnp.float32 else torch.bfloat16)
     jo, ja = jmoe.moe_block(jp, xj, jc, CTX)
-    to, ta = tmoe.moe_block(tp, xt, tc)
+    to, ta = tmoe.moe_block(tp, xt, tc, TCTX)
     return (np.asarray(jo, np.float32), to.float().numpy(), float(ja),
             ta.item(), xj, xt)
 
@@ -163,7 +165,7 @@ def test_capacity_drops_match_reference(arch):
     jo, to, ja, ta, _, xt = _both(tight_j, tight_t, jp, tp, x, jnp.float32)
     assert np.abs(to - jo).max() <= F32_REL * np.abs(jo).max()
     assert abs(ta - ja) <= AUX_REL * abs(ja)
-    full, _ = tmoe.moe_block(tp, xt, tc)
+    full, _ = tmoe.moe_block(tp, xt, tc, TCTX)
     assert bool(np.isfinite(to).all())
     assert np.abs(full.numpy() - to).max() > 1e-3      # tokens were dropped
 
@@ -183,8 +185,8 @@ def test_padded_experts_never_receive_tokens(arch):
     for B, S in ((2, 16), (3, 1)):
         xt = torch.tensor(rng.standard_normal((B, S, jc.d_model)),
                           dtype=torch.float32)
-        want, _ = tmoe.moe_block(tp, xt, tc)
-        got, _ = tmoe.moe_block(tpp, xt, pt_)
+        want, _ = tmoe.moe_block(tp, xt, tc, TCTX)
+        got, _ = tmoe.moe_block(tpp, xt, pt_, TCTX)
         jgot, _ = jmoe.moe_block(
             {k: jnp.asarray(v.numpy()) for k, v in tpp.items()},
             jnp.asarray(xt.numpy()), pj, CTX)
@@ -200,7 +202,7 @@ def test_aux_loss_balanced_lower_bound(arch):
     _, tp = _block_params(jc, seed=2)
     x = torch.tensor(np.random.default_rng(4).standard_normal(
         (4, 32, jc.d_model)), dtype=torch.float32)
-    _, aux = tmoe.moe_block(tp, x, tc)
+    _, aux = tmoe.moe_block(tp, x, tc, TCTX)
     assert aux.item() / tc.router_aux_loss_coef >= 0.95
 
 
@@ -326,7 +328,7 @@ def test_moe_lm_loss_and_grads_match_reference(arch, route, monkeypatch):
     monkeypatch.setattr(fa, "attention",
                         lambda *a: calls.append(1) or real(*a))
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
-    loss = tt.lm_loss(params, tc, {"tokens": tokens},
+    loss = tt.lm_loss(params, tc, TCTX, {"tokens": tokens},
                       use_kernel=route == "kernel")
     grads = torch.autograd.grad(loss, leaves)
     assert len(calls) == (tc.num_layers if route == "kernel" else 0)

@@ -46,6 +46,7 @@ from repro.core.params import init_tree as jinit_tree  # noqa: E402
 from repro.core.sharding import ShardingCtx  # noqa: E402
 from repro.models import ssm as js  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
+from repro_torch.core.sharding import ShardingCtx as TShardingCtx  # noqa: E402,E501
 from repro_torch.core.params import tree_leaves  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import ssm as ts  # noqa: E402
@@ -53,6 +54,7 @@ from repro_torch.models import ssm as ts  # noqa: E402
 torch.set_num_threads(min(2, torch.get_num_threads()))
 jax.config.update("jax_default_matmul_precision", "highest")
 CTX = ShardingCtx()
+TCTX = TShardingCtx()
 F32_TOL = 1e-5
 F32_GRAD_REL_L2 = 1e-4
 MAX_ULPS, MEAN_ULPS = 4, 0.75
@@ -265,7 +267,7 @@ def test_block_forward_and_gradients_match_reference(kind, dtype):
     tp = params_from_numpy(jp, "cpu")
     tx = _t(x, True)
     leaves = [t.requires_grad_() for t in tree_leaves(tp)]
-    y, _ = tblock(tp, tx.to(tdt), tc)
+    y, _ = tblock(tp, tx.to(tdt), tc, TCTX)
     assert y.dtype == tdt and y.shape == x.shape
     grads = torch.autograd.grad((y.float() * _t(w)).sum(), leaves + [tx])
     want_g = jax.tree.leaves(wg[0]) + [wg[1]]
@@ -294,13 +296,13 @@ def test_block_prefill_and_decode_match_reference(kind):
     jstep = jax.jit(lambda xx, c: jblock(jpj, xx, jc, CTX, cache=c))
     with torch.no_grad():
         wy, jc_ = jstep(xb[:, :S0], jcache(jc, 2))
-        gy, tc_ = tblock(tp, tx[:, :S0], tc, cache=tcache(tc, 2))
+        gy, tc_ = tblock(tp, tx[:, :S0], tc, TCTX, cache=tcache(tc, 2))
         outs = [(gy, wy)]
         for t in range(S0, S0 + steps):
             wy, jc_ = jstep(xb[:, t:t + 1], jc_)
-            gy, tc_ = tblock(tp, tx[:, t:t + 1], tc, cache=tc_)
+            gy, tc_ = tblock(tp, tx[:, t:t + 1], tc, TCTX, cache=tc_)
             outs.append((gy, wy))
-        full, _ = tblock(tp, tx, tc)
+        full, _ = tblock(tp, tx, tc, TCTX)
     for g, w in outs:
         worst, mean = _ulps(g.float().numpy(), w)
         assert worst <= MAX_ULPS and mean <= MEAN_ULPS, (worst, mean)

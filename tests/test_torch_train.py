@@ -164,11 +164,12 @@ def test_runspec_takes_every_reference_mode():
 
 @pytest.mark.parametrize("mode", [m for m in PARALLEL_MODES if m != "serial"])
 def test_compile_run_rejects_unported_modes(mode):
-    # every mode is ported, with model ways on the CNN and DNN families;
-    # model ways on an LM raise (Queue A item 9b)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    # every mode is ported, with model ways on every family; model ways on
+    # a cluster mesh raise (Queue A item 9d)
+    with pytest.raises(NotImplementedError, match="item 9d"):
         compile_run(RunSpec(arch="llama-100m", smoke=True, parallel=mode,
-                            mesh=MeshSpec(model_ways=2)), device="cpu")
+                            mesh=MeshSpec(cluster=True, model_ways=2)),
+                    device="cpu")
 
 
 def test_unported_pieces_raise():
