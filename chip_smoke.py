@@ -317,6 +317,34 @@ Phase 20 the transformer family's model ways (after phase 19): every LM at
          ranks on the card, llama-100m zero1 on pallas-ring, 2 steps: each
          rank 12 flash and one ``ring_hop_accum`` per bucket a step, its
          losses within ``LM_LOSS_REL_TOL`` of (b)'s local run.
+Phase 21 the planning tools and the examples (after phase 20; every part
+         on the card, random f32 weights from seed 0, attention on the
+         flash kernel wherever a run takes ``use_kernel``).  (a)
+         qwen2-vl-2b at full width under dp at ``{data: 1, model: 8}``: its
+         12 q heads do not split over 8 ways while its q_dim does, so every
+         member takes the four projections whole; two steps of 1 x (1024
+         vision + 1024 text), each loss within ``LM_LOSS_REL_TOL`` of the
+         serial run's, 28 flash launches a step each; then phase 20's gate
+         on the 8-way run's params (every gradient leaf against the serial
+         route's).  (b) gemma2-2b at phase 13's size at ``remat="block"``
+         against ``"none"``: 2 steps each, 26 flash launches a step at
+         "none" and 52 at "block" (each attention forward recomputed
+         once), step time and peak memory, the histories equal; then one
+         forward and backward of each on the same params and batch with
+         AdamW freed: the loss and every gradient leaf bitwise equal (the
+         recompute runs the same kernels on the same inputs), the peak
+         lower at "block".  (c) that step, at "block" on the plain route, counted by
+         ``FlopCounterMode`` on the card and by ``launch.dryrun.count_step``
+         on ``meta``: the counts equal; the roofline's compute and memory
+         terms at that size (data sheet) beside the measured steps; then
+         the dry run of gemma2-2b x train_4k and llama3-8b x decode_32k at
+         16 x 16 and mixtral-8x22b x train_4k at 2 x 16 x 16, each
+         ``useful_ratio`` in (0, 1.05].  (d) the examples:
+         ``launch.quickstart`` as it stands, ``launch.train_lm_100m --steps
+         30 --use-kernel`` (30 x 12 flash launches) and again (nothing to
+         train), ``launch.serve_batched`` on gemma2-2b (paged launches =
+         decode steps x layers).  Every shape (a), (b) and (d) hand the
+         flash kernel is then held to its plain version at phase 12's gate.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -343,7 +371,8 @@ fits, and the paged and flash rows' ``launches_moe``, on phase 17, and
 the flash row's ``launches_families``, on phase 18's fits, and the conv,
 GEMM and ring rows' ``launches_hybrid``, on phase 19's fits and one rank of
 19c, and the flash and ring rows' ``launches_lm_model``, on phase 20's
-fits and one rank of 20e), the last line
+fits and one rank of 20e, and the flash and paged rows'
+``launches_tools``, on phase 21's fits and examples), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -5201,7 +5230,7 @@ def _lm_pass(loss_fn, params, batch):
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
-def _lm_gate(run, batch, card, tag):
+def _lm_gate(run, batch, card, tag, phase="20"):
     """Phase 13's gate (module comment) of ``run``'s model-ways route
     against the serial route on the same full params; frees the run's
     optimizer state first and its params after.  Returns the serial
@@ -5244,11 +5273,12 @@ def _lm_gate(run, batch, card, tag):
     run.params = None
     gc.collect()
     torch.cuda.empty_cache()
-    check(np.isfinite(lm) and np.isfinite(ls), f"20{tag}: non-finite loss")
+    check(np.isfinite(lm) and np.isfinite(ls),
+          f"{phase}{tag}: non-finite loss")
     loss_rel = abs(lm - ls) / abs(ls)
     tol = max(LM_GRAD_REL_L2_TOL, SENSITIVITY_FACTOR * max(floor))
     worst = int(np.argmax(rel))
-    print(f"  20{tag} gate, one forward and backward on the params after the "
+    print(f"  {phase}{tag} gate, one forward and backward on the params after the "
           f"fit and its next batch{', router choices pinned to the serial pass' if routes else ''}: "
           f"model ways {lm} vs serial {ls} (relative {loss_rel}, tolerance "
           f"{LM_LOSS_REL_TOL}); worst leaf's gradient relative L2 {rel[worst]} "
@@ -5256,8 +5286,9 @@ def _lm_gate(run, batch, card, tag):
           f"{max(floor)}; tolerance max({LM_GRAD_REL_L2_TOL}, "
           f"{SENSITIVITY_FACTOR} x sensitivity) = {tol}; peak of the two "
           f"passes {peak} GB [{card}]")
-    check(loss_rel <= LM_LOSS_REL_TOL, f"20{tag}: losses differ")
-    check(max(rel) <= tol, f"20{tag}: gradients differ at {names[worst]}")
+    check(loss_rel <= LM_LOSS_REL_TOL, f"{phase}{tag}: losses differ")
+    check(max(rel) <= tol,
+          f"{phase}{tag}: gradients differ at {names[worst]}")
     return routes
 
 
@@ -5653,23 +5684,25 @@ def phase20e(card, local_losses):
     return got[0][1][1]
 
 
-def phase20_flash_shapes(card):
-    """Phase 12's check at every shape phase 20's fits handed the flash
-    kernel (one model member's heads): the kernel against its plain version
-    on the same inputs, to one bf16 ulp of each (batch, head)'s largest
-    |plain| (f32: FLASH_F32_TOL), with their times."""
+def phase20_flash_shapes(card, shapes=FLASH_FIT_SHAPES, phase="20"):
+    """Phase 12's check at every shape ``phase``'s fits handed the flash
+    kernel (``shapes``; phase 20's: one model member's heads): the kernel
+    against its plain version on the same inputs, to one bf16 ulp of each
+    (batch, head)'s largest |plain| (f32: FLASH_F32_TOL), with their
+    times."""
     dev = torch.device("cuda")
-    print(f"phase 20 flash shapes: the kernel against its plain version at "
-          f"the {len(FLASH_FIT_SHAPES)} shapes phase 20's fits launched it "
+    print(f"phase {phase} flash shapes: the kernel against its plain version "
+          f"at the {len(shapes)} shapes phase {phase}'s fits launched it "
           f"at, on seeded inputs; tolerance as phase 12's")
-    check(FLASH_FIT_SHAPES, "20: no flash shape recorded")
+    check(shapes, f"{phase}: no flash shape recorded")
     for (dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap), parts in \
-            sorted(FLASH_FIT_SHAPES.items(), key=str):
-        check(causal and Sq == Skv, f"20: flash shape causal {causal}, Sq "
-              f"{Sq}, Skv {Skv} outside the check's (causal, Sq = Skv)")
-        flash_model_shape(dev, card, dtype, f"20{'/'.join(sorted(parts))} "
-                          f"member, B {B} S {Sq}", B, Sq, Hq, Hkv, D, window,
-                          softcap)
+            sorted(shapes.items(), key=str):
+        check(causal and Sq == Skv, f"{phase}: flash shape causal {causal}, "
+              f"Sq {Sq}, Skv {Skv} outside the check's (causal, Sq = Skv)")
+        flash_model_shape(dev, card, dtype, f"{phase}"
+                          f"{'/'.join(sorted(parts))} "
+                          f"{'member, ' if phase == '20' else ''}B {B} S "
+                          f"{Sq}", B, Sq, Hq, Hkv, D, window, softcap)
 
 
 def phase20(card):
@@ -5704,6 +5737,305 @@ def phase20(card):
     walls["flash shapes"] = round(time.perf_counter() - t0, 1)
     total = _sum_counts(a, b, c, e)
     print(f"  phase 20 wall seconds by part {walls}; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 21: q heads that do not split, activation checkpointing, the
+# planning tools and the examples
+# ---------------------------------------------------------------------------
+TOOLS_VL_WAYS = 8                  # qwen2-vl-2b's 12 q heads over 8 ways
+TOOLS_VL_SEQ = 1024 + 1024         # vision stub tokens + text
+TOOLS_VL_STEPS = 2
+REMAT_STEPS = 2
+DRYRUN_PAIRS = (("gemma2-2b", "train_4k", False),
+                ("llama3-8b", "decode_32k", False),
+                ("mixtral-8x22b", "train_4k", True))
+# every flash kernel shape phase 21 hands the kernel (as phase 20's)
+FLASH_TOOLS_SHAPES = {}
+
+
+def _drop_run(run):
+    run.close()
+    run.params = run.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase21a(card):
+    """qwen2-vl-2b at full width under dp at ``{data: 1, model: 8}``: its 12
+    q heads do not split over the 8 ways while its q_dim does (the rules
+    shard ``wq``), so each member takes the four projections whole.  Two
+    steps, each loss held to the serial run's from the same seed, then
+    phase 20's gate: one forward and backward against the serial route on
+    the same params and batch, every gradient leaf (``gather_leaf``'s
+    backward of ``wq`` / ``wk`` / ``wv`` / ``wo``, the dp gradient at 8
+    ways) held to the sensitivity-scaled tolerance."""
+    from repro_torch.api import MeshSpec, RunSpec, compile_run
+    from repro_torch.launch.paper_cnn_training import use_kernel
+    from repro_torch.models import layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for ways in (1, TOOLS_VL_WAYS):
+        spec = RunSpec(arch="qwen2-vl-2b", steps=TOOLS_VL_STEPS, batch=1,
+                       seq=TOOLS_VL_SEQ, seed=0, log_every=1, parallel="dp",
+                       mesh=MeshSpec(members_per_device=1, model_ways=ways))
+        run = use_kernel(compile_run(spec))
+        cfg = run.cfg
+        if ways > 1:
+            check(run.ctx.sharded(layers.attn_specs(cfg)["wq"])
+                  and cfg.num_heads % ways and cfg.q_dim % ways == 0,
+                  f"21a: {cfg.num_heads} q heads at {ways} ways is not the "
+                  f"case of q heads that do not split")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _counts_zeroed()
+        with flash_shapes_recorded(FLASH_TOOLS_SHAPES, "a"):
+            hist = run.fit(log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = TOOLS_VL_STEPS * cfg.num_layers
+        check(counts == want, f"21a: launches {counts}, want {want}")
+        losses = [h["loss"] for h in hist]
+        check(len(losses) == TOOLS_VL_STEPS
+              and all(np.isfinite(x) for x in losses),
+              f"21a: history {hist}")
+        out[ways] = (losses, time.perf_counter() - t0, counts)
+        print(f"  21a: {cfg.name} dp on {run.mesh}: {TOOLS_VL_STEPS} steps "
+              f"of 1 x {TOOLS_VL_SEQ} positions, losses {losses}, "
+              f"{out[ways][1]} s with the first step's set-up, launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        if ways == 1:
+            _drop_run(run)
+    got, want = out[TOOLS_VL_WAYS][0], out[1][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"  21a: {cfg.num_heads} q heads over {TOOLS_VL_WAYS} ways, losses "
+          f"{got} against the serial run's {want}: relative {rel}, "
+          f"tolerance {LM_LOSS_REL_TOL}")
+    check(max(rel) <= LM_LOSS_REL_TOL, "21a: the losses differ from serial")
+    _lm_gate(run, next(run.data), card, "a", phase="21")
+    return _sum_counts(out[TOOLS_VL_WAYS][2], out[1][2])
+
+
+def phase21b(card):
+    """gemma2-2b at phase 13's size, ``remat="block"`` against ``"none"``:
+    two fits from the same seed, then one forward and backward of each on
+    the same params and batch with the optimizer state freed."""
+    from repro_torch.api import RunSpec, compile_run
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.launch.paper_cnn_training import kernel_loss, use_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fits, total = {}, {}
+    base = _lm_cfg("gemma2-2b")
+    for remat in ("none", "block"):
+        spec = RunSpec(arch=base.replace(remat=remat), steps=REMAT_STEPS,
+                       batch=LM_BATCH, seq=LM_SEQ, seed=0, log_every=1)
+        spans = SyncedSpans()
+        run = use_kernel(compile_run(spec, recorder=spans))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zeroed()
+        with flash_shapes_recorded(FLASH_TOOLS_SHAPES, "b"):
+            hist = run.fit(log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        per_step = base.num_layers * (2 if remat == "block" else 1)
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = REMAT_STEPS * per_step
+        check(counts == want, f"21b {remat}: launches {counts}, want {want}")
+        step_ms = float(np.median(spans.samples["step"][1:])) * 1e3
+        fits[remat] = ([h["loss"] for h in hist], step_ms, peak)
+        total = _sum_counts(total, counts)
+        print(f"  21b remat={remat}: {REMAT_STEPS} steps of {LM_BATCH} x "
+              f"{LM_SEQ} tokens, losses {fits[remat][0]}; step {step_ms} ms "
+              f"(step 2), peak {peak} GB with AdamW; flash launches "
+              f"{counts['flash_attention']} = {REMAT_STEPS} x {per_step} "
+              f"[{card}]")
+        if remat == "none":
+            _drop_run(run)
+    # one pass of each on the block run's params and next batch
+    batch = next(run.data)
+    run.close()
+    run.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    passes = {}
+    for remat in ("none", "block"):
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = _lm_pass(kernel_loss(base.replace(remat=remat)),
+                               run.params, batch)
+        passes[remat] = (loss, [g.cpu() for g in grads],
+                         torch.cuda.max_memory_allocated() / 1e9)
+        del grads
+    # the recompute runs the same kernels on the same inputs in the same
+    # order, so remat's result is bitwise that of "none": every gradient
+    # leaf, the loss and the fits' histories must be equal, not close
+    names = list(_leaf_names(run.params))
+    differ = [n for n, a, b in zip(names, passes["block"][1],
+                                   passes["none"][1]) if not torch.equal(a, b)]
+    print(f"  21b one forward and backward on the same params and batch, "
+          f"AdamW freed: loss {passes['block'][0]} (block) vs "
+          f"{passes['none'][0]} (none); gradient leaves not bitwise equal: "
+          f"{len(differ)} of {len(names)} {differ[:4]}; peak "
+          f"{passes['block'][2]} GB (block) vs {passes['none'][2]} GB "
+          f"(none) [{card}]")
+    check(passes["block"][0] == passes["none"][0],
+          "21b: remat moved the loss")
+    check(not differ, f"21b: remat moved the gradients of {differ}")
+    check(fits["block"][0] == fits["none"][0],
+          f"21b: histories differ {fits['block'][0]} {fits['none'][0]}")
+    check(passes["block"][2] < passes["none"][2],
+          "21b: remat did not lower the peak")
+    del passes
+    run.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, fits["block"][1]
+
+
+def phase21c(card, block_step_ms):
+    """The gemma2-2b step of 21b counted on the card and on ``meta``, the
+    roofline's terms against the measured step, then the dry run of three
+    pairs of the production meshes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import RunSpec, compile_run
+    from repro_torch.configs.base import H100_SXM_BF16, InputShape
+    from repro_torch.core.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import LocalMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg("gemma2-2b", remat="block")
+    spec = RunSpec(arch=cfg, steps=1, batch=LM_BATCH, seq=LM_SEQ, seed=0,
+                   log_every=1)
+    run = compile_run(spec)            # the plain route, the dry run's
+    batch = next(run.data)
+    _counts_zeroed()
+    with FlopCounterMode(display=False) as fc:
+        run.train_step(run.params, run.opt_state, 0, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    plain_ms = cuda_ms(lambda: run.train_step(run.params, run.opt_state, 1,
+                                              batch), 1, 3)
+    counts = _counts()
+    check(not any(counts.values()), f"21c: the plain route launched "
+          f"{counts}")
+    _drop_run(run)
+    shape = InputShape("2x1024", LM_SEQ, LM_BATCH, "train")
+    t0 = time.perf_counter()
+    meta_flops, meta_bytes, coll = dryrun.count_step(
+        cfg, shape, LocalMesh(1, device="meta"), ShardingRules())
+    meta_s = time.perf_counter() - t0
+    hw = H100_SXM_BF16
+    compute_ms = meta_flops / hw.peak_flops * 1e3
+    memory_ms = meta_bytes / hw.mem_bw * 1e3
+    print(f"  21c gemma2-2b, remat=block, {LM_BATCH} x {LM_SEQ} tokens: "
+          f"FlopCounterMode over one train step on the card {card_flops}, on "
+          f"meta {meta_flops} (counted in {meta_s} s); the roofline at that "
+          f"size (data sheet {hw.name}): compute {compute_ms} ms, memory "
+          f"{memory_ms} ms ({meta_bytes} bytes by the byte counter's rule), "
+          f"collective bytes {coll.ring_bytes}; measured step "
+          f"{block_step_ms} ms on the kernel route (21b), {plain_ms} ms on "
+          f"the plain route [{card}]")
+    check(card_flops == meta_flops, "21c: the card's count differs from "
+          "meta's")
+    for arch, shape_name, multi in DRYRUN_PAIRS:
+        row = dryrun.count_pair(arch, shape_name, multi, verbose=False)
+        keys = ("dominant", "compute_s", "memory_s", "collective_s",
+                "useful_ratio", "mfu", "mem_state_per_dev_gb", "coll_counts",
+                "t_count_s", "plan_G", "plan_model_ways")
+        print(f"  21c dry run {arch} x {shape_name} x {row['mesh']}: "
+              f"{ {k: row[k] for k in keys} } (modelled from the data "
+              f"sheet, {hw.name})")
+        check(0 < row["useful_ratio"] <= 1.05,
+              f"21c: {arch} x {shape_name} useful_ratio "
+              f"{row['useful_ratio']}")
+
+
+def phase21d(card):
+    """The three examples on the card: quickstart as it stands,
+    ``train_lm_100m --steps 30 --use-kernel`` twice (the second resumes
+    with nothing to train), ``serve_batched`` on gemma2-2b."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart, serve_batched, train_lm_100m
+    layers = get_config("llama-100m").num_layers
+    total = {}
+    _counts_zeroed()
+    hist, out = quickstart.main([])
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(np.isfinite(hist[-1]["loss"]) and out.shape[0] == 2,
+          f"21d quickstart: {hist[-1]}, {tuple(out.shape)}")
+    print(f"  21d quickstart: losses {[h['loss'] for h in hist]}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    total = _sum_counts(total, counts)
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--steps", "30", "--use-kernel", "--ckpt-dir", d]
+        _counts_zeroed()
+        t0 = time.perf_counter()
+        with flash_shapes_recorded(FLASH_TOOLS_SHAPES, "d"):
+            hist = train_lm_100m.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = 30 * layers
+        check(counts == want, f"21d train_lm_100m: launches {counts}, want "
+              f"{want}")
+        check(hist and hist[-1]["step"] == 30, f"21d: history {hist}")
+        again = train_lm_100m.main(argv)
+        check(again == [], f"21d: the second run trained {again}")
+        rows = open(os.path.join(d, "history.csv")).read().splitlines()
+        print(f"  21d train_lm_100m --use-kernel: 30 steps in {wall} s with "
+              f"the checkpoint write, losses {[h['loss'] for h in hist]}, "
+              f"flash launches {counts['flash_attention']} = 30 x {layers}; "
+              f"the "
+              f"second run trained nothing; {sorted(os.listdir(d))}, "
+              f"history.csv {len(rows)} lines [{card}]")
+        total = _sum_counts(total, counts)
+    _counts_zeroed()
+    server, done = serve_batched.main(["--arch", "gemma2-2b"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    steps = server.stats["steps"]
+    check(len(done) == 12 and all(
+        0 <= t < server.cfg.vocab_size for r in done for t in r.tokens),
+        f"21d serve_batched: {len(done)} requests")
+    check(counts["paged_decode_attention"] == steps * server.cfg.num_layers
+          and counts["flash_attention"] == 0,
+          f"21d serve_batched: launches {counts} in {steps} steps")
+    print(f"  21d serve_batched: {len(done)} requests in {steps} steps, paged "
+          f"launches {counts['paged_decode_attention']} = steps x "
+          f"{server.cfg.num_layers} [{card}]")
+    return _sum_counts(total, counts)
+
+
+def phase21(card):
+    """Phase 21's four parts and the flash kernel at their shapes; the
+    kernels' launches over its main paths."""
+    walls = {}
+    t0 = time.perf_counter()
+    a = phase21a(card)
+    walls["21a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    b, block_ms = phase21b(card)
+    walls["21b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    phase21c(card, block_ms)
+    walls["21c"] = round(time.perf_counter() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d = phase21d(card)
+    walls["21d"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    phase20_flash_shapes(card, FLASH_TOOLS_SHAPES, "21")
+    walls["flash shapes"] = round(time.perf_counter() - t0, 1)
+    total = _sum_counts(a, b, d)
+    print(f"  phase 21 wall seconds by part {walls}; launches "
           f"{ {k: v for k, v in total.items() if v} }")
     return total
 
@@ -6038,6 +6370,13 @@ def main() -> int:
     flash["launches"] += flash["launches_families"]
     hybrid = timed("19", phase19, card)
     lm_model = timed("20", phase20, card)
+    tools = timed("21", phase21, card)
+    # the tools slice's launches (phase 21: C1's and remat's fits, the
+    # examples) beside the flash and paged rows'
+    flash["launches_tools"] = tools.get("flash_attention", 0)
+    paged["launches_tools"] = tools.get("paged_decode_attention", 0)
+    flash["launches"] += flash["launches_tools"]
+    paged["launches"] += paged["launches_tools"]
     # the LMs' model-ways path's launches (phase 20; 20e's one rank's)
     for row, name in ((flash, "flash_attention"), (hop, "ring_hop_accum"),
                       (rs, "ring_reduce_scatter"), (ag, "ring_all_gather")):

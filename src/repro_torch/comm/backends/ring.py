@@ -53,6 +53,7 @@ from repro_torch.core.collectives import (
     flat_group_index,
     flatten_pad,
     gloo_stages,
+    dist_call,
     staged_for,
     unflatten,
 )
@@ -71,11 +72,14 @@ def _exchange(send: torch.Tensor, recv: torch.Tensor, mesh,
     i, G = ranks.index(mesh.rank), len(ranks)
     staged = gloo_stages(send, pg)
     out = torch.empty(recv.shape, dtype=recv.dtype) if staged else recv
-    ops = [dist.P2POp(dist.isend, staged_for(send, pg),
-                      ranks[(i + shift) % G], group=pg),
-           dist.P2POp(dist.irecv, out, ranks[(i - shift) % G], group=pg)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    def hop():
+        ops = [dist.P2POp(dist.isend, staged_for(send, pg),
+                          ranks[(i + shift) % G], group=pg),
+               dist.P2POp(dist.irecv, out, ranks[(i - shift) % G],
+                          group=pg)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    dist_call("collective-permute", send, G, hop)
     if staged:
         recv.copy_(out)
 

@@ -3,7 +3,8 @@
 ``DNNConfig``, ``InputShape`` and ``INPUT_SHAPES``, ``HardwareConfig``
 (with the reference's four platforms) and the block-kind constants, field for field (the two packages share no code,
 so a config object of one is rebuilt in the other from
-``dataclasses.asdict``), plus the port's own ``H100_SXM`` entry."""
+``dataclasses.asdict``), plus the port's own ``H100_SXM`` and
+``H100_SXM_BF16`` entries."""
 from __future__ import annotations
 
 import dataclasses
@@ -105,6 +106,50 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's closed-form parameter count
+        (``repro.configs.base.ModelConfig.param_count``), term for term:
+        ``launch.dryrun.model_flops`` reads it."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        n_mats = {"swiglu": 3, "geglu": 3, "gelu": 2}[self.mlp_kind]
+        total = V * d  # embedding
+        if not self.tie_embeddings:
+            total += V * d
+        for kind in self.block_pattern:
+            if kind in (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_SHARED_ATTN):
+                attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                mlp = n_mats * d * ff if ff else 0
+                total += (attn + mlp) * self.pattern_repeats
+            elif kind == BLOCK_MAMBA:
+                din = self.ssm_expand * d
+                # in_proj (x, z, B, C, dt) + out_proj + conv
+                nh = self.ssm_heads or max(1, din // 64)
+                blk = d * (2 * din + 2 * self.ssm_state + nh) + din * d
+                blk += self.ssm_conv_width * (din + 2 * self.ssm_state)
+                total += blk * self.pattern_repeats
+            elif kind in (BLOCK_MLSTM, BLOCK_SLSTM):
+                dp = self.ssm_expand * d if kind == BLOCK_MLSTM else d
+                blk = 4 * d * dp + dp * d
+                total += blk * self.pattern_repeats
+        if self.num_experts:
+            # routed experts (+ router) and shared experts on every attn
+            # block; the dense d_ff path is absent for MoE blocks
+            n_moe_blocks = sum(
+                1 for k in self.block_pattern if k in (ATTN_GLOBAL, ATTN_LOCAL)
+            ) * self.pattern_repeats
+            per_expert = 3 * self.d_model * self.moe_d_ff
+            routed = self.num_experts * per_expert
+            shared = 3 * self.d_model * self.shared_expert_d_ff
+            router = self.d_model * self.num_experts
+            total += n_moe_blocks * (routed + shared + router)
+            total -= n_moe_blocks * (n_mats * self.d_model * self.d_ff
+                                     if self.d_ff else 0)
+            if active_only:
+                total -= n_moe_blocks * (self.num_experts
+                                         - self.num_experts_per_tok
+                                         ) * per_expert
+        return total
 
     def replace(self, **kw) -> "ModelConfig":
         if "block_pattern" in kw or "num_layers" in kw:
@@ -230,6 +275,19 @@ XEON_E5_2697V3 = HardwareConfig(
 H100_SXM = HardwareConfig(
     name="h100-sxm",
     peak_flops=67e12,
+    mem_bw=3.35e12,
+    link_bw=450e9,
+    cache_bytes=232_448,
+)
+
+#: The same card for the LMs' bf16 products on the tensor cores (data
+#: sheet: H100 SXM5 at 700 W, 989.4e12 FLOP/s dense bf16).  The port's dry
+#: run (``launch.dryrun``) and roofline (``core.roofline``) divide by this
+#: entry's peak, its HBM rate and its NVLink rate; ``TPU_V5E`` stays only
+#: for the parity tests of ``core.hybrid.plan``.
+H100_SXM_BF16 = HardwareConfig(
+    name="h100-sxm-bf16",
+    peak_flops=989.4e12,
     mem_bw=3.35e12,
     link_bw=450e9,
     cache_bytes=232_448,

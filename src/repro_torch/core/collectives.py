@@ -45,6 +45,15 @@ need, each a ``torch.autograd.Function`` (``core.sharding.ShardingCtx``):
                       alike, so that each holds the whole gradient)
 
 and a forward-only ``pmax`` over a group (the decode partials' maximum).
+
+Every ``torch.distributed`` collective of the port goes through
+:func:`dist_call` (these functions, ``core.sharding.from_members``, the
+process mesh's ``gather_members``, ``optim.dist.GspmdUpdate`` and the
+ring's hops).  While :func:`count_collectives` is active it records each
+call's kind, bytes and group size (``core.roofline.CollectiveStats``);
+otherwise it costs one attribute check.  On ``meta`` tensors, the dry
+run's member program (``launch.mesh.ProcessMesh.member_view``), it moves
+nothing.
 On a local mesh all M model members are here (M copies, a ``cat``, a sum,
 a transpose of the ``(M_src, M_dst, ...)`` blocks); on a process mesh the
 rank is one of them (``all_reduce``, ``all_gather`` and
@@ -54,6 +63,7 @@ off by a factor M or miss terms, and training still runs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Tuple, Union
 
@@ -61,6 +71,34 @@ import torch
 import torch.nn.functional as F
 
 AxisNames = Union[str, Tuple[str, ...]]
+
+#: the stats :func:`count_collectives` records into; None when no counter
+#: is active
+_counter = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Record every collective issued inside the block (module docstring):
+    yields the ``core.roofline.CollectiveStats`` it fills."""
+    from repro_torch.core.roofline import CollectiveStats
+    global _counter
+    prev, _counter = _counter, CollectiveStats()
+    try:
+        yield _counter
+    finally:
+        _counter = prev
+
+
+def dist_call(kind: str, t: torch.Tensor, n: int, fn, *args, **kw):
+    """``fn(*args, **kw)``, a ``torch.distributed`` collective of ``kind``
+    (``core.roofline.KINDS``) over a group of ``n`` ranks whose charged
+    bytes are ``t``'s (the result, or the operand of a reduce-scatter),
+    recorded by the active counter; on a ``meta`` ``t`` nothing runs."""
+    if _counter is not None:
+        _counter.add(kind, t.numel() * t.element_size(), n)
+    if not t.is_meta:
+        fn(*args, **kw)
 
 
 def axes_tuple(axis_name: AxisNames) -> Tuple[str, ...]:
@@ -143,7 +181,8 @@ def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
                 "the card, takes one rank per card)")
         src = staged_for(buf, pg).contiguous()
         out = src.new_empty(buf.shape[0] // G)
-        dist.reduce_scatter_tensor(out, src, group=pg)
+        dist_call("reduce-scatter", src, G, dist.reduce_scatter_tensor,
+                  out, src, group=pg)
         return out.to(buf.device)
 
     return mesh.collective(x, axes, lambda rows: rows.sum(0).reshape(G, -1),
@@ -163,7 +202,8 @@ def part_broadcast(x: torch.Tensor, mesh, axis_name: AxisNames
         pg = mesh.group(axes)[0]
         src = staged_for(buf, pg).contiguous()
         out = src.new_empty(G * buf.shape[0])
-        dist.all_gather_into_tensor(out, src, group=pg)
+        dist_call("all-gather", out, G, dist.all_gather_into_tensor, out,
+                  src, group=pg)
         return out.to(buf.device)
 
     return mesh.collective(
@@ -177,7 +217,8 @@ def psum(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
     def over_ranks(buf):
         import torch.distributed as dist
         out = buf.clone()
-        dist.all_reduce(out, group=mesh.group(axes)[0])
+        dist_call("all-reduce", out, axis_size(mesh, axes),
+                  dist.all_reduce, out, group=mesh.group(axes)[0])
         return out
 
     return mesh.collective(
@@ -229,7 +270,8 @@ class _CopyToModel(torch.autograd.Function):
         g = grads[0]
         pg = _model_group(mesh)[0]
         buf = staged_for(g, pg).clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(buf, group=pg)
+        dist_call("all-reduce", buf, mesh.model_ways, dist.all_reduce,
+                  buf, group=pg)
         return buf.to(g.device), None
 
 
@@ -246,7 +288,9 @@ class _GatherModel(torch.autograd.Function):
         ctx.index, ctx.width = ranks.index(mesh.rank), y.shape[-1]
         src = staged_for(y, pg).contiguous()
         out = src.new_empty(len(ranks) * src.numel())
-        dist.all_gather_into_tensor(out, src.reshape(-1), group=pg)
+        dist_call("all-gather", out, len(ranks),
+                  dist.all_gather_into_tensor, out, src.reshape(-1),
+                  group=pg)
         # (M, ..., c) -> (..., M, c) -> (..., M * c)
         out = out.view(len(ranks), *y.shape).movedim(0, -2)
         return out.reshape(*y.shape[:-1], -1).to(y.device)
@@ -284,9 +328,10 @@ class _ReduceFromModel(torch.autograd.Function):
             return out
         import torch.distributed as dist
         (y,) = ys
-        pg = mesh.group(axes)[0]
+        pg, ranks = mesh.group(axes)
         buf = staged_for(y, pg).clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(buf, group=pg)
+        dist_call("all-reduce", buf, len(ranks), dist.all_reduce, buf,
+                  group=pg)
         return buf.to(y.device)
 
     @staticmethod
@@ -313,9 +358,10 @@ def pmax(ys, mesh, axes: AxisNames = "model") -> torch.Tensor:
         return out
     import torch.distributed as dist
     (y,) = ys
-    pg = mesh.group(axes_tuple(axes))[0]
+    pg, ranks = mesh.group(axes_tuple(axes))
     buf = staged_for(y, pg).clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=pg)
+    dist_call("all-reduce", buf, len(ranks), dist.all_reduce, buf,
+              op=dist.ReduceOp.MAX, group=pg)
     return buf.to(y.device)
 
 
@@ -330,10 +376,11 @@ def _a2a(xs, mesh):
                      for j in range(n))
     import torch.distributed as dist
     (x,) = xs
-    pg = _model_group(mesh)[0]
+    pg, ranks = _model_group(mesh)
     src = staged_for(x, pg).contiguous()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=pg)
+    dist_call("all-to-all", out, len(ranks), dist.all_to_all_single, out,
+              src, group=pg)
     return (out.to(x.device),)
 
 

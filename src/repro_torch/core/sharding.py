@@ -215,11 +215,13 @@ def from_members(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     if not mesh.member_dims:
         import torch.distributed as dist
 
-        from repro_torch.core.collectives import staged_for
+        from repro_torch.core.collectives import dist_call, staged_for
         pg, ranks = mesh.group(used)
         src = staged_for(x, pg).contiguous()
         out = src.new_empty(len(ranks) * src.numel())
-        dist.all_gather_into_tensor(out, src.reshape(-1), group=pg)
+        dist_call("all-gather", out, len(ranks),
+                  dist.all_gather_into_tensor, out, src.reshape(-1),
+                  group=pg)
         x = out.view(*(mesh.shape[a] for a in used), *x.shape).to(x.device)
     return join_blocks(x, spec, shape, mesh)
 

@@ -35,6 +35,10 @@ a group share (``optim.dist.ModelGatheredUpdate``).  The model-sharded
 params and the model-axis collectives are ``core.sharding`` and
 ``core.collectives``.
 
+:func:`make_production_mesh` is the reference's 256- or 512-member mesh
+on the ``meta`` device, which the dry run plans on; its members' programs
+run on :meth:`ProcessMesh.member_view`.  :func:`make_host_mesh` factors
+the devices it is given as the reference's does.
 :func:`make_cluster_mesh` is the mesh of a cluster run
 (``MeshSpec(cluster=True)``): one member a process, the pod axis the
 process boundary; it refuses model ways (ROADMAP Queue A item 9d).
@@ -84,22 +88,25 @@ def _divisible_factorization(n: int, model_ways: int, pods: int):
     return 1, 1
 
 
-def fit_world(n: int, model_ways: int = 1, pods: int = 1
+def fit_world(n: int, model_ways: int = 1, pods: int = 1,
+              what: str = "make_process_mesh", unit: str = "ranks"
               ) -> Tuple[int, int]:
     """(model_ways, pods) for a world of ``n`` members, as the reference's
     ``make_host_mesh`` clamps them: both counts clamped to what the world
-    holds, and a request that does not divide it replaced, with a warning,
-    by :func:`_divisible_factorization` (no member goes unused)."""
+    holds, and a request that does not divide it replaced, with a warning
+    (``what`` names the caller, ``unit`` the members), by
+    :func:`_divisible_factorization` (no member goes unused)."""
     model_ways = max(1, min(model_ways, n))
     pods = max(1, min(pods, n // model_ways))
     if n % (model_ways * pods):
         dropped = n - pods * (n // (model_ways * pods)) * model_ways
         mw2, p2 = _divisible_factorization(n, model_ways, pods)
         warnings.warn(
-            f"make_process_mesh: model_ways={model_ways} x pods={pods} does "
-            f"not divide the {n} ranks and would drop {dropped} of them; "
+            f"{what}: model_ways={model_ways} x pods={pods} does not divide "
+            f"the {n} {unit} and would silently drop {dropped} of them; "
             f"using the largest divisible factorization model_ways={mw2} x "
-            f"pods={p2} instead (all {n} ranks used)", stacklevel=3)
+            f"pods={p2} instead (all {n} {unit.split()[-1]} used)",
+            stacklevel=3)
         model_ways, pods = mw2, p2
     return model_ways, pods
 
@@ -264,6 +271,27 @@ class ProcessMesh(_Mesh):
                     if self.rank in ranks:
                         self._groups[axes] = (pg, ranks)
 
+    @classmethod
+    def member_view(cls, shape: Dict[str, int], member: int = 0,
+                    device="meta") -> "ProcessMesh":
+        """Member ``member``'s view of a mesh of axes ``shape``, with no
+        process group behind it: the program one member of the production
+        mesh runs, on ``meta`` tensors (``launch.dryrun``).  Every
+        collective it reaches is recorded by ``core.collectives``' counter
+        and moves nothing; a group is ``(None, its ranks)``."""
+        v = object.__new__(cls)
+        v.shape = dict(shape)
+        v.axis_names = tuple(shape)
+        v.rank = v.member = member
+        v.device = torch.device(device)
+        v._groups = {}
+        live = [a for a in v.axis_names if a != "model" or v.shape[a] > 1]
+        for n in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                ranks = next(g for g in v.groups(axes) if member in g)
+                v._groups[axes] = (None, ranks)
+        return v
+
     def data_view(self) -> "ProcessMesh":
         """The mesh of the G data members alone (module docstring): this
         rank's data group, its member index the rank's place there; it
@@ -311,11 +339,13 @@ class ProcessMesh(_Mesh):
         tensor is staged through host memory and the result stays there."""
         import torch.distributed as dist
 
-        from repro_torch.core.collectives import staged_for
+        from repro_torch.core.collectives import dist_call, staged_for
         pg, ranks = self.group(self.data_axes)
         x = staged_for(x, pg).contiguous()
         out = x.new_empty(len(ranks) * x.numel())
-        dist.all_gather_into_tensor(out, x.reshape(-1), group=pg)
+        dist_call("all-gather", out, len(ranks),
+                  dist.all_gather_into_tensor, out, x.reshape(-1),
+                  group=pg)
         return out.view(len(ranks), *x.shape)
 
     @property
@@ -359,6 +389,42 @@ def make_process_mesh(pods: int = 1, model_ways: int = 1,
     ``model_ways x pods`` does not divide takes the largest divisible
     factorization, with a warning (:func:`fit_world`)."""
     return ProcessMesh(pods, model_ways, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
+    """The reference's production mesh (``repro.launch.mesh.
+    make_production_mesh``): ``("data", "model")`` = ``(16, 16)``, 256
+    members, or ``("pod", "data", "model")`` = ``(2, 16, 16)``, 512, on the
+    ``meta`` device.  It allocates nothing: the dry run plans on it
+    (``core.hybrid.plan``, ``launch.specs``) and counts one member's
+    program on its :meth:`ProcessMesh.member_view`."""
+    if multi_pod:
+        return LocalMesh(32, pods=2, model_ways=16, device="meta")
+    return LocalMesh(16, model_ways=16, device="meta")
+
+
+def make_host_mesh(model_ways: int = 1, pods: int = 1,
+                   devices: Optional[int] = None, device=None) -> LocalMesh:
+    """Best-effort mesh over the devices given (``repro.launch.mesh.
+    make_host_mesh``), for the examples and tests.  The reference's devices
+    are ``jax.devices()``, on the CPU forced host devices; the port's are
+    the members of one :class:`LocalMesh` on ``device`` (default: the
+    GPU), ``devices`` of them (default: one per visible card on a card,
+    else one).  Both counts are clamped to ``devices``, and a request that
+    does not divide it (6 devices, model_ways=4) takes the largest
+    divisible factorization, with the reference's warning, so that every
+    device is used (:func:`fit_world`)."""
+    dev = resolve_device(device)
+    if devices is None:
+        devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    model_ways, pods = fit_world(devices, model_ways, pods,
+                                 "make_host_mesh", "visible devices")
+    return LocalMesh(devices // model_ways, pods, model_ways, dev)
+
+
+def mesh_devices(mesh) -> int:
+    """The member count of ``mesh`` (the reference's device count)."""
+    return math.prod(mesh.shape.values())
 
 
 def make_cluster_mesh(model_ways: int = 1, device=None):

@@ -14,7 +14,11 @@ outputs are summed (``ShardingCtx.reduce``), where the reference
 constrains the activations.  Kv heads that do not split over the members
 (``Hkv % M != 0``: gemma-2b's one kv head at M = 2) are projected whole on
 every member (``ShardingCtx.gather_leaf``), and each member attends the
-global kv heads of its q heads.  :func:`sharded_decode_attention` is one
+global kv heads of its q heads.  Q heads that do not split (``Hq % M !=
+0`` while ``q_dim`` does, so the rules still split ``wq``'s columns,
+across a head boundary: gemma2-2b's 8 heads at the production mesh's 16
+ways) take all four projections whole on every member, which repeats the
+unsharded block alike.  :func:`sharded_decode_attention` is one
 decode token over a ring cache whose sequence is split over the mesh axes
 ``cache_seq`` maps to: each member's f32 partials, combined by ``pmax``
 and sums over those axes.
@@ -184,6 +188,13 @@ class AttnCache:
     k: torch.Tensor          # (B, C, Hkv, D) — keys stored post-RoPE
     v: torch.Tensor
     length: torch.Tensor     # () int32 — total tokens seen
+
+
+def attn_cache_axes() -> AttnCache:
+    """The logical axes of each field of an :class:`AttnCache`
+    (``repro.models.layers.attn_cache_axes``)."""
+    ax = ("batch", "cache_seq", "kv_heads", "head_dim")
+    return AttnCache(ax, ax, ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,7 +485,14 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     M = ctx.model_ways
     kw = dict(window=window, update_cache=update_cache,
               use_kernel=use_kernel)
-    if not ctx.sharded(sp["wq"]):
+    if ctx.sharded(sp["wq"]) and isinstance(cache, PagedKVState):
+        raise ValueError("the paged KV cache serves with no model axis, as "
+                         "the reference's compile_serve does")
+    if not ctx.sharded(sp["wq"]) or Hq % M:
+        # q heads that do not split over the members (the rules split
+        # ``wq``'s columns whenever q_dim divides, across a head boundary
+        # where Hq does not): every member gathers the four projections
+        # whole and repeats the unsharded block alike
         wq, wk, wv, wo = (ctx.gather_leaf(p[n], sp[n])
                           for n in ("wq", "wk", "wv", "wo"))
         q = _rotate(_heads(_mm(h, wq), Hq), positions, cfg)
@@ -482,12 +500,6 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v = _heads(_mm(h, wv), Hkv)
         out, new_cache = _attend(q, k, v, cfg, cache=cache, **kw)
         return x + _mm(out.reshape(B, S, cfg.q_dim), wo), new_cache
-    if Hq % M:
-        raise NotImplementedError(
-            f"{Hq} q heads do not split over {M} model members")
-    if isinstance(cache, PagedKVState):
-        raise ValueError("the paged KV cache serves with no model axis, as "
-                         "the reference's compile_serve does")
     hq = Hq // M
     split_kv = Hkv % M == 0 and ctx.sharded(sp["wk"])
     hk = Hkv // M if split_kv else Hkv

@@ -104,6 +104,13 @@ class MambaCache:
     length: torch.Tensor      # () int32
 
 
+def mamba_cache_axes() -> MambaCache:
+    """The logical axes of each field of a :class:`MambaCache`
+    (``repro.models.ssm.mamba_cache_axes``)."""
+    return MambaCache(("batch", "ssm_heads", None, "ssm_state"),
+                      ("batch", None, "ssm_inner"), ())
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                      device=None) -> MambaCache:
     din, H, P = mamba_dims(cfg)
@@ -270,6 +277,14 @@ class MlstmCache:
     length: torch.Tensor
 
 
+def mlstm_cache_axes() -> MlstmCache:
+    """The logical axes of each field of an :class:`MlstmCache`
+    (``repro.models.ssm.mlstm_cache_axes``)."""
+    return MlstmCache(("batch", "ssm_heads", None, None),
+                      ("batch", "ssm_heads", None),
+                      ("batch", "ssm_heads"), ())
+
+
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                      device=None) -> MlstmCache:
     _, H, P = mlstm_dims(cfg)
@@ -395,6 +410,13 @@ class SlstmCache:
     n: torch.Tensor   # (B, d)
     m: torch.Tensor   # (B, d)
     length: torch.Tensor
+
+
+def slstm_cache_axes() -> SlstmCache:
+    """The logical axes of each field of an :class:`SlstmCache`
+    (``repro.models.ssm.slstm_cache_axes``)."""
+    a = ("batch", "embed")
+    return SlstmCache(a, a, a, a, ())
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

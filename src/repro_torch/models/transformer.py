@@ -10,7 +10,9 @@ are stacked on a leading ``pattern_repeats`` axis (R).  The reference
 weights, unbound once per forward, and indexes the caches.  Zamba2's shared
 attention(+MLP) block is weight-shared: its pattern entry holds an empty
 ``{}`` and its one set of weights lives unstacked under ``"shared"``, used
-at every repeat (autograd sums the R gradients).  Caches mirror the params:
+at every repeat (autograd sums the R gradients).  ``cfg.remat``
+checkpoints each repeat of the pattern, the reference's scan body, when
+gradients are taken (:func:`remat_body`).  Caches mirror the params:
 a tuple (one entry per pattern position) of cache objects whose tensors
 carry the leading R axis.  An attention layer writes its keys and values
 through its view of them in place; an SSM layer returns new states, which
@@ -166,6 +168,26 @@ def init_caches(cfg: ModelConfig, batch: int, context_len: int,
                  for kind in cfg.block_pattern)
 
 
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_caches`' tree
+    (``repro.models.transformer.cache_axes``): a tuple (per pattern entry)
+    of cache objects whose fields hold axes tuples, each led by ``None``
+    for the R axis."""
+    def one(kind):
+        if kind in ATTN_KINDS:
+            ax = layers.attn_cache_axes()
+        elif kind == BLOCK_MAMBA:
+            ax = ssm.mamba_cache_axes()
+        elif kind == BLOCK_MLSTM:
+            ax = ssm.mlstm_cache_axes()
+        else:
+            ax = ssm.slstm_cache_axes()
+        return dataclasses.replace(ax, **{
+            f.name: (None,) + getattr(ax, f.name)
+            for f in dataclasses.fields(ax)})
+    return tuple(one(kind) for kind in cfg.block_pattern)
+
+
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, pages_per_req: int,
                       dtype=torch.bfloat16, impl: str = "kernel",
@@ -253,6 +275,44 @@ def _apply_block(kind: str, p, shared_p, x, cfg: ModelConfig,
     return x, aux, nc
 
 
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """The ``"block_dots"`` policy: keep the outputs of plain matrix
+    products (``mm``, ``addmm``), the products with no batch dims that
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves;
+    recompute everything else (``bmm`` among it)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_body(remat: str):
+    """``fn(body, *args)`` running one repeat of the block pattern under
+    the activation checkpointing ``cfg.remat`` names, as the reference
+    wraps its scan body (``repro.models.transformer.make_scan_body``):
+    ``"block"`` keeps the repeat's input alone and recomputes its forward
+    in the backward; ``"block_dots"`` keeps the plain products' outputs
+    too (:func:`_save_plain_products`); ``"none"``: None, the body runs
+    as it is.  A recompute runs the body's kernels again: the flash
+    kernel launches once more an attention block and a step."""
+    if remat == "none":
+        return None
+    import functools
+
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+    if remat == "block":
+        return functools.partial(checkpoint, use_reentrant=False)
+    if remat == "block_dots":
+        return functools.partial(
+            checkpoint, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_plain_products))
+    raise ValueError(f"remat must be none, block or block_dots: {remat!r}")
+
+
 def shard_caches(caches, ctx: ShardingCtx):
     """The R-stacked caches with every attention ring cache's sequence
     split over the mesh axes ``ctx.rules`` maps ``cache_seq`` to
@@ -338,7 +398,10 @@ def forward(params, cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx(), *,
     specs = param_specs(cfg)["blocks"]
     blocks = [_unstack(bp, cfg.pattern_repeats, sp, ctx)
               for bp, sp in zip(params["blocks"], specs)]
-    for r in range(cfg.pattern_repeats):
+
+    def body(x, aux, r):
+        """One repeat of the block pattern: the reference's scan body."""
+        new = []
         for j, kind in enumerate(cfg.block_pattern):
             cache = _at(caches[j], r) if have_cache else None
             x, aux_j, nc = _apply_block(
@@ -347,8 +410,17 @@ def forward(params, cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx(), *,
                 use_kernel=use_kernel)
             if aux_j is not None:
                 aux = aux + aux_j
-            if have_cache:
-                per_layer[j].append(nc if nc is not None else cache)
+            new.append(nc if nc is not None else cache)
+        return x, aux, new
+
+    remat = (remat_body(cfg.remat) if torch.is_grad_enabled()
+             and not have_cache else None)
+    for r in range(cfg.pattern_repeats):
+        x, aux, new = (body(x, aux, r) if remat is None
+                       else remat(body, x, aux, r))
+        if have_cache:
+            for j, c in enumerate(new):
+                per_layer[j].append(c)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_caches = (tuple(_restack(c, pl) for c, pl in zip(caches, per_layer))

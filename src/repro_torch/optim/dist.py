@@ -576,13 +576,15 @@ class GspmdUpdate:
             if k is None or k < 0:
                 # the mean whole, then (data axes on several dims) the
                 # member's strip of it
-                dist.all_reduce(g, group=pg)
+                coll.dist_call("all-reduce", g, self.G, dist.all_reduce,
+                               g, group=pg)
                 g.div_(self.G)
                 return g if k is None else to_members(
                     g, _data_only(self.strip[i]), self.mesh)
             x = g.movedim(k, 0).contiguous()
             out = x.new_empty(x.shape[0] // self.G, *x.shape[1:])
-            dist.reduce_scatter_tensor(out, x, group=pg)
+            coll.dist_call("reduce-scatter", x, self.G,
+                           dist.reduce_scatter_tensor, out, x, group=pg)
             return out.div_(self.G).movedim(0, k).contiguous()
         return self._map(one, grads)
 

@@ -8,8 +8,9 @@ unsharded ones within those tests' tolerances.
 - Blocks on f32 inputs, the same f32 arithmetic in another order:
   attention (GQA with its kv heads split, gemma-2b's MQA with its one kv
   head whole on every member, 6 q / 3 kv heads at 2 ways where each
-  member's q heads read kv heads repeated to them; the chunked route, and
-  the flash route's plain version for the first two; prefill and ring
+  member's q heads read kv heads repeated to them, 6 q / 2 kv heads at 4
+  ways whose q heads do not split; the chunked route, and the flash
+  route's plain version for the first two and the last; prefill and ring
   decode on a whole cache), the MLP, the MoE
   block's routes (experts on the model axis, ``moe_ff`` on it, the two
   decode routes): 1e-5 of the output's largest magnitude, and the
@@ -138,12 +139,17 @@ ATTN_CASES = {
                                       head_dim=32), 2),
     "four-ways": ("llama3-8b", {}, 4),            # 4 q, 4 kv: 1 and 1
     "local-softcap": ("gemma2-2b", {}, 2),
+    # 6 q / 2 kv heads at 4 ways: q_dim splits, the q heads do not (the
+    # four projections whole on every member)
+    "q-heads-uneven": ("llama3-8b", dict(num_heads=6, num_kv_heads=2,
+                                         head_dim=32), 4),
 }
 
 
 @pytest.mark.parametrize("case,route", [
     (c, r) for c in ATTN_CASES
-    for r in (("chunked", "kernel") if c in ("gqa-split", "mqa")
+    for r in (("chunked", "kernel")
+              if c in ("gqa-split", "mqa", "q-heads-uneven")
               else ("chunked",))])
 def test_attention_block_on_model_ways(case, route):
     arch, over, M = ATTN_CASES[case]
@@ -441,3 +447,25 @@ def test_generate_through_the_planned_sharded_decode(monkeypatch):
     got = decode.generate(placed, tc, ctx, prompt, 6)
     assert len(seen) == 5 * tc.num_layers
     assert torch.equal(got, want)
+
+
+def test_compile_run_dp_step_with_q_heads_that_do_not_split():
+    """``compile_run`` under dp at 8 model ways of smoke llama3-8b: its 4 q
+    heads do not split, its q_dim of 128 does (the rules shard ``wq``); the
+    2-step history is the unsharded run's within 1e-3 relative (the MLP's,
+    the embedding's and the head's sums run in another order)."""
+    from repro_torch.api import MeshSpec, RunSpec, compile_run
+    hist = {}
+    for ways in (1, 8):
+        spec = RunSpec(arch="llama3-8b", smoke=True, steps=2, batch=2,
+                       seq=16, parallel="dp",
+                       mesh=MeshSpec(members_per_device=1, model_ways=ways))
+        with compile_run(spec, device="cpu") as run:
+            if ways == 8:
+                wq = tl.attn_specs(run.cfg)["wq"]
+                assert run.ctx.sharded(wq) and run.cfg.num_heads % ways
+            hist[ways] = [float(h["loss"]) for h in
+                          run.fit(log_fn=lambda *_: None)]
+    assert len(hist[8]) == 2
+    for a, b in zip(hist[8], hist[1]):
+        assert abs(a - b) <= 1e-3 * abs(b), (hist[8], hist[1])

@@ -18,8 +18,9 @@ whose helpers this file shares.
 - A 4-rank gloo process mesh running llama-100m (smoke, f32 activations,
   momentum SGD) under dp and zero1 at ``{data: 2, model: 2}``, and with
   FSDP under zero1-gspmd at ``{pod: 2, data: 2}`` (a state leaf's data
-  axes on two dims), against the local mesh: losses within 1e-5 relative,
-  params within 1e-6 (each rank's half batch sums in another order).
+  axes on two dims), and under dp and zero1 at ``remat="block"``, against
+  the local mesh: losses within 1e-5 relative, params within 1e-6 (each
+  rank's half batch sums in another order).
 """
 import os
 import textwrap
@@ -112,7 +113,8 @@ def test_ep_training_end_to_end_matches_tp():
         _, m1 = _tstep(tc1, tp, {"tokens": torch.tensor(tokens)}, ctx, specs)
     finally:
         tmoe.moe_ep_block = real
-    assert len(seen) == tc.num_layers
+    # remat="block" runs every layer's forward once more in the backward
+    assert len(seen) == 2 * tc.num_layers
     np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
                                rtol=3e-3)
     np.testing.assert_allclose(float(m1["grad_norm"]),
@@ -254,15 +256,16 @@ _LM_WORKER = textwrap.dedent("""
     # FSDP at {pod: 2, data: 2}: a zero1-gspmd state leaf's data axes on
     # two dims ("embed_fsdp"'s and the pod's)
     fsdp = smoke_variant(get_config("llama-100m")).replace(fsdp=True)
-    for par, comm, mw, pods, shape in (
-            ("dp", None, 2, 1, (2, 256, 64)),
-            ("zero1", CommConfig(backend="pallas-ring"), 2, 1, (2, 256, 64)),
-            ("zero1-gspmd", None, 1, 2, (2, 256, 128))):
+    remat = smoke_variant(get_config("llama-100m")).replace(remat="block")
+    for par, comm, mw, pods, shape in @CASES@:
         mesh = make_process_mesh(pods=pods, model_ways=mw, device="cpu")
         s = base.replace(parallel=par, comm=comm)
         if pods > 1:
             s = s.replace(arch=fsdp, smoke=False)
+        if @REMAT@:
+            s = s.replace(arch=remat, smoke=False)
         run = compile_run(s, device="cpu", mesh=mesh)
+        assert run.cfg.remat == ("block" if @REMAT@ else "none")
         wq = run.params["blocks"][0]["attn"]["wq"]
         assert tuple(wq.shape) == shape, wq.shape
         if pods > 1:
@@ -287,8 +290,30 @@ _LM_WORKER = textwrap.dedent("""
 """)
 
 
+_LM_CASES = """(
+            ("dp", None, 2, 1, (2, 256, 64)),
+            ("zero1", CommConfig(backend="pallas-ring"), 2, 1, (2, 256, 64)),
+            ("zero1-gspmd", None, 1, 2, (2, 256, 128)))"""
+
+
 def test_lm_process_mesh_matches_the_local_mesh(tmp_path):
-    run_ranks(_LM_WORKER, 4, tmp_path, SRC)
+    worker = _LM_WORKER.replace("@CASES@", _LM_CASES).replace(
+        "@REMAT@", "False")
+    run_ranks(worker, 4, tmp_path, SRC)
     for r in range(4):
         assert (tmp_path / f"rank{r}.log").read_text().count(f"OK {r}") == 3
+
+
+def test_lm_process_mesh_at_remat_block_matches_the_local_mesh(tmp_path):
+    # remat="block" runs each block's forward again inside the backward, so
+    # on a process mesh its model-axis collectives (copy_to_model,
+    # reduce_from_model, the vocab-parallel sums) run again, in another
+    # order, on every gloo rank; the local mesh runs at "block" too
+    cases = """(
+            ("dp", None, 2, 1, (2, 256, 64)),
+            ("zero1", CommConfig(backend="pallas-ring"), 2, 1, (2, 256, 64)))"""
+    worker = _LM_WORKER.replace("@CASES@", cases).replace("@REMAT@", "True")
+    run_ranks(worker, 4, tmp_path, SRC)
+    for r in range(4):
+        assert (tmp_path / f"rank{r}.log").read_text().count(f"OK {r}") == 2
 
