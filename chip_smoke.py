@@ -345,6 +345,26 @@ Phase 21 the planning tools and the examples (after phase 20; every part
          train), ``launch.serve_batched`` on gemma2-2b (paged launches =
          decode steps x layers).  Every shape (a), (b) and (d) hand the
          flash kernel is then held to its plain version at phase 12's gate.
+Phase 22 several members a process and model ways on the cluster (after
+         phase 21): two gloo ranks share the card, each holding
+         ``--local-devices 2`` members (``launch.mesh.ClusterMesh``), at
+         full width, every forward on the kernel, through the cluster CLI.
+         (a) VGG-A zero1 at ``--model-ways 2``, mesh (2, 1, 2), 3 steps of
+         batch 64, ``--verify`` within phase 15b's relative tolerance; rank
+         0 launches 16 convs a step (a member's half of each layer's output
+         channels) and one ``ring_hop_accum`` a bucket a step across the
+         pods.  (b) CD-DNN zero1, mesh (2, 2, 1), batch 1024, 6 steps, a
+         checkpoint every 2, the chaos kill at step 3: world 2, the kill,
+         world 1 on a 2-member local mesh from the checkpoint,
+         ``--verify``; then its first 3 steps at world 2 unkilled: per
+         bucket a step the in-pod ``ring_reduce_scatter`` and
+         ``ring_all_gather`` on the rank's two members and one
+         ``ring_hop_accum`` for both across the pods, 8 GEMMs a step.
+         (c) those 3 steps under ``--wire-format int8``, ``--verify`` (the
+         CLI's own tolerance: the one-process run rounds no message):
+         ``int8_quantize`` and ``ring_hop_int8`` 3 a bucket a step (the
+         in-pod ring's member-batched pair, each member's own ring across
+         the pods).  Every run's step seconds per rank and wall time.
 Phase 7  the process path on the same card: two processes over gloo, one
          member each, run the zero1 update of full-width VGG-A on a
          ``ProcessMesh`` under fp32, int8 and top-k; each hop's combine is
@@ -372,7 +392,9 @@ the flash row's ``launches_families``, on phase 18's fits, and the conv,
 GEMM and ring rows' ``launches_hybrid``, on phase 19's fits and one rank of
 19c, and the flash and ring rows' ``launches_lm_model``, on phase 20's
 fits and one rank of 20e, and the flash and paged rows'
-``launches_tools``, on phase 21's fits and examples), the last line
+``launches_tools``, on phase 21's fits and examples, and the conv, GEMM,
+ring and int8 rows' ``launches_cluster_local``, on rank 0 of each of phase
+22's four runs), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -6041,6 +6063,168 @@ def phase21(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 22: several members a process and model ways on the cluster (module
+# docstring); each rank's launches and step times from its trace
+# ---------------------------------------------------------------------------
+CLUSTER_LOCAL_STEPS = 3
+CLUSTER_LOCAL_CHAOS_STEPS = 6
+
+
+def dnn_buckets(G):
+    """The fusion buckets of full-width CD-DNN at G members and the default
+    4 MiB target (as ``vgg_buckets``)."""
+    from repro_torch.comm import CommConfig, plan_buckets
+    from repro_torch.configs import get_config
+    from repro_torch.models import dnn
+    meta = {k: torch.empty(sp.shape, device="meta")
+            for k, sp in dnn.param_specs(get_config("cd-dnn")).items()}
+    return plan_buckets(meta, G, CommConfig().bucket_bytes)
+
+
+def _local_cluster(tag, argv, d, env, card, rel_gate=True):
+    """The cluster CLI at 2 processes of 2 local members on the card, with a
+    trace: its output, each rank's launches and step seconds (a rank whose
+    trace has no closing metrics, the chaos run's killed attempt, is left
+    out).  Under ``--verify`` the CLI's own gate must pass and, with
+    ``rel_gate``, phase 15b's: the final loss within RESUME_REL_TOL of the
+    one-process run's (an int8 run is held to the CLI's gate alone: its
+    messages are rounded to 8 bits, the one-process run's are not)."""
+    import re
+    trace = os.path.join(d, tag)
+    argv = ["--processes", "2", "--local-devices", "2", *argv,
+            "--use-kernel", "--trace-dir", trace,
+            "--run-dir", os.path.join(d, tag + "-run")]
+    out, wall = _cli("repro_torch.launch.cluster", argv, env)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(trace, f"trace_p{r}.jsonl")
+        try:
+            events = _trace_events(path)
+        except (OSError, ValueError):   # none, or a killed rank's, cut short
+            continue
+        if any(e.get("kind") == "metrics" for e in events):
+            ranks.append((_trace_launches(path), _trace_steps(path)))
+    verify = None
+    if "--verify" in argv:
+        m = re.search(r"\[cluster\] verify: cluster=(\S+) single=(\S+) "
+                      r"\|diff\|=(\S+) tol=(\S+) OK", out.stdout)
+        check(m, f"{tag}: no passing verify line in:\n{out.stdout[-3000:]}")
+        cluster, single = float(m.group(1)), float(m.group(2))
+        tol = RESUME_REL_TOL * abs(single) if rel_gate else float(m.group(4))
+        check(abs(cluster - single) <= tol,
+              f"{tag}: cluster final loss {cluster} vs one process {single}"
+              f": |diff| {abs(cluster - single)} > {tol}")
+        verify = (cluster, single, abs(cluster - single), tol)
+    print(f"phase {tag}: python -m repro_torch.launch.cluster "
+          f"{' '.join(argv).replace(d, 'D')}: exit 0 in {wall} s; verify "
+          f"(cluster, one process, |diff|, gate) {verify} [{card}]")
+    for r, (counts, steps) in enumerate(ranks):
+        print(f"  rank {r}: launches { {k: v for k, v in counts.items() if v} }"
+              f"; step seconds (step spans, each ending in a device sync) "
+              f"{steps} [{card}]")
+    return out, ranks
+
+
+def _want_launches(tag, counts, want):
+    got = {k: counts.get(k, 0) for k in want}
+    check(got == want, f"{tag}: rank 0 launched {counts}, want {want}")
+
+
+def phase22(card):
+    """Phase 22 (module docstring): rank 0's launches on its four runs,
+    summed."""
+    import ast
+    import re
+    import shutil
+    d = tempfile.mkdtemp(prefix="cluster22-")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    steps = CLUSTER_LOCAL_STEPS
+    try:
+        # (a) model ways in each process
+        out, ranks = _local_cluster(
+            "22a", ["--model-ways", "2", "--arch", "vgg-a", "--parallel",
+                    "zero1", "--batch", "64", "--steps", str(steps),
+                    "--schedule", "constant", "--verify"], d, env, card)
+        check("ClusterMesh({'pod': 2, 'data': 1, 'model': 2}" in out.stdout
+              and "L=2, model ways M=2" in out.stdout,
+              f"22a: mesh not (2, 1, 2):\n{out.stdout[-3000:]}")
+        check(len(ranks) == 2, "22a: a rank's trace has no counters")
+        a = ranks[0][0]
+        # a member's half of every conv's output channels; one cross-pod hop
+        # a bucket of the full tree (G = 2 data members); no in-pod level
+        _want_launches("22a", a, {
+            "conv2d_nhwc": 16 * steps,
+            "ring_hop_accum": vgg_buckets(2).n_collectives * steps,
+            "ring_reduce_scatter": 0, "ring_all_gather": 0})
+
+        # (b) the chaos kill at 2 local members, then world 2 unkilled
+        dnn = ["--arch", "cd-dnn", "--parallel", "zero1", "--batch",
+               str(DNN_BATCH), "--schedule", "constant"]
+        out, ranks = _local_cluster(
+            "22b", [*dnn, "--steps", str(CLUSTER_LOCAL_CHAOS_STEPS),
+                    "--ckpt-every", "2", "--ckpt-dir",
+                    os.path.join(d, "ckpt"), "--chaos-kill-step", "3",
+                    "--verify"], d, env, card)
+        attempts = re.findall(r"\[elastic\] (attempt \d+[^\n]*)", out.stdout)
+        check([x.split(":")[0] for x in attempts] == [
+            "attempt 0", "attempt 0 failed", "attempt 1"]
+            and "world=2" in attempts[0] and "world=1" in attempts[2]
+            and "chaos: SIGKILL worker 1" in out.stdout,
+            f"22b: attempts {attempts}: want world 2, the kill, world 1")
+        # the one failure is the chaos kill (phase 15b's gate)
+        codes = ast.literal_eval(re.search(r"exit codes ([^)]*)\)",
+                                           attempts[1]).group(1))
+        check(codes.get(1) == -9 and all(c > 0 for w, c in codes.items()
+                                         if w != 1),
+              f"22b: dead workers' exit codes {codes}: want worker 1 "
+              f"SIGKILLed (-9), any other an error exit after it")
+        check("ClusterMesh({'pod': 2, 'data': 2, 'model': 1}" in out.stdout
+              and "mesh=LocalMesh({'data': 2, 'model': 1}" in out.stdout,
+              f"22b: want mesh (2, 2, 1), then a 2-member local mesh:\n"
+              f"{out.stdout[-3000:]}")
+        m = re.search(r"resuming from checkpoint step (\d+)", out.stdout)
+        check(m and int(m.group(1)) in (2, 4), f"22b: no resume from an "
+              f"even step before the end:\n{out.stdout[-3000:]}")
+        resumed = CLUSTER_LOCAL_CHAOS_STEPS - int(m.group(1))
+        # attempt 1's worker 0 rewrote trace_p0: world 1, the resumed steps
+        nb = dnn_buckets(2).n_collectives
+        b1 = ranks[0][0]
+        _want_launches("22b world 1", b1, {
+            "blocked_matmul": 8 * resumed,
+            "ring_reduce_scatter": nb * resumed,
+            "ring_all_gather": nb * resumed, "ring_hop_accum": 0})
+        print(f"  22b: {attempts}; resumed from step {m.group(1)}: "
+              f"{resumed} steps at world 1 on the 2-member local mesh")
+        out, ranks = _local_cluster(
+            "22b-w2", [*dnn, "--steps", str(steps)], d, env, card)
+        check(len(ranks) == 2, "22b world 2: a rank's trace has no counters")
+        nb = dnn_buckets(4).n_collectives
+        b2 = ranks[0][0]
+        # per bucket: the in-pod ring over the rank's 2 members, one hop
+        # across the pods for both members' chunks, the in-pod gather
+        _want_launches("22b world 2", b2, {
+            "blocked_matmul": 8 * steps, "ring_reduce_scatter": nb * steps,
+            "ring_hop_accum": nb * steps, "ring_all_gather": nb * steps})
+
+        # (c) int8 at both levels
+        out, ranks = _local_cluster(
+            "22c", [*dnn, "--steps", str(steps), "--wire-format", "int8",
+                    "--verify"], d, env, card, rel_gate=False)
+        check(len(ranks) == 2, "22c: a rank's trace has no counters")
+        c = ranks[0][0]
+        # per bucket: the in-pod ring's first quantize and one hop, both
+        # member-batched; across the pods each member's own ring, its
+        # quantize and its one hop
+        _want_launches("22c", c, {
+            "blocked_matmul": 8 * steps, "int8_quantize": 3 * nb * steps,
+            "ring_hop_int8": 3 * nb * steps, "ring_all_gather": nb * steps,
+            "ring_reduce_scatter": 0, "ring_hop_accum": 0})
+        return _sum_counts(a, b1, b2, c)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the process path, two members as two processes on the card
 # ---------------------------------------------------------------------------
 PROCESS_MEMBERS = 2
@@ -6371,6 +6555,7 @@ def main() -> int:
     hybrid = timed("19", phase19, card)
     lm_model = timed("20", phase20, card)
     tools = timed("21", phase21, card)
+    cluster_local = timed("22", phase22, card)
     # the tools slice's launches (phase 21: C1's and remat's fits, the
     # examples) beside the flash and paged rows'
     flash["launches_tools"] = tools.get("flash_attention", 0)
@@ -6411,6 +6596,12 @@ def main() -> int:
                       (ag, "ring_all_gather"), *((w, w["name"]) for w in wire)):
         row["launches_modes"] = modes.get(name, 0)
         row["launches"] += row["launches_modes"]
+    # the cluster's several members a process (phase 22, rank 0 of each run)
+    for row, name in ((conv, "conv2d_nhwc"), (gemm, "blocked_matmul"),
+                      (hop, "ring_hop_accum"), (rs, "ring_reduce_scatter"),
+                      (ag, "ring_all_gather"), *((w, w["name"]) for w in wire)):
+        row["launches_cluster_local"] = cluster_local.get(name, 0)
+        row["launches"] += row["launches_cluster_local"]
     print(f"wall seconds per phase {walls}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, conv, hop, rs, ag, *wire, gemm,

@@ -25,9 +25,9 @@ or, for the explicit bucketed modes, the §3.4 pipeline of
 ``repro_torch.comm`` and ``optim.dist`` over the G data members of a local
 mesh (``MeshSpec.members_per_device``) on the run's device, or, under
 ``MeshSpec(cluster=True)``, over the ranks of the live
-``torch.distributed`` group, one member a process
-(``launch.mesh.make_cluster_mesh``; each rank trains on its rows of the
-batch).  Under a model axis the pipeline runs on full leaves over the
+``torch.distributed`` group, ``REPRO_LOCAL_DEVICES`` members a process and
+their model ways (``launch.mesh.make_cluster_mesh``; each rank trains on
+its pod's rows of the batch).  Under a model axis the pipeline runs on full leaves over the
 mesh's data view, and each member keeps its columns
 (``optim.dist.ModelGatheredUpdate``), as the reference's shard_map with
 params ``P()`` does:
@@ -55,10 +55,8 @@ refuses that); gossip stays flat.  ``comm="auto"`` is resolved first, before
 autotuner (``telemetry.autotune``) times the real collectives on the live
 mesh and picks the bucket size, backend and wire format from the §3.2
 balance model with the measured constants.  On a card the run holds f32
-(``device.hold_f32``: no TF32 in cuDNN or cuBLAS).  What is not ported yet
-(``model_ways > 1`` on a cluster mesh: ROADMAP Queue A item 9d) raises
-before anything is allocated, as does the reference's refusal of
-``comm.overlap`` with model ways.
+(``device.hold_f32``: no TF32 in cuDNN or cuBLAS).  The reference's refusal
+of ``comm.overlap`` with model ways raises before anything is allocated.
 """
 from __future__ import annotations
 
@@ -128,18 +126,13 @@ def _make_schedule(spec: RunSpec, data_ways: int = 1):
 def _check_ported(spec: RunSpec, model_ways=None) -> None:
     """Raise for what the port does not run yet, before any allocation
     (``model_ways``: a caller-built mesh's, else ``spec.mesh``'s)."""
-    def missing(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                                  f"Queue A item {item}): the port runs "
-                                  f"parallel in {PORTED_MODES}, and model "
-                                  f"ways on a local or process mesh")
     if spec.parallel not in PORTED_MODES:
-        missing(f"parallel={spec.parallel!r}", 9)
+        raise NotImplementedError(
+            f"parallel={spec.parallel!r} is not ported yet (ROADMAP.md "
+            f"Queue A item 9): the port runs parallel in {PORTED_MODES}")
     M = spec.mesh.model_ways if model_ways is None else model_ways
     if spec.parallel == "serial" or M == 1:
         return
-    if spec.mesh.cluster:
-        missing(f"model_ways={M} on a cluster mesh", "9d")
     if isinstance(spec.comm, CommConfig) and spec.comm.overlap:
         raise ValueError(
             "CommConfig.overlap runs the whole step inside a shard_map over "
@@ -154,8 +147,7 @@ def default_comm(parallel: str, cluster: bool = False,
     """The ``CommConfig`` a run of ``parallel`` takes when its spec leaves
     ``comm`` unset, and the base of ``comm="auto"``'s probes: gossip flat on
     its own backend (a hierarchical schedule would scope the partner
-    rotation to each pod, and a cluster's in-pod group is one member); on a
-    cluster the two-level schedule with the pallas-ring backend at both
+    rotation to each pod); on a cluster the two-level schedule with the pallas-ring backend at both
     levels (module docstring); else the lax backend, two-level iff the mesh
     has a pod axis (``two_level``)."""
     if parallel == "gossip":

@@ -178,7 +178,7 @@ class Run:
     def _global(self, name: str, tree):
         """Tree ``name`` as the checkpoint holds it: every leaf at its full
         shape, the strip state in the reference's global ``(G, n/G)``
-        rows (collectives on a process mesh: every rank calls it)."""
+        rows (collectives on a mesh over ranks: every rank calls it)."""
         strips = self._strip_mesh() if name == "opt_state" else None
 
         def one(x, spec):
@@ -208,8 +208,8 @@ class Run:
                 return x
             if spec is not None:
                 shape = full_shape(x, spec, self.mesh)
-            elif strips is not None and not strips.member_dims:
-                shape = (strips.data_size, *x.shape)
+            elif strips is not None and strips.n_ranks > 1:
+                shape = (strips.data_size, *x.shape[strips.member_dims:])
             else:
                 return x
             return np.broadcast_to(np.zeros((), ckpt_lib.np_dtype(x.dtype)),
@@ -286,8 +286,8 @@ class Run:
     def _place(self, name: str, cur, host):
         """Copy the host tree ``host`` (the checkpoint's layout) into the
         run's tree ``name``, ``cur``, in place: each leaf into its member
-        layout (``_layouts``), a process mesh's rank taking its row of the
-        strip state (``mesh.own``).  Int leaves (AdamW's count) are
+        layout (``_layouts``), a rank of a process or cluster mesh taking
+        its rows of the strip state (``mesh.own``).  Int leaves (AdamW's count) are
         replaced."""
         it = iter(tree_leaves(host))
         strips = self._strip_mesh() if name == "opt_state" else None
@@ -301,7 +301,7 @@ class Run:
                 np.ascontiguousarray(a).reshape(np.shape(a)))
             if spec is not None:
                 src = to_members(src, spec, self.mesh)
-            elif strips is not None and c.dim() and not strips.member_dims:
+            elif strips is not None and c.dim() and strips.n_ranks > 1:
                 src = strips.own(src, strips.per_member(lambda m: m))
             return c.copy_(src)
         return self._map_layout(name, cur, put)

@@ -5,8 +5,7 @@ serve.
 ``RunSpec`` accepts every parallel mode name of the reference and validates
 it, its ``MeshSpec`` and its ``CommConfig`` as the reference does
 (``MODE_CAPS``); ``compile_run`` assembles every mode, with model ways on
-every family (on a cluster mesh they raise "not ported yet", ROADMAP Queue
-A item 9d).
+every family and every mesh, a cluster's among them.
 """
 from __future__ import annotations
 
@@ -87,15 +86,16 @@ class MeshSpec:
     model_ways:         model-parallel ways within each data member (paper
                         §3.3): the local mesh holds members_per_device x
                         model_ways members, each model member the columns
-                        of every "ff"-sharded leaf (``core.sharding``); the
-                        CNN and DNN families (> 1 on an LM or a cluster
-                        raises in ``compile_run``).
-    cluster:            one member per process of the live
-                        ``torch.distributed`` group
+                        of every sharded leaf (``core.sharding``); on a
+                        cluster, within each process's local members,
+                        clamped to them as the reference clamps it.
+    cluster:            the members of the live ``torch.distributed`` group
                         (``launch.mesh.make_cluster_mesh``): the pod axis is
-                        the process boundary, ``(world, 1)`` members, one
-                        member a process; at world 1 a one-member local
-                        mesh.  ``members_per_device`` is then unused.
+                        the process boundary, ``REPRO_LOCAL_DEVICES``
+                        members a process (``(world, local / model_ways,
+                        model_ways)``); at world 1 a local mesh of the
+                        local members.  ``members_per_device`` is then
+                        unused.
     """
     pods: int = 1
     model_ways: int = 1

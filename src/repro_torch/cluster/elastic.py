@@ -93,14 +93,17 @@ def _failure(handles: Sequence[WorkerHandle], spawned_at: float,
 
 
 def run_elastic(worker_argv: Sequence[str], run_dir: str,
-                num_processes: int, max_restarts: int = 2,
+                num_processes: int, local_devices: int = 1,
+                max_restarts: int = 2,
                 heartbeat_timeout: float = 120.0,
                 poll_interval: float = 0.25,
                 chaos: Optional[ChaosSpec] = None,
                 grow_back: bool = False,
                 log=print) -> ElasticResult:
-    """Supervise ``worker_argv`` at ``num_processes``, shrinking the world
-    and relaunching on failure (at most ``max_restarts`` times).
+    """Supervise ``worker_argv`` at ``num_processes`` of ``local_devices``
+    members each, shrinking the world and relaunching on failure (at most
+    ``max_restarts`` times).  A shrink drops processes and keeps each
+    one's members and model ways.
     ``grow_back`` relaunches every failed attempt at the FULL
     ``num_processes`` instead of shrinking — the recovery policy for
     transient failures (preempted-then-returned hosts) rather than lost
@@ -115,7 +118,8 @@ def run_elastic(worker_argv: Sequence[str], run_dir: str,
     for attempt in range(max_restarts + 1):
         log(f"[elastic] attempt {attempt}: world={world}")
         handles = spawn_workers(world, worker_argv, run_dir,
-                                attempt=attempt)
+                                attempt=attempt,
+                                local_devices=local_devices)
         spawned_at = time.monotonic()
         fail = None
         try:

@@ -208,19 +208,20 @@ def invalidate_autotune_cache(run_dir: str) -> bool:
 
 def spawn_workers(num_processes: int, worker_argv: Sequence[str],
                   run_dir: str, attempt: int = 0,
+                  local_devices: int = 1,
                   coordinator: Optional[str] = None,
                   ) -> List[WorkerHandle]:
     """Spawn ``num_processes`` workers of ``python -m
-    repro_torch.launch.cluster <worker_argv>`` and return their handles.
-    ``attempt`` namespaces the heartbeat files so a relaunched cluster
-    never reads a dead generation's beats."""
+    repro_torch.launch.cluster <worker_argv>``, ``local_devices`` members
+    each, and return their handles.  ``attempt`` namespaces the heartbeat
+    files so a relaunched cluster never reads a dead generation's beats."""
     os.makedirs(run_dir, exist_ok=True)
     coordinator = coordinator or f"localhost:{free_port()}"
     handles: List[WorkerHandle] = []
     for pid in range(num_processes):
         spec = ClusterSpec(coordinator=coordinator,
                            num_processes=num_processes,
-                           process_id=pid)
+                           process_id=pid, local_devices=local_devices)
         hb = os.path.join(run_dir, f"hb_a{attempt}_w{pid}")
         env = _worker_env(spec, hb,
                           result_path(run_dir) if pid == 0 else None,

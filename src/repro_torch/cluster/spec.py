@@ -11,10 +11,12 @@ the training path knows how the processes were placed.
                           (``tcp://``; process 0 binds it).
 ``REPRO_NUM_PROCESSES``   world size.
 ``REPRO_PROCESS_ID``      this process's rank in [0, num_processes).
-``REPRO_LOCAL_DEVICES``   devices this process contributes (the reference
-                          forces that many host devices); the port runs one
-                          member a process, so any value but 1 raises "not
-                          ported yet".
+``REPRO_LOCAL_DEVICES``   the members this process holds on its device
+                          (``launch.mesh.ClusterMesh``: its data members and
+                          their model ways, along a member dimension).  The
+                          reference forces that many host devices on the
+                          CPU; on its accelerator hosts the value is
+                          informative only, here it is a member count.
 
 The process group's backend is chosen from where the ranks run
 (:func:`choose_backend`): **NCCL** when each rank has a card of its own,
@@ -58,10 +60,6 @@ class ClusterSpec:
         if self.local_devices < 1:
             raise ValueError(
                 f"local_devices must be >= 1, got {self.local_devices}")
-        if self.local_devices > 1:
-            raise NotImplementedError(
-                f"local_devices={self.local_devices} is not ported yet: "
-                "the port runs one member a process")
         if ":" not in self.coordinator:
             raise ValueError(
                 f"coordinator must be host:port, got {self.coordinator!r}")

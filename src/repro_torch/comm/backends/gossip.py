@@ -38,6 +38,10 @@ Process mesh
     The chunk moves by ``comm.backends.ring._exchange`` at shift s, and the
     add is ``kernels.ring.ring_hop_accum(chunks, recv, p)``, ``recv +
     chunks[p]``, bitwise the reference's ``own + recv``.
+Cluster mesh
+    Over ``"pod"`` the process mesh's exchange for all of a rank's rows at
+    once; over ``("pod", "data")`` each member's partner is a row of its own
+    rank or of another (``_split_pairs``), its add the same fold kernel.
 
 ``part_broadcast`` is the synchronous all-gather of the ring backend
 (``kernels.ring.ring_all_gather`` on a local mesh, the ring's hops on a
@@ -57,8 +61,12 @@ from repro_torch.core.collectives import (
     AxisNames,
     axes_tuple,
     axis_size,
-    flat_group_index,
+    chunk_major,
+    dist_call,
     flatten_pad,
+    rank_index,
+    split_levels,
+    staged_for,
     unflatten,
 )
 from repro_torch.kernels import ring as kring
@@ -72,6 +80,49 @@ def _shift_perm(G: int, s: int) -> List[Tuple[int, int]]:
 def shift_of(step: int, G: int) -> int:
     """The partner shift of ``step`` on a group of G > 1 members."""
     return 1 + int(step) % (G - 1)
+
+
+def _split_pairs(x: torch.Tensor, mesh, axes, s: int) -> torch.Tensor:
+    """The pair sums over ``axes`` that cross the ranks of a cluster mesh
+    and hold axes inside them (``("pod", "data")``): member ``i = p * n +
+    j`` (n members of the group a rank) sends its chunk ``(i + s) % G`` to
+    member ``(i + s) % G``, a row of its own rank (a copy) or of another
+    (a tagged send, staged through host memory over gloo), and adds the
+    chunk i it receives to its own on the ring's fold kernel."""
+    import torch.distributed as dist
+    inner = tuple(a for a in axes if a != "pod")
+    G, n, p = axis_size(mesh, axes), axis_size(mesh, inner), mesh.rank
+    pg = mesh.group(("pod",))[0]
+    out = x.new_empty(x.shape[0], x.shape[1] // G)
+    for rows in mesh.inner.groups(inner):
+        chunks = [x[r].reshape(G, -1) for r in rows]
+        recv = [torch.empty_like(c[0]) for c in chunks]
+        ops, landed = [], []
+        for j, c in enumerate(chunks):
+            me = p * n + j
+            dst, src = (me + s) % G, (me - s) % G
+            if dst // n == p:
+                recv[dst % n].copy_(c[dst])
+            else:
+                ops.append(dist.P2POp(dist.isend, staged_for(c[dst], pg),
+                                      dst // n, group=pg, tag=dst))
+            if src // n != p:
+                buf = staged_for(recv[j], pg)
+                landed.append((j, buf))
+                ops.append(dist.P2POp(dist.irecv, buf, src // n, group=pg,
+                                      tag=me))
+
+        def exchange():
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if ops:
+            dist_call("collective-permute", recv[0], G, exchange)
+        for j, buf in landed:
+            if buf is not recv[j]:
+                recv[j].copy_(buf)
+        for j, (r, c) in enumerate(zip(rows, chunks)):
+            out[r] = kring.ring_hop_accum(c, recv[j], p * n + j)
+    return out
 
 
 @dataclass(frozen=True)
@@ -109,15 +160,20 @@ class GossipBackend:
             recv = rows.reshape(G, G, -1)[(m - s) % G, m]
             return kring.ring_hop_accum_members(rows, recv)
 
-        def over_ranks(buf):
-            p = flat_group_index(mesh, axes)
-            chunks = buf.reshape(G, -1)
+        def over_ranks(rows):
+            p = rank_index(mesh, axes)
+            chunks = chunk_major(rows, G)
             recv = torch.empty_like(chunks[p])
             _exchange(chunks[(p + s) % G], recv, mesh, axes, shift=s)
-            return kring.ring_hop_accum(chunks, recv, p)
+            return kring.ring_hop_accum(chunks, recv, p).view(
+                rows.shape[0], -1)
 
+        if split_levels(mesh, axes):
+            pairs = _split_pairs(x, mesh, axes, s)
+        else:
+            pairs = mesh.collective(x, axes, over_rows, over_ranks)
         # pair sum scaled so that the schedule's / G yields the pair mean
-        return mesh.collective(x, axes, over_rows, over_ranks) * (G / 2.0)
+        return pairs * (G / 2.0)
 
     def part_broadcast(self, x: torch.Tensor, mesh,
                        axis_name: AxisNames) -> torch.Tensor:

@@ -17,7 +17,13 @@ import torch
 
 from repro_torch.comm.backends.ring import WireOps, wire_part_reduce
 from repro_torch.core import collectives as coll
-from repro_torch.core.collectives import AxisNames, axes_tuple, axis_size
+from repro_torch.core.collectives import (
+    AxisNames,
+    axes_tuple,
+    axis_size,
+    flat_reduce,
+    split_levels,
+)
 from repro_torch.kernels import ref as kref
 
 ORACLE_OPS = WireOps(kref.int8_quantize_ref, kref.ring_hop_int8_ref,
@@ -64,5 +70,8 @@ class LaxBackend:
         if x.shape[-1] % G:
             raise ValueError(f"buffer size {x.shape[-1]} not a strip "
                              f"multiple of group {G}")
+        if split_levels(mesh, axes_tuple(axis_name)):
+            return flat_reduce(x, mesh, axes_tuple(axis_name),
+                               self._compressed_part_reduce)
         return wire_part_reduce(x, mesh, axes_tuple(axis_name),
                                 self.wire_format, self.topk_ratio, ORACLE_OPS)

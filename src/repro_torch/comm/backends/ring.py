@@ -9,7 +9,7 @@ Local mesh (G members on one device)
     ``(G, N)`` rows (a view, a member stride of 0 included), and
     ``part_broadcast`` is ``kernels.ring.ring_all_gather``.
 
-Process mesh (one member per rank)
+Process and cluster meshes (ranks)
     The reference's loop (``pallas_ring.py:100-121, 157-171``): member p
     sends its chunk ``(p - 1) % G`` to rank p + 1 first; at step s it
     receives the partial of chunk ``(p - 2 - s) % G`` from rank p - 1
@@ -17,7 +17,11 @@ Process mesh (one member per rank)
     adds its own chunk with ``kernels.ring.ring_hop_accum`` and forwards it.
     After G - 1 hops the reduced chunk p sits on member p: the owner
     convention of ``LaxBackend``, so the two are interchangeable.
-    ``part_broadcast`` is the same hop loop, pure data movement.
+    ``part_broadcast`` is the same hop loop, pure data movement.  The L rows
+    of a cluster mesh's rank ride one loop over ``"pod"``, chunk i of every
+    row side by side (``core.collectives.chunk_major``): one hop kernel a
+    hop for all L; a flat group over ``("pod", "data")`` runs as the stacked
+    ring inside the rank, then the loop (``core.collectives.flat_reduce``).
 
 Both forms add in the ring's order and in the wire dtype, so they agree with
 each other, and with the reference's ring, bitwise.
@@ -50,10 +54,15 @@ from repro_torch.core.collectives import (
     AxisNames,
     axes_tuple,
     axis_size,
-    flat_group_index,
+    chunk_major,
+    dist_call,
+    flat_broadcast,
+    flat_reduce,
     flatten_pad,
     gloo_stages,
-    dist_call,
+    rank_index,
+    row_major,
+    split_levels,
     staged_for,
     unflatten,
 )
@@ -140,8 +149,9 @@ def wire_part_reduce(x: torch.Tensor, mesh, axes, wire_format: str,
                      ) -> torch.Tensor:
     """Part-reduce with compressed messages: ``stacked`` on each group's
     ``(G, N)`` rows of a local mesh (default: :func:`wire_ring` over the
-    rows with ``ops``), :func:`wire_ring` on this rank's buffer of a process
-    mesh, its messages moved by ``_exchange``."""
+    rows with ``ops``), :func:`wire_ring` on the rows a rank holds, each
+    row's ring its own (its own scales), their messages moved together by
+    ``_exchange``."""
     G = axis_size(mesh, axes)
 
     def over_rows(rows):
@@ -150,18 +160,20 @@ def wire_part_reduce(x: torch.Tensor, mesh, axes, wire_format: str,
             wire_format, ratio, lambda ms: [ms[(i - 1) % G] for i in range(G)],
             ops))
 
-    def over_ranks(buf):
+    def over_ranks(rows):
         def recv(msgs):
             out = []
-            for t in msgs[0]:
+            for parts in zip(*msgs):     # one message part of every row
+                t = torch.stack(parts)
                 r = torch.empty_like(t)
                 _exchange(t, r, mesh, axes)
-                out.append(r)
-            return [tuple(out)]
+                out.append(r.unbind(0))
+            return list(zip(*out))
 
-        return wire_ring([buf.reshape(G, -1).float()],
-                         [flat_group_index(mesh, axes)], G, wire_format,
-                         ratio, recv, ops)[0]
+        p = rank_index(mesh, axes)
+        return torch.stack(wire_ring(
+            [r.reshape(G, -1).float() for r in rows], [p] * len(rows), G,
+            wire_format, ratio, recv, ops))
 
     return mesh.collective(x, axes, stacked or over_rows, over_ranks)
 
@@ -217,21 +229,24 @@ class RingBackend:
             raise ValueError(f"buffer size {x.shape[-1]} not a strip "
                              f"multiple of group {G}")
         axes = axes_tuple(axis_name)
+        if split_levels(mesh, axes):
+            return flat_reduce(x, mesh, axes, self.part_reduce)
         if self.wire_format in ("int8", "topk"):
             stacked = _int8_members if self.wire_format == "int8" \
                 else lambda rows: _topk_members(rows, self.topk_ratio)
             return wire_part_reduce(x, mesh, axes, self.wire_format,
                                     self.topk_ratio, KERNEL_OPS, stacked)
 
-        def over_ranks(buf):
-            p = flat_group_index(mesh, axes)
-            chunks = buf.reshape(G, -1)
+        def over_ranks(rows):
+            # the rows' rings as one: chunk i of every row side by side
+            p = rank_index(mesh, axes)
+            chunks = chunk_major(rows, G)
             send = chunks[(p - 1) % G]
             recv = torch.empty_like(send)
             for s in range(G - 1):
                 _exchange(send, recv, mesh, axes)
                 send = kring.ring_hop_accum(chunks, recv, (p - 2 - s) % G)
-            return send
+            return send.view(rows.shape[0], -1)
 
         return mesh.collective(x, axes, kring.ring_reduce_scatter,
                                over_ranks)
@@ -243,16 +258,18 @@ class RingBackend:
         if G == 1:
             return x
         axes = axes_tuple(axis_name)
+        if split_levels(mesh, axes):
+            return flat_broadcast(x, mesh, axes, self.part_broadcast)
 
-        def over_ranks(strip):
-            p = flat_group_index(mesh, axes)
-            out = strip.new_empty(G, strip.shape[0])
-            out[p] = strip
+        def over_ranks(strips):
+            p = rank_index(mesh, axes)
+            out = strips.new_empty(G, strips.numel())
+            out[p] = strips.reshape(-1)
             for s in range(G - 1):
-                # the strip of owner (p - 1 - s) arrives from the left
+                # the strips of owner (p - 1 - s) arrive from the left
                 # neighbour
                 _exchange(out[(p - s) % G], out[(p - 1 - s) % G], mesh, axes)
-            return out.reshape(-1)
+            return row_major(out, strips.shape[0])
 
         return mesh.collective(x, axes, kring.ring_all_gather, over_ranks)
 

@@ -7,7 +7,8 @@ sums into that member's 1-D strip (sum over the group, f32 out),
 ``broadcast`` is its exact inverse on updated strips, and ``owner_index`` is
 the flat strip index each member owns (a tuple, one per member, on a local
 mesh; this rank's int on a process mesh).  Member tensors follow the mesh:
-``(M, N)`` on a local mesh, ``(N,)`` on a process mesh.
+``(M, N)`` on a local mesh, ``(N,)`` on a process mesh, the rank's ``(L,
+N)`` rows on a cluster mesh.
 
 The wire collectives go through a backend (``comm.backends``); schedules own
 the wire-dtype casts and the level composition.
@@ -20,7 +21,9 @@ HierarchicalSchedule (paper §3.3/§3.4 group composition)
     in f32.  Member ``(p, d)`` owns flat strip ``d * G_out + p``;
     ``broadcast`` inverts with all-gathers in the opposite order.  On a local
     mesh each level runs once per group: per pod in-pod, per data index
-    across pods.
+    across pods.  On a cluster mesh (``launch.mesh.ClusterMesh``) the in-pod
+    level runs stacked on each rank's members, and the cross-pod hop over
+    the ranks, all of a rank's members in one loop.
 """
 from __future__ import annotations
 

@@ -16,7 +16,14 @@ that fits its layout:
   cuts the sum into strips, part-broadcast tiles a group's strips;
 * on a :class:`~repro_torch.launch.mesh.ProcessMesh` a member tensor is this
   rank's ``(N,)`` buffer, and the two are ``reduce_scatter_tensor`` /
-  ``all_gather_into_tensor`` over the group's process group.
+  ``all_gather_into_tensor`` over the group's process group;
+* on a :class:`~repro_torch.launch.mesh.ClusterMesh` a member tensor is the
+  rank's ``(L, N)`` rows: over the axes inside the rank the local mesh's
+  form, over ``"pod"`` one ``reduce_scatter_tensor`` /
+  ``all_gather_into_tensor`` for all L rows, their chunks laid out side by
+  side (:func:`chunk_major`), and over ``("pod", "data")`` the two levels
+  in turn (:func:`split_levels`: member ``(p, d)`` owns chunk ``p * D +
+  d``, as on a local mesh).
 
 These are the internals of the port's ``lax`` backend, the plain
 collectives the ring backend is held against: the same strip ownership
@@ -151,13 +158,74 @@ def staged_for(buf: torch.Tensor, pg) -> torch.Tensor:
 
 def refuses_plain_reduce(mesh, axis_name: AxisNames) -> bool:
     """True where :func:`part_reduce` refuses the buffers of ``mesh``: a
-    process mesh on a card whose group over ``axis_name`` is more than one
-    rank over gloo (the test of :func:`gloo_stages`)."""
+    mesh on a card whose group over ``axis_name`` spans more than one rank
+    over gloo (the test of :func:`gloo_stages`)."""
     axes = axes_tuple(axis_name)
-    if mesh.member_dims or axis_size(mesh, axes) <= 1:
+    crosses = mesh.n_ranks > 1 and ("pod" in axes or not mesh.member_dims)
+    if not crosses or axis_size(mesh, axes) <= 1:
         return False
     return gloo_stages(torch.empty(0, device=mesh.device),
                        mesh.group(axes)[0])
+
+
+def rank_index(mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's index in its group over ``axes`` (a process or cluster
+    mesh): every row it holds of those groups has the same."""
+    return mesh.group(axes)[1].index(mesh.rank)
+
+
+def chunk_major(rows: torch.Tensor, G: int) -> torch.Tensor:
+    """``(R, N)`` rows as ``(G, R * N / G)``: chunk i of every row side by
+    side, so that one collective over ranks moves all R rows' chunks i
+    together (a view when R is 1)."""
+    return rows.reshape(rows.shape[0], G, -1).transpose(0, 1).reshape(G, -1)
+
+
+def row_major(chunks: torch.Tensor, R: int) -> torch.Tensor:
+    """The inverse of :func:`chunk_major`: ``(G, R * k)`` -> ``(R, G * k)``."""
+    G = chunks.shape[0]
+    return chunks.reshape(G, R, -1).transpose(0, 1).reshape(R, -1)
+
+
+def split_levels(mesh, axes: Tuple[str, ...]) -> bool:
+    """True where a group over ``axes`` crosses the ranks of a cluster mesh
+    and holds axes inside them too (``("pod", "data")``, flat): the
+    collectives then run as two levels (:func:`flat_reduce`,
+    :func:`flat_broadcast`)."""
+    return mesh.pod_across_ranks and "pod" in axes and len(axes) > 1
+
+
+def _inner(axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    return tuple(a for a in axes if a != "pod")
+
+
+def _regroup(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Each row's chunks ``(a, b, k)`` as ``(b, a, k)``, a stride-0 member
+    dimension kept (one buffer viewed by every member)."""
+    if x.shape[0] > 1 and x.stride(0) == 0:
+        return _regroup(x[:1], a, b).expand(x.shape)
+    return x.reshape(x.shape[0], a, b, -1).transpose(1, 2).reshape(x.shape)
+
+
+def flat_reduce(x: torch.Tensor, mesh, axes: Tuple[str, ...], reduce
+                ) -> torch.Tensor:
+    """The flat part-reduce over ``axes`` of a cluster mesh (member ``(p,
+    i)`` owns chunk ``p * n + i``, n the extent of the axes inside a rank)
+    by ``reduce(x, mesh, axes)`` at two levels: each row's chunks
+    regrouped ``(n, P, k)``, the reduce over the inner axes (member i keeps
+    the P chunks ``p * n + i``), then over ``"pod"``."""
+    P, inner = mesh.shape["pod"], _inner(axes)
+    y = _regroup(x, P, axis_size(mesh, inner))
+    return reduce(reduce(y, mesh, inner), mesh, "pod")
+
+
+def flat_broadcast(x: torch.Tensor, mesh, axes: Tuple[str, ...], broadcast
+                   ) -> torch.Tensor:
+    """The inverse of :func:`flat_reduce`: ``broadcast`` over ``"pod"``,
+    then over the inner axes, and the chunks put back in flat order."""
+    inner = _inner(axes)
+    full = broadcast(broadcast(x, mesh, "pod"), mesh, inner)
+    return _regroup(full, axis_size(mesh, inner), mesh.shape["pod"])
 
 
 def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
@@ -169,21 +237,23 @@ def part_reduce(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
     if x.shape[-1] % G:
         raise ValueError(f"buffer size {x.shape[-1]} not a strip multiple "
                          f"of group {G}")
+    if split_levels(mesh, axes):
+        return flat_reduce(x, mesh, axes, part_reduce)
 
-    def over_ranks(buf):
+    def over_ranks(rows):
         import torch.distributed as dist
         pg = mesh.group(axes)[0]
-        if G > 1 and gloo_stages(buf, pg):
+        if G > 1 and gloo_stages(rows, pg):
             raise NotImplementedError(
                 "the plain reduce-scatter of a card's buffers over gloo "
                 "would sum them in host memory: take the pallas-ring "
                 "backend, whose hops add on the card (NCCL, which sums on "
                 "the card, takes one rank per card)")
-        src = staged_for(buf, pg).contiguous()
-        out = src.new_empty(buf.shape[0] // G)
+        src = staged_for(chunk_major(rows, G), pg).contiguous()
+        out = src.new_empty(src.shape[1])
         dist_call("reduce-scatter", src, G, dist.reduce_scatter_tensor,
-                  out, src, group=pg)
-        return out.to(buf.device)
+                  out, src.reshape(-1), group=pg)
+        return out.view(rows.shape[0], -1).to(rows.device)
 
     return mesh.collective(x, axes, lambda rows: rows.sum(0).reshape(G, -1),
                            over_ranks)
@@ -195,16 +265,18 @@ def part_broadcast(x: torch.Tensor, mesh, axis_name: AxisNames
     with the group's strips in owner order.  Paper Fig. 2."""
     _check_1d(x, mesh)
     axes = axes_tuple(axis_name)
+    if split_levels(mesh, axes):
+        return flat_broadcast(x, mesh, axes, part_broadcast)
     G = axis_size(mesh, axes)
 
-    def over_ranks(buf):
+    def over_ranks(rows):
         import torch.distributed as dist
         pg = mesh.group(axes)[0]
-        src = staged_for(buf, pg).contiguous()
-        out = src.new_empty(G * buf.shape[0])
+        src = staged_for(rows, pg).contiguous()
+        out = src.new_empty(G * src.numel())
         dist_call("all-gather", out, G, dist.all_gather_into_tensor, out,
-                  src, group=pg)
-        return out.to(buf.device)
+                  src.reshape(-1), group=pg)
+        return row_major(out.view(G, -1), rows.shape[0]).to(rows.device)
 
     return mesh.collective(
         x, axes, lambda rows: rows.reshape(1, -1).expand(G, -1), over_ranks)
@@ -213,10 +285,12 @@ def part_broadcast(x: torch.Tensor, mesh, axis_name: AxisNames
 def psum(x: torch.Tensor, mesh, axis_name: AxisNames) -> torch.Tensor:
     """All-reduce over the group, any member shape."""
     axes = axes_tuple(axis_name)
+    if split_levels(mesh, axes):
+        return psum(psum(x, mesh, _inner(axes)), mesh, "pod")
 
-    def over_ranks(buf):
+    def over_ranks(rows):
         import torch.distributed as dist
-        out = buf.clone()
+        out = rows.clone()
         dist_call("all-reduce", out, axis_size(mesh, axes),
                   dist.all_reduce, out, group=mesh.group(axes)[0])
         return out

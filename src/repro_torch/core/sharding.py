@@ -19,7 +19,10 @@ The reference hands a spec to GSPMD.  The port holds each leaf in a
   the block a member holds: a ``(k, k, ifm, ofm)`` conv weight on
   ``P(None, None, None, "model")`` is ``(M, k, k, ifm, ofm / M)``, so that
   model member m's block ``w[m]`` is contiguous;
-* on a :class:`~repro_torch.launch.mesh.ProcessMesh` the rank's block.
+* on a :class:`~repro_torch.launch.mesh.ProcessMesh` the rank's block;
+* on a :class:`~repro_torch.launch.mesh.ClusterMesh` the local mesh's
+  layout of the rank's pod: a spec over ``"pod"`` (a zero1-gspmd state's
+  data strip) keeps the rank's pod block, its pod dim left out.
 
 Params take their spec's model entries only (:func:`held_spec`): a
 data-axis entry of a param (``"embed_fsdp"``, FSDP) is placement metadata
@@ -181,11 +184,15 @@ def to_members(full: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """The member layout of ``full`` under ``spec`` (module docstring): a
     new contiguous tensor, or ``full`` itself when ``spec`` shards
     nothing.  Outside autograd, as :func:`from_members`."""
-    if not used_axes(spec, mesh):
+    used = used_axes(spec, mesh)
+    if not used:
         return full
     if mesh.member_dims:
         split, perm = _split(spec, full.shape, mesh)
-        return full.reshape(split).permute(perm).contiguous()
+        out = full.reshape(split).permute(perm)
+        if _pod_ranked(used, mesh):
+            out = out[mesh.rank]
+        return out.contiguous()
     idx = block_index(spec, mesh, mesh.member)
     sl = []
     for entry, dim, i in zip(spec, full.shape, idx):
@@ -194,9 +201,18 @@ def to_members(full: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return full[tuple(sl)].clone(memory_format=torch.contiguous_format)
 
 
+def _pod_ranked(used: Sequence[str], mesh) -> bool:
+    """True when a layout over ``used`` splits over the pod axis of a
+    cluster mesh, whose ranks are its pods: the rank holds its pod's
+    blocks, and the pod dim is left out of its member layout."""
+    return mesh.pod_across_ranks and "pod" in used
+
+
 def full_shape(x: torch.Tensor, spec: Sequence, mesh) -> Tuple[int, ...]:
     """The full shape of member-layout tensor ``x`` under ``spec``."""
-    block = x.shape[len(used_axes(spec, mesh)) if mesh.member_dims else 0:]
+    used = used_axes(spec, mesh)
+    lead = len(used) - _pod_ranked(used, mesh) if mesh.member_dims else 0
+    block = x.shape[lead:]
     spec = tuple(spec) + (None,) * (len(block) - len(spec))
     return tuple(b * math.prod(mesh.shape[a] for a in entry_axes(e))
                  for b, e in zip(block, spec))
@@ -207,22 +223,25 @@ def from_members(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """The full tensor of member-layout ``x`` under ``spec``: a copy, or
     ``x`` itself when ``spec`` shards nothing.  On a process mesh an
     all-gather over the spec's axes (every rank of those groups calls it),
-    staged through host memory over gloo."""
+    on a cluster mesh over the pods where the spec uses them, staged
+    through host memory over gloo."""
     used = used_axes(spec, mesh)
     if not used:
         return x
     shape = full_shape(x, spec, mesh)
-    if not mesh.member_dims:
+    ranked = _pod_ranked(used, mesh)
+    if ranked or not mesh.member_dims:
         import torch.distributed as dist
 
         from repro_torch.core.collectives import dist_call, staged_for
-        pg, ranks = mesh.group(used)
+        pg, ranks = mesh.group(("pod",) if ranked else used)
         src = staged_for(x, pg).contiguous()
         out = src.new_empty(len(ranks) * src.numel())
         dist_call("all-gather", out, len(ranks),
                   dist.all_gather_into_tensor, out, src.reshape(-1),
                   group=pg)
-        x = out.view(*(mesh.shape[a] for a in used), *x.shape).to(x.device)
+        lead = (len(ranks),) if ranked else (mesh.shape[a] for a in used)
+        x = out.view(*lead, *x.shape).to(x.device)
     return join_blocks(x, spec, shape, mesh)
 
 

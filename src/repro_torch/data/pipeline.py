@@ -184,11 +184,12 @@ def make_placer(device, shard: Optional[Tuple[int, int]] = None
                 ) -> Callable:
     """numpy batch -> dict of tensors on ``device``.  ``shard = (r, G)``
     (a process mesh's ``batch_shard``: r the rank's data-group index, G the
-    data extent) keeps rows ``[r*B/G, (r+1)*B/G)`` of every array, as the
-    reference shards the batch over its data axes (``make_placer``'s
-    ``"batch"`` rule): every rank draws the same seeded global batch and
-    keeps its data group's rows, the same rows as the other model members
-    of its group.  A ``G`` that does not divide the
+    data extent; a cluster mesh's: r the rank's pod, G the pods, its
+    members sharing the rows) keeps rows ``[r*B/G, (r+1)*B/G)`` of every
+    array, as the reference shards the batch over its data axes
+    (``make_placer``'s ``"batch"`` rule): every rank draws the same seeded
+    global batch and keeps its data group's rows, the same rows as the
+    other model members of its group.  A ``G`` that does not divide the
     batch raises."""
     dev = torch.device(device)
 

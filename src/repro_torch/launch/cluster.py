@@ -14,8 +14,9 @@ One module, two roles, told apart by the cluster environment variables:
   ranks share a card or run on the CPU: ``cluster.spec.initialize``) of the
   :class:`~repro_torch.cluster.spec.ClusterSpec` in its environment,
   compiles the run with ``MeshSpec(cluster=True)`` (the pod axis is the
-  process boundary, one member a process) and trains, beating its heartbeat
-  every step.
+  process boundary; each process holds ``--local-devices`` members on its
+  device, ``--model-ways`` of them a data group: ``launch.mesh.
+  ClusterMesh``) and trains, beating its heartbeat every step.
 
     # the paper's §3.4 update over 2 processes on the card (zero1 on the
     # pallas-ring backend at both levels, the cluster's default)
@@ -33,6 +34,11 @@ One module, two roles, told apart by the cluster environment variables:
     python -m repro_torch.launch.cluster --processes 2 --arch vgg-a \\
         --smoke --steps 8 --ckpt-dir /tmp/vgg-chaos --chaos-kill-step 3 \\
         --device cpu
+
+    # the paper's §3.3 composition: 2 members a process, one model group of
+    # 2 ways each, data parallel across the processes (mesh (2, 1, 2))
+    python -m repro_torch.launch.cluster --processes 2 --local-devices 2 \\
+        --model-ways 2 --arch vgg-a --smoke --steps 3 --verify --device cpu
 
 ``--verify`` also trains the same spec in one process in the supervisor and
 fails unless the final losses agree within ``VERIFY_TOL``: the §3.4
@@ -86,26 +92,25 @@ def resolve_comm_backends(args) -> None:
 
 
 def check_cluster_args(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse, before any worker starts, model ways (one member a process)
-    and the plain sums of card buffers over gloo (the cross-pod
-    reduce-scatter on lax, dp's and zero1-gspmd's gradient sums): every
-    worker would raise in its first step and the supervisor would shrink
-    the world until one process, which sums nothing, trains alone."""
+    """Refuse, before any worker starts, the plain sums of card buffers
+    over gloo at the pod level, the one that crosses the processes (the
+    cross-pod reduce-scatter on lax, dp's and zero1-gspmd's gradient sums):
+    every worker would raise in its first step and the supervisor would
+    shrink the world until one process, which sums nothing, trains
+    alone."""
     import torch
     from repro_torch.api import MODE_CAPS
     from repro_torch.api.assemble import default_comm
-    if args.model_ways > 1:
-        ap.error(f"--model-ways {args.model_ways} on a cluster is not ported "
-                 "yet (ROADMAP.md Queue A item 9d): a cluster runs one "
-                 "member a process; model ways run in one process "
-                 "(repro_torch.launch.train --model-ways)")
+    if args.local_devices < 1:
+        ap.error("--local-devices must be >= 1")
     shared = (args.processes > 1
               and torch.device(args.device or "cuda").type == "cuda"
               and ranks_share_cards(args.processes))
     if shared and args.parallel in ("dp", "zero1-gspmd"):
         ap.error(f"--parallel {args.parallel} would all-reduce the card's "
-                 "gradients over gloo in host memory; when ranks share a "
-                 "card run zero1 on pallas-ring (the default)")
+                 "gradients over gloo in host memory at the pod level, "
+                 "between the processes; when ranks share a card run zero1 "
+                 "on pallas-ring (the default)")
     if (args.processes > 1 and MODE_CAPS[args.parallel].comm
             and default_comm(args.parallel, cluster=True).hierarchical
             and args.cross_backend == "lax"
@@ -113,8 +118,9 @@ def check_cluster_args(ap: argparse.ArgumentParser, args) -> None:
             and torch.device(args.device or "cuda").type == "cuda"
             and ranks_share_cards(args.processes)):
         ap.error("--cross-backend lax would reduce-scatter the card's "
-                 "buffers over gloo in host memory; when ranks share a card "
-                 f"the cluster's {args.parallel} takes --cross-backend "
+                 "buffers over gloo in host memory at the pod level, "
+                 "between the processes; when ranks share a card the "
+                 f"cluster's {args.parallel} takes --cross-backend "
                  "pallas-ring (the default)")
 
 
@@ -141,9 +147,13 @@ def worker_main(args) -> int:
 
     run = compile_from_args(args, cluster=True)
     if rank == 0:
-        print(f"cluster: one member a process on {run.device}; "
-              f"mesh={run.mesh}  parallel={run.spec.parallel}  "
-              f"comm={run.comm}  kernel={args.use_kernel}", flush=True)
+        shape = getattr(run.mesh, "shape", {})
+        print(f"cluster: {spec.num_processes} processes x "
+              f"{spec.local_devices} members on {run.device} (local "
+              f"devices L={spec.local_devices}, model ways "
+              f"M={shape.get('model', 1)}); mesh={run.mesh}  "
+              f"parallel={run.spec.parallel}  comm={run.comm}  "
+              f"kernel={args.use_kernel}", flush=True)
     hb = os.environ.get(ENV_HEARTBEAT_FILE)
     if hb:
         # the heartbeat rides the trainer's "step" span: compile_run always
@@ -187,6 +197,10 @@ def make_parser() -> argparse.ArgumentParser:
     add_run_args(ap, parallel_default="zero1", cluster=True)
     ap.add_argument("--processes", type=int, default=2,
                     help="worker processes to launch (the pod axis extent)")
+    ap.add_argument("--local-devices", type=int, default=1,
+                    help="members each process holds on its device, "
+                         "--model-ways of them a model group (the "
+                         "reference's devices a process)")
     ap.add_argument("--run-dir", default=None,
                     help="supervisor scratch dir (heartbeats, worker logs, "
                          "result); default: --ckpt-dir, else a temp dir")
@@ -240,6 +254,7 @@ def main(argv=None) -> int:
         chaos = ChaosSpec(at_step=args.chaos_kill_step,
                           worker=args.chaos_kill_worker)
     res = run_elastic(argv, run_dir, args.processes,
+                      local_devices=args.local_devices,
                       max_restarts=args.max_restarts,
                       heartbeat_timeout=args.heartbeat_timeout,
                       chaos=chaos, grow_back=args.grow_back)

@@ -1,7 +1,7 @@
 """Meshes of members (``repro.launch.mesh``).
 
 The reference runs its members as the devices of a ``jax`` mesh, on the
-CPU as forced host devices.  The port has two kinds of mesh with the
+CPU as forced host devices.  The port has three kinds of mesh with the
 reference's axes, ``("data", "model")``, or ``("pod", "data", "model")``
 when ``pods > 1``: the G = pods x data data-parallel members of the
 paper's §3.3 groups, each group split ``model_ways`` ways.  Flat member
@@ -19,6 +19,14 @@ are consecutive.
                       member tensors carry no member dimension.  Each axis
                       set has its own process group (the model group and
                       the data group of every rank among them).
+:class:`ClusterMesh`  the mesh of a cluster run (``MeshSpec(cluster=True)``,
+                      :func:`make_cluster_mesh`): ``local_devices`` members
+                      on each rank of the live process group, axes
+                      ``("pod", "data", "model")`` = ``(world, local //
+                      model_ways, model_ways)``, flat member index ``rank *
+                      local + row``.  A rank's rows are a local mesh of
+                      their own (``data``, ``model``); the pod axis is the
+                      process boundary.
 
 Which layout a member tensor has is the mesh's one decision: the
 collectives, backends, schedules, ``optim.dist.UpdatePlan``, the data
@@ -27,7 +35,9 @@ placer and the checkpoints are written once against the methods below
 ``map_members``, ``collective``, ``gather_members``, ``batch_shard`` and
 ``model_blocks``), which each mesh implements for its layout.  A local
 mesh's members all see the full batch; a process mesh's rank sees its data
-group's rows of it, the same rows as the other model members of its group.
+group's rows of it, the same rows as the other model members of its group;
+a cluster mesh's rank sees its pod's rows, which all its members share.
+``n_ranks`` is the count of processes a mesh spans.
 
 The §3.4 strip update runs over the data axes alone, on ``data_view()``:
 the mesh of the G data members (model axis 1), which the model members of
@@ -39,9 +49,6 @@ params and the model-axis collectives are ``core.sharding`` and
 on the ``meta`` device, which the dry run plans on; its members' programs
 run on :meth:`ProcessMesh.member_view`.  :func:`make_host_mesh` factors
 the devices it is given as the reference's does.
-:func:`make_cluster_mesh` is the mesh of a cluster run
-(``MeshSpec(cluster=True)``): one member a process, the pod axis the
-process boundary; it refuses model ways (ROADMAP Queue A item 9d).
 
 A mesh's device defaults to the GPU (``device.resolve_device``): pass
 ``device="cpu"`` to hold the members on the CPU.
@@ -171,6 +178,8 @@ Collective = Callable[[torch.Tensor], torch.Tensor]
 class LocalMesh(_Mesh):
     """G members held on one device along a leading member dimension."""
     member_dims = 1
+    n_ranks = 1
+    pod_across_ranks = False    # True on a cluster mesh (its pod axis)
 
     def per_member(self, fn: Callable[[int], int]) -> Tuple[int, ...]:
         """``fn`` of every flat member index, one per member row."""
@@ -217,7 +226,9 @@ class LocalMesh(_Mesh):
                    ) -> torch.Tensor:
         """A collective over ``axes``: ``stacked`` on each group's ``(G,
         ...)`` member rows, its result rows going back to the group's
-        members (``over_ranks`` is the process mesh's form)."""
+        members (``over_ranks`` is the form over ranks: it takes the
+        ``(R, ...)`` rows a rank holds of R groups that span the same
+        ranks, and returns their results' rows)."""
         groups = self.groups(axes)
         if len(groups) == 1:
             return stacked(member_rows(x, groups[0]))
@@ -247,6 +258,7 @@ class ProcessMesh(_Mesh):
     model axis only when it is more than 1; every rank must construct the
     mesh, in the same order)."""
     member_dims = 0
+    pod_across_ranks = False
 
     def __init__(self, pods: int = 1, model_ways: int = 1,
                  device: Optional[torch.device] = None):
@@ -308,6 +320,10 @@ class ProcessMesh(_Mesh):
                      if "model" not in k}
         return v
 
+    @property
+    def n_ranks(self) -> int:
+        return self.size
+
     def _key(self, axes) -> Tuple[str, ...]:
         """``axes`` without a model axis of 1 (it changes no group)."""
         return tuple(a for a in axes
@@ -365,12 +381,111 @@ class ProcessMesh(_Mesh):
     def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
                    stacked: Collective, over_ranks: Collective
                    ) -> torch.Tensor:
-        """A collective over ``axes``: ``over_ranks`` on this rank's buffer
-        (``stacked`` is the local mesh's form)."""
-        return over_ranks(x)
+        """A collective over ``axes``: ``over_ranks`` on this rank's buffer,
+        one row (``stacked`` is the local mesh's form)."""
+        return over_ranks(x.unsqueeze(0)).squeeze(0)
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}, "
+                f"device={self.device})")
+
+
+class ClusterMesh(LocalMesh):
+    """``local`` members on this rank's device, of ``world`` ranks of the
+    initialised default process group (module docstring).  The rank's rows
+    are :attr:`inner`, a :class:`LocalMesh` of axes ``("data", "model")``:
+    member tensors are ``(local, ...)``, row j member ``rank * local + j``,
+    and a collective over axes inside the rank runs stacked on them.  A
+    collective over ``"pod"`` joins the rows of one local index across the
+    ranks: the world's process group, every rank one pod.  Axes that cross
+    the ranks and hold axes inside them too are split into the two levels
+    by ``core.collectives.split_levels``.  Every rank must construct the
+    mesh, in the same order."""
+    pod_across_ranks = True
+
+    def __init__(self, local: int, model_ways: int = 1,
+                 device: Optional[torch.device] = None):
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError("ClusterMesh needs an initialised "
+                               "torch.distributed process group")
+        self.inner = LocalMesh(local // model_ways, model_ways=model_ways,
+                               device=device)
+        self.local, self.device = local, self.inner.device
+        self.rank = dist.get_rank()
+        self.shape = {"pod": dist.get_world_size(), **self.inner.shape}
+        self.axis_names = tuple(self.shape)
+
+    @property
+    def n_ranks(self) -> int:
+        return self.shape["pod"]
+
+    def group(self, axes: Tuple[str, ...]):
+        """(process group, its ranks) joining this rank to the others over
+        ``axes``, which must hold ``"pod"``: the world's, rank p the pod
+        p."""
+        import torch.distributed as dist
+        if "pod" not in axes:
+            raise ValueError(f"axes {axes} lie inside one rank of {self}")
+        return dist.group.WORLD, list(range(self.n_ranks))
+
+    def per_member(self, fn: Callable[[int], int]) -> Tuple[int, ...]:
+        """``fn`` of the flat index of each member held here."""
+        return tuple(fn(self.rank * self.local + j)
+                     for j in range(self.local))
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        return x.expand(self.local, *x.shape)
+
+    def gather_members(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(G, ...)`` tensor of every member's rows in flat member
+        order, on every rank: an all-gather of the ranks' rows (over gloo a
+        card's tensor is staged through host memory, and the result stays
+        there)."""
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import dist_call, staged_for
+        pg, ranks = self.group(("pod",))
+        x = staged_for(x, pg).contiguous()
+        out = x.new_empty(len(ranks) * x.numel())
+        dist_call("all-gather", out, len(ranks),
+                  dist.all_gather_into_tensor, out, x.reshape(-1),
+                  group=pg)
+        return out.view(len(ranks) * x.shape[0], *x.shape[1:])
+
+    @property
+    def batch_shard(self) -> Tuple[int, int]:
+        """(p, P): the rank keeps its pod's rows ``[p*B/P, (p+1)*B/P)`` of
+        each global batch (``data.pipeline.make_placer``), and every member
+        it holds sees them, as a local mesh's members see the whole
+        batch."""
+        return self.rank, self.n_ranks
+
+    def data_view(self) -> "ClusterMesh":
+        """The mesh of the G data members alone: ``data`` members a rank
+        (module docstring)."""
+        if self.model_ways == 1:
+            return self
+        return ClusterMesh(self.shape["data"], device=self.device)
+
+    def collective(self, x: torch.Tensor, axes: Tuple[str, ...],
+                   stacked: Collective, over_ranks: Collective
+                   ) -> torch.Tensor:
+        """A collective over ``axes``: inside the rank ``stacked`` on each
+        group's rows (:class:`LocalMesh`); over ``"pod"`` ``over_ranks`` on
+        all ``(local, ...)`` rows at once, row j's group the rows j of
+        every rank."""
+        axes = tuple(axes)
+        if "pod" not in axes:
+            return self.inner.collective(x, axes, stacked, over_ranks)
+        if axes != ("pod",):
+            raise ValueError(
+                f"axes {axes} cross the ranks and hold axes inside them: "
+                "split them first (core.collectives.split_levels)")
+        return over_ranks(x)
+
+    def __repr__(self) -> str:
+        return (f"ClusterMesh({self.shape}, rank={self.rank}, "
                 f"device={self.device})")
 
 
@@ -427,30 +542,58 @@ def mesh_devices(mesh) -> int:
     return math.prod(mesh.shape.values())
 
 
-def make_cluster_mesh(model_ways: int = 1, device=None):
+def cluster_model_ways(local: int, model_ways: int) -> int:
+    """The model ways of a cluster of ``local`` members a rank, as the
+    reference's ``make_cluster_mesh`` clamps them: at most ``local``, and a
+    count that does not divide ``local`` dropped, with the reference's
+    warning, to the largest that does (:func:`_divisible_factorization`)."""
+    model_ways = max(1, min(model_ways, local))
+    if local % model_ways:
+        fit = _divisible_factorization(local, model_ways, 1)[0]
+        warnings.warn(
+            f"make_cluster_mesh: model_ways={model_ways} does not divide "
+            f"the {local} local devices per process; dropping to "
+            f"model_ways={fit}", stacklevel=3)
+        model_ways = fit
+    return model_ways
+
+
+def make_cluster_mesh(model_ways: int = 1, device=None,
+                      local_devices: Optional[int] = None):
     """The mesh of a cluster run (``repro.launch.mesh.make_cluster_mesh``):
-    the pod axis is the process boundary, one member a process, so axes
-    ``("pod", "data", "model")`` = ``(world, 1, 1)`` over the live process
-    group, and the reference's zero1 world layout for the same world.  With
-    one process (no group, or a group of one) it is a one-member local
-    mesh, as the reference falls back to the host mesh.  Model ways raise:
-    a cluster of one member a process has none to split (ROADMAP Queue A
-    item 9d), and shrinking a world with a model axis is later work.
+    a :class:`ClusterMesh` of axes ``("pod", "data", "model")`` = ``(world,
+    local // model_ways, model_ways)`` over the live process group, the
+    pod axis the process boundary.  ``local_devices`` (default:
+    ``ClusterSpec.from_env()``'s, ``REPRO_LOCAL_DEVICES``) is the members a
+    rank holds, and ``model_ways`` is clamped to it
+    (:func:`cluster_model_ways`).  Every rank must hold as many: a ragged
+    cluster raises.  One member a process is the :class:`ProcessMesh` of
+    the same axes, ``(world, 1, 1)``, whose member tensors carry no member
+    dimension.  With one process (no group, or a group of one) it is the
+    reference's fallback, :func:`make_host_mesh` over the
+    ``local_devices`` members, a :class:`LocalMesh`.
 
     ``device`` defaults to the GPU: rank r takes ``cuda:(r % cards)``; pass
     ``device="cpu"`` for CPU ranks."""
     import torch.distributed as dist
-    if model_ways != 1:
-        raise NotImplementedError(
-            f"model_ways={model_ways} on a cluster mesh is not ported yet "
-            "(ROADMAP.md Queue A item 9d): a cluster runs one member a "
-            "process; model ways run on make_local_mesh or "
-            "make_process_mesh")
+
+    from repro_torch.cluster.spec import ClusterSpec
+    if local_devices is None:
+        local_devices = ClusterSpec.from_env().local_devices
     world = dist.get_world_size() if dist.is_initialized() else 1
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         rank = dist.get_rank() if dist.is_initialized() else 0
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     if world == 1:
-        return LocalMesh(1, device=dev)
-    return ProcessMesh(pods=world, device=dev)
+        return make_host_mesh(model_ways, devices=local_devices, device=dev)
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, local_devices)
+    if len(set(per_rank)) != 1:
+        raise RuntimeError(
+            f"cluster mesh needs the same local device count on every "
+            f"process, got {dict(enumerate(per_rank))}")
+    if local_devices == 1:
+        return ProcessMesh(pods=world, device=dev)
+    return ClusterMesh(local_devices,
+                       cluster_model_ways(local_devices, model_ways), dev)

@@ -325,10 +325,9 @@ def make_stale_sync_update(optimizer, mesh, data_axes=("data",),
     @torch.no_grad()
     def init_fn(params):
         dev = tree_leaves(params)[0].device
-        rows = (up.G,) if mesh.member_dims else ()
-        stale = [torch.zeros(*rows, b.padded_size // up.G,
-                             dtype=torch.float32, device=dev)
-                 for b in up.buckets(params).buckets]
+        stale = [mesh.replicated(torch.zeros(
+            b.padded_size // up.G, dtype=torch.float32,
+            device=dev)).contiguous() for b in up.buckets(params).buckets]
         return {"stale": stale,
                 "synced": torch.zeros((), dtype=torch.int32, device=dev),
                 "zero1": up.init_fn(params)}
@@ -508,7 +507,11 @@ class GspmdUpdate:
     is a re-layout into strips.  On a process mesh each rank's gradient is
     of its data group's rows: dp takes the mean over the data axes with
     ``all_reduce``, zero1-gspmd each leaf's ``reduce_scatter_tensor`` along
-    its state's data dim; both refuse a card's buffers over gloo, as
+    its state's data dim.  On a cluster mesh a rank's gradient is of its
+    pod's rows, which all its members share: the mean over the data axes is
+    the mean over the pods, one ``all_reduce`` a leaf, and the rest is the
+    local mesh's (a state strip over ``"pod"`` holds the rank's pod block).
+    Each refuses a card's buffers over gloo, as
     ``core.collectives.part_reduce`` does (the sums would run in host
     memory).
 
@@ -534,8 +537,8 @@ class GspmdUpdate:
         return map_tree(lambda x: fn(next(idx), x, *(next(i) for i in its)),
                         tree)
 
-    def _data_group(self, buf):
-        pg = self.mesh.group(self.axes)[0]
+    def _data_group(self, buf, axes=None):
+        pg = self.mesh.group(self.axes if axes is None else axes)[0]
         if coll.gloo_stages(buf, pg):
             raise NotImplementedError(
                 "the plain all-reduce or reduce-scatter of a card's buffers "
@@ -563,9 +566,20 @@ class GspmdUpdate:
     def init_fn(self, params):
         return self.optimizer.init(self._strips(params))
 
+    def _pod_mean(self, g):
+        """The mean of a cluster rank's pod gradient over the pods, in
+        place."""
+        import torch.distributed as dist
+        P = self.mesh.n_ranks
+        coll.dist_call("all-reduce", g, P, dist.all_reduce, g,
+                       group=self._data_group(g, ("pod",)))
+        return g.div_(P)
+
     @torch.no_grad()
     def reduce(self, params, grads, opt_state, step=0):
         """The mean gradient over the data axes, in the state's layout."""
+        if self.mesh.pod_across_ranks:
+            grads = self._map(lambda i, g: self._pod_mean(g), grads)
         if self.mesh.member_dims or self.G == 1:
             return self._strips(grads)
         import torch.distributed as dist
@@ -619,18 +633,25 @@ class GspmdUpdate:
         layout) and ``g`` clipped to ``grad_clip`` in place.  A block held
         by several members (replicated over an axis its spec does not use)
         counts once: on a process mesh only where its coordinate on those
-        axes is 0, before the sum over every rank."""
+        axes is 0, before the sum over every rank; on a cluster mesh, whose
+        ranks hold their members' blocks once each, a block the pods share
+        only on rank 0."""
         mesh = self.mesh
         sq = []
         for i, x in enumerate(tree_leaves(g)):
-            if not mesh.member_dims:
+            used = used_axes(self.strip[i], mesh)
+            if mesh.pod_across_ranks:
+                if "pod" not in used and mesh.rank:
+                    continue
+            elif not mesh.member_dims:
                 c = mesh.coords(mesh.member)
-                used = used_axes(self.strip[i], mesh)
                 if any(c[a] for a in mesh.axis_names if a not in used):
                     continue
             sq.append(torch.sum(torch.square(x.float())))
         total = sum(sq) if sq else torch.zeros((), device=mesh.device)
-        if not mesh.member_dims:
+        if mesh.pod_across_ranks:
+            total = mesh.one(coll.psum(mesh.replicated(total), mesh, "pod"))
+        elif not mesh.member_dims:
             total = coll.psum(total, mesh, mesh.axis_names)
         gnorm = torch.sqrt(total)
         if grad_clip > 0:

@@ -243,9 +243,10 @@ def _time_backend(mesh, axis_arg, base: CommConfig, backend: str,
 
 
 def _sync_times(probes: List[CommProbe], mesh) -> List[CommProbe]:
-    """On a process mesh, each probe's time averaged over the ranks (one
-    ``all_reduce``), so that every rank fits the same constants."""
-    if mesh.member_dims or mesh.size <= 1:
+    """On a mesh over ranks (a process or cluster mesh), each probe's time
+    averaged over the ranks (one ``all_reduce``), so that every rank fits
+    the same constants."""
+    if mesh.n_ranks <= 1:
         return probes
     import torch.distributed as dist
     pg, ranks = mesh.group(mesh.axis_names)
@@ -260,10 +261,15 @@ def _sync_times(probes: List[CommProbe], mesh) -> List[CommProbe]:
 
 def _measured_what(mesh) -> str:
     """What the fit on ``mesh`` measures, for every line that prints it."""
+    import torch.distributed as dist
+    if mesh.pod_across_ranks:
+        return (f"in each pod the device memory traffic of {mesh.local} "
+                f"members on one {mesh.device.type} device, not a link; "
+                f"across pods the {dist.get_backend()} transport of "
+                f"{mesh.n_ranks} ranks as this run uses it")
     if mesh.member_dims:
         return (f"device memory traffic of {mesh.size} members on one "
                 f"{mesh.device.type} device, not a link")
-    import torch.distributed as dist
     return (f"the {dist.get_backend()} transport of {mesh.size} ranks on "
             f"{mesh.device.type} as this run uses it")
 

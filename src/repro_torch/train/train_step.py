@@ -17,6 +17,8 @@ reference's ranks do under ``bspec = P(axis)``: its gradient is its rows',
 so the step reduces first and takes the norm and the clip from the reduced
 strips (:func:`clip_strips`, or the update's own ``clip`` under dp and
 zero1-gspmd, ``optim.dist.GspmdUpdate``), and its loss is the group mean.
+A cluster mesh's rank (``launch.mesh.ClusterMesh``) computes its pod's rows
+once for all the members it holds, and takes the same path.
 
 Under a model axis the params and gradients are in member layout
 (``core.sharding``): on a local mesh every block once, so the global norm
@@ -99,8 +101,10 @@ def _loss_and_grads(loss_fn, params, batch):
 
 def group_mean(loss: torch.Tensor, mesh, axis_arg, G: int) -> torch.Tensor:
     """The group mean of the ranks' losses of their own batch rows (the
-    reference's ``psum(loss) / G``)."""
-    return mesh.one(coll.psum(loss.detach(), mesh, axis_arg)) / G
+    reference's ``psum(loss) / G``), each member of a rank counting its
+    rank's loss."""
+    return mesh.one(coll.psum(mesh.replicated(loss.detach()), mesh,
+                              axis_arg)) / G
 
 
 def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update):

@@ -298,7 +298,8 @@ def _elastic_fixture(tmp_path, monkeypatch, first_rcs):
                             hb_file=os.path.join(run_dir, f"hb_{pid}"),
                             log_file=None)
 
-    def fake_spawn(world, argv, rd, attempt=0, coordinator=None):
+    def fake_spawn(world, argv, rd, attempt=0, local_devices=1,
+                   coordinator=None):
         calls.append((attempt, world))
         if attempt == 0:
             return [handle(i, rc) for i, rc in enumerate(first_rcs)]

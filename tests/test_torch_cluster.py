@@ -41,7 +41,7 @@ from repro_torch.cluster.launcher import (  # noqa: E402
     parse_heartbeat,
     write_heartbeat,
 )
-from repro_torch.cluster.spec import ENV_PROCESS_ID  # noqa: E402
+from repro_torch.cluster.spec import ENV_LOCAL_DEVICES, ENV_PROCESS_ID  # noqa: E402
 from repro_torch.comm import CommConfig  # noqa: E402
 from repro_torch.core.collectives import padded_size  # noqa: E402
 from repro_torch.launch.mesh import make_cluster_mesh, make_local_mesh  # noqa: E402
@@ -90,12 +90,18 @@ def test_cluster_spec_validation(kw):
         JClusterSpec(**kw)
 
 
-def test_cluster_spec_refuses_devices_it_would_not_use():
-    # the reference forces that many host devices a process; the port runs
-    # one member a process, so more devices raise rather than go unused
+def test_cluster_spec_refuses_devices_it_would_not_use(monkeypatch):
+    # the reference forces that many host devices a process; the port holds
+    # that many members on the process's device (launch.mesh.ClusterMesh),
+    # and a model-ways request that does not divide them drops, with the
+    # reference's warning, so that none goes unused
     env = JClusterSpec(num_processes=2, process_id=1, local_devices=4).env()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ClusterSpec.from_env(env)
+    spec = ClusterSpec.from_env(env)
+    assert spec.local_devices == 4 and spec.env() == env
+    monkeypatch.setenv(ENV_LOCAL_DEVICES, "4")
+    with pytest.warns(UserWarning, match=r"\(all 4 devices used\)"):
+        mesh = make_cluster_mesh(model_ways=3, device="cpu")
+    assert mesh.shape == {"data": 2, "model": 2}
 
 
 def test_in_worker_detection():
@@ -107,8 +113,10 @@ def test_cluster_mesh_of_one_process_is_a_one_member_local_mesh():
     mesh = make_cluster_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} \
         and mesh.batch_shard is None
-    with pytest.raises(NotImplementedError):
-        make_cluster_mesh(model_ways=2, device="cpu")
+    # model ways beyond the one local device clamp to it, as the
+    # reference's make_host_mesh fallback clamps them
+    assert make_cluster_mesh(model_ways=2, device="cpu").shape == {
+        "data": 1, "model": 1}
 
 
 def test_meshes_default_to_the_card(monkeypatch):

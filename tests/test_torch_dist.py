@@ -33,7 +33,6 @@ from _gloo_ranks import run_ranks  # noqa: E402
 from repro.optim.adamw import AdamWState as JAdamWState  # noqa: E402
 from repro.optim.sgd import SgdState as JSgdState  # noqa: E402
 from repro_torch.api import MeshSpec, RunSpec, compile_run  # noqa: E402
-from repro_torch.api import assemble  # noqa: E402
 from repro_torch.comm import CommConfig, LaxBackend, RingBackend  # noqa: E402
 from repro_torch.interop import opt_state_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
@@ -271,9 +270,10 @@ def test_compile_run_zero1_matches_reference_and_serial(reference,
                                    rtol=1e-4, atol=1e-6)
 
 
-# every mode is ported, with model ways on every family; model ways on a
-# cluster mesh (Queue A item 9d) still raise before allocating, under every
-# mode and on an LM as on a CNN
+# every mode is ported, with model ways on every family and mesh: model
+# ways on a cluster mesh build under every mode, on an LM as on a CNN (at
+# one process of 2 local devices, a local mesh of one data member split 2
+# ways, the reference's make_host_mesh fallback)
 CLUSTER_MW = MeshSpec(cluster=True, model_ways=2)
 
 
@@ -288,13 +288,11 @@ CLUSTER_MW = MeshSpec(cluster=True, model_ways=2)
     ids=["dp", "zero1-gspmd", "stale-sync", "gossip", "auto", "model_ways",
          "cluster"])
 def test_unported_modes_raise_before_allocating(kw, monkeypatch):
-    def no_device(*a, **k):
-        raise AssertionError("compile_run reached the device")
-    monkeypatch.setattr(assemble, "resolve_device", no_device)
+    monkeypatch.setenv("REPRO_LOCAL_DEVICES", "2")
     kw = {"arch": "llama-100m", **kw}
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP.md Queue A item 9d\)"):
-        compile_run(RunSpec(**kw))
+    with compile_run(RunSpec(smoke=True, **kw), device="cpu") as run:
+        assert run.mesh.shape == {"data": 1, "model": 2}
+        assert run.ctx.model_ways == 2
 
 
 @pytest.mark.parametrize("kw", [dict(members_per_device=0),

@@ -83,9 +83,11 @@ def test_check_run_args_rejects_what_the_reference_rejects(argv):
             _parse(mod, argv)
 
 
-# dp, zero1-gspmd and model ways on every family are ported: the cases are
-# what the port still refuses, model ways on a cluster (an LM's and a
-# CNN's) and with --overlap, and the default (dp, as the reference's)
+# dp, zero1-gspmd and model ways on every family and mesh are ported: the
+# cases are model ways on a cluster (an LM's and a CNN's), which at one
+# process of one local device clamp to one way as the reference's do, what
+# the port still refuses, model ways with --overlap, and the default (dp,
+# as the reference's)
 @pytest.mark.parametrize("argv", [
     [], ["--arch", "llama-100m", "--parallel", "dp", "--model-ways", "2",
          "--cluster"],
@@ -111,9 +113,10 @@ def test_unported_flags_parse_then_raise_in_compile_run(argv, monkeypatch):
         with pytest.raises(ValueError, match="requires model_ways == 1"):
             assemble.compile_run(spec)
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP.md Queue A item 9d\)"):
-        assemble.compile_run(spec)
+    monkeypatch.undo()
+    assert spec.mesh.cluster and spec.mesh.model_ways == 2
+    with assemble.compile_run(spec, device="cpu") as run:
+        assert run.mesh.shape == {"data": 1, "model": 1}
 
 
 @pytest.mark.parametrize("argv", [

@@ -164,12 +164,13 @@ def test_runspec_takes_every_reference_mode():
 
 @pytest.mark.parametrize("mode", [m for m in PARALLEL_MODES if m != "serial"])
 def test_compile_run_rejects_unported_modes(mode):
-    # every mode is ported, with model ways on every family; model ways on
-    # a cluster mesh raise (Queue A item 9d)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        compile_run(RunSpec(arch="llama-100m", smoke=True, parallel=mode,
-                            mesh=MeshSpec(cluster=True, model_ways=2)),
-                    device="cpu")
+    # every mode is ported, with model ways on every family and mesh; on a
+    # cluster of one process of one local device model ways clamp to one,
+    # as the reference's make_host_mesh fallback clamps them
+    with compile_run(RunSpec(arch="llama-100m", smoke=True, parallel=mode,
+                             mesh=MeshSpec(cluster=True, model_ways=2)),
+                     device="cpu") as run:
+        assert run.mesh.shape == {"data": 1, "model": 1}
 
 
 def test_unported_pieces_raise():
