@@ -186,8 +186,8 @@ def compile_run(spec: RunSpec, device=None, recorder=None,
     ``cuda:(r % cards)``) and raises when none is visible; pass
     ``device="cpu"`` to run on the CPU.  On a card it turns TF32 off for
     the process (``device.hold_f32``).  ``recorder`` receives the
-    trainer's spans and counts; None builds ``make_recorder(spec.
-    telemetry)``.  ``mesh`` replaces the mesh ``spec.mesh`` describes with
+    trainer's, the train step's and the update phases' spans and the
+    trainer's counts; None builds ``make_recorder(spec.telemetry)``.  ``mesh`` replaces the mesh ``spec.mesh`` describes with
     one the caller built (``launch.mesh.make_process_mesh`` over the live
     process group, model ways and all), on its device.
     """
@@ -232,10 +232,11 @@ def compile_run(spec: RunSpec, device=None, recorder=None,
             # (spec validation keeps topk off this path; _check_ported
             # model ways)
             init_fn, dist_update = make_overlapped_update(
-                optimizer, mesh, data_axes=axes, comm=comm)
+                optimizer, mesh, data_axes=axes, comm=comm,
+                recorder=recorder)
             train_step = make_overlapped_train_step(
                 loss_fn, lr_schedule, mesh, axes, comm, dist_update,
-                grad_clip=spec.grad_clip)
+                grad_clip=spec.grad_clip, recorder=recorder)
         else:
             # the error-feedback residual of topk needs the state carry of
             # the EF composition (spec validation pinned topk to monolithic
@@ -245,14 +246,15 @@ def compile_run(spec: RunSpec, device=None, recorder=None,
         if train_step is None:
             init_fn, dist_update = make_model_gathered(
                 make_update, optimizer, mesh, ctx, specs, data_axes=axes,
-                comm=comm)
+                comm=comm, recorder=recorder)
         opt_state = init_fn(params)
     else:
         opt_state = optimizer.init(params)
     if train_step is None:
         train_step = make_train_step(loss_fn, optimizer, lr_schedule,
                                      grad_clip=spec.grad_clip,
-                                     dist_update=dist_update)
+                                     dist_update=dist_update,
+                                     recorder=recorder)
     return Run(spec=spec, cfg=cfg, family=family, device=dev,
                loss_fn=loss_fn, optimizer=optimizer, lr_schedule=lr_schedule,
                train_step=train_step, params=params, opt_state=opt_state,

@@ -45,6 +45,7 @@ from repro_torch.core.sharding import (
     to_members,
 )
 from repro_torch.data.pipeline import Prefetcher, make_placer
+from repro_torch.telemetry.events import NULL_RECORDER
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -67,7 +68,9 @@ class Run:
     comm: Optional[Any] = None      # the CommConfig of the strip update
     dist_update: Optional[Callable] = None  # optim.dist update_fn
     #                                         (local_update under overlap)
-    telemetry: Optional[Any] = None  # recorder of the trainer's spans and
+    telemetry: Optional[Any] = None  # recorder of the spans (the
+    #                                  trainer's, Run.step's, the train
+    #                                  step's and the update's) and the
     #                                  counts (telemetry.make_recorder);
     #                                  listeners (the cluster heartbeat,
     #                                  the JSONL sink) ride its events;
@@ -103,10 +106,13 @@ class Run:
         return self._data
 
     def step(self, batch, step_idx: int = 0):
-        """Run one train step on an explicit batch; advances the run's
-        params and opt_state and returns the metrics dict."""
-        self.params, self.opt_state, metrics = self.train_step(
-            self.params, self.opt_state, step_idx, batch)
+        """Run one train step on an explicit batch, under a ``step`` span
+        of ``telemetry``; advances the run's params and opt_state and
+        returns the metrics dict."""
+        with (self.telemetry or NULL_RECORDER).span("step",
+                                                    step=step_idx + 1):
+            self.params, self.opt_state, metrics = self.train_step(
+                self.params, self.opt_state, step_idx, batch)
         self._warm = True
         return metrics
 

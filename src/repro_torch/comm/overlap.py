@@ -57,6 +57,7 @@ from repro_torch.comm.bucketer import (
 )
 from repro_torch.comm.schedule import make_schedule, reduce_mean
 from repro_torch.core.params import map_tree, tree_leaves
+from repro_torch.telemetry.events import NULL_RECORDER
 
 #: the autograd engine's highest node priority (``AccumulateGrad``'s)
 _TOP_PRIORITY = 2 ** 64 - 1
@@ -132,7 +133,7 @@ class _BucketTap(torch.autograd.Function):
 
 
 def make_overlap_grad(loss_fn: Callable, mesh, axes, comm: CommConfig,
-                      G: int) -> Callable:
+                      G: int, recorder=NULL_RECORDER) -> Callable:
     """Build ``overlap_grad(params, batch, join=True) -> (loss, g_strips)``.
 
     ``g_strips`` holds one fully reduced f32 mean-gradient strip per bucket
@@ -142,7 +143,9 @@ def make_overlap_grad(loss_fn: Callable, mesh, axes, comm: CommConfig,
     inside the backward pass through ``comm.backend``.  Every member's
     partial is the full batch's gradient (``mesh.replicated``), as in the
     monolithic update.  ``join=False`` leaves the side stream unjoined: the
-    caller calls :func:`join_comm` before it reads a strip.
+    caller calls :func:`join_comm` before it reads a strip.  ``recorder``
+    takes the spans ``forward`` (the tapped loss) and ``backward``
+    (the tapped backward, its reduces and the join).
     """
     sched = make_schedule(mesh, axes, comm.hierarchical, comm.backend,
                           comm.cross_backend, wire_format=comm.wire_format,
@@ -183,14 +186,16 @@ def make_overlap_grad(loss_fn: Callable, mesh, axes, comm: CommConfig,
             for s, leaf in zip(bucket.slots, outs):
                 tapped[s.index] = leaf
         it = iter(tapped)
-        loss = loss_fn(map_tree(lambda _: next(it), params), batch)
-        torch.autograd.grad(loss, anchor, allow_unused=True)
-        for b, bucket in enumerate(plan.buckets):
-            if strips[b] is None:       # no leaf of it reached the loss
-                issuer(b, bucket)([torch.zeros_like(flat[s.index])
-                                   for s in bucket.slots])
-        if join:
-            join_comm(dev)
+        with recorder.span("forward"):
+            loss = loss_fn(map_tree(lambda _: next(it), params), batch)
+        with recorder.span("backward"):
+            torch.autograd.grad(loss, anchor, allow_unused=True)
+            for b, bucket in enumerate(plan.buckets):
+                if strips[b] is None:       # no leaf of it reached the loss
+                    issuer(b, bucket)([torch.zeros_like(flat[s.index])
+                                       for s in bucket.slots])
+            if join:
+                join_comm(dev)
         if stream is not None:
             # allocated on the side stream, read on the compute stream
             current = torch.cuda.current_stream(dev)

@@ -18,6 +18,7 @@ from repro_torch.api import Run, RunSpec, compile_run
 from repro_torch.configs.base import DNNConfig, ModelConfig
 from repro_torch.core.sharding import ShardingCtx
 from repro_torch.models import cnn, dnn, transformer
+from repro_torch.telemetry.events import NULL_RECORDER
 from repro_torch.train import make_overlapped_train_step, make_train_step
 
 
@@ -38,17 +39,20 @@ def kernel_loss(cfg, ctx: ShardingCtx = ShardingCtx()):
 def use_kernel(run: Run) -> Run:
     """Swap ``run``'s loss for :func:`kernel_loss`; the rest of the
     assembly (optimizer, schedule, data, trainer, the overlapped or
-    monolithic update) is untouched."""
+    monolithic update, the spans' recorder) is untouched."""
     run.loss_fn = kernel_loss(run.cfg, run.ctx)
+    rec = run.telemetry or NULL_RECORDER
     if run.comm is not None and run.comm.overlap:
         run.train_step = make_overlapped_train_step(
             run.loss_fn, run.lr_schedule, run.mesh, run.mesh.data_axes,
-            run.comm, run.dist_update, grad_clip=run.spec.grad_clip)
+            run.comm, run.dist_update, grad_clip=run.spec.grad_clip,
+            recorder=rec)
     else:
         run.train_step = make_train_step(run.loss_fn, run.optimizer,
                                          run.lr_schedule,
                                          grad_clip=run.spec.grad_clip,
-                                         dist_update=run.dist_update)
+                                         dist_update=run.dist_update,
+                                         recorder=rec)
     return run
 
 

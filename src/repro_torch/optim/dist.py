@@ -57,7 +57,7 @@ strip updated, the params all-gathered back).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -89,6 +89,7 @@ from repro_torch.core.sharding import (
     zero1_state_spec,
 )
 from repro_torch.kernels.ref import topk_mask_ref
+from repro_torch.telemetry.events import NULL_RECORDER
 
 DEFAULT_COMM = CommConfig()
 
@@ -109,23 +110,26 @@ def owner_perm(hierarchical: bool, axes_sizes) -> Optional[np.ndarray]:
 class UpdatePlan:
     """The shared layout and phase set of the §3.4 update: which mesh axes
     form the group, how the tree fuses into buckets, which member owns
-    which strip."""
+    which strip.  Each phase is one span of ``recorder`` (``reduce``,
+    ``apply``, ``broadcast``), over all its buckets."""
     optimizer: Any
     mesh: Any
     axes: Tuple[str, ...]
     axis_arg: Any                  # single-name-or-tuple collective form
     G: int
     comm: CommConfig
+    recorder: Any = field(default=NULL_RECORDER, compare=False)
 
     @classmethod
     def build(cls, optimizer, mesh, data_axes=("data",),
-              comm: Optional[CommConfig] = DEFAULT_COMM) -> "UpdatePlan":
+              comm: Optional[CommConfig] = DEFAULT_COMM,
+              recorder=NULL_RECORDER) -> "UpdatePlan":
         """``comm=None`` selects the per-tensor schedule: one bucket per
         leaf (``bucket_bytes=0``)."""
         axes, axis_arg, G = group_axes(mesh, data_axes)
         if comm is None:
             comm = CommConfig(bucket_bytes=0)
-        return cls(optimizer, mesh, axes, axis_arg, G, comm)
+        return cls(optimizer, mesh, axes, axis_arg, G, comm, recorder)
 
     # -- shared layout ------------------------------------------------
     def buckets(self, params) -> BucketPlan:
@@ -166,9 +170,9 @@ class UpdatePlan:
         local mesh).  Returns each member's mean-gradient strip per
         bucket."""
         flat_grads = tree_leaves(grads)
-        return [reduce_mean(sched,
-                            self.mesh.replicated(pack_bucket(flat_grads, b)),
-                            self.comm.wire_dtype, self.G)
+        with self.recorder.span("reduce"):
+            return [reduce_mean(sched, self.mesh.replicated(
+                pack_bucket(flat_grads, b)), self.comm.wire_dtype, self.G)
                 for b in plan.buckets]
 
     def apply(self, sched: Schedule, plan: BucketPlan, params, g_strips,
@@ -177,9 +181,10 @@ class UpdatePlan:
         optimizer on its state rows (elementwise, so fusing tensors into one
         buffer does not change the math).  Updates the strips and the state
         in place and returns them."""
-        p_strips = self._own_strips(tree_leaves(params), plan,
-                                    sched.owner_index())
-        return self.optimizer.update(g_strips, opt_state, p_strips, lr)
+        with self.recorder.span("apply"):
+            p_strips = self._own_strips(tree_leaves(params), plan,
+                                        sched.owner_index())
+            return self.optimizer.update(g_strips, opt_state, p_strips, lr)
 
     def broadcast(self, sched: Schedule, plan: BucketPlan, params,
                   new_p_strips):
@@ -187,10 +192,11 @@ class UpdatePlan:
         member's copy of the gathered buffer) into the params in place
         before the next bucket is gathered."""
         flat_params = tree_leaves(params)
-        for strips, b in zip(new_p_strips, plan.buckets):
-            full = sched.broadcast(strips)
-            for i, leaf in unpack_bucket(self.mesh.one(full), b):
-                flat_params[i].copy_(leaf)
+        with self.recorder.span("broadcast"):
+            for strips, b in zip(new_p_strips, plan.buckets):
+                full = sched.broadcast(strips)
+                for i, leaf in unpack_bucket(self.mesh.one(full), b):
+                    flat_params[i].copy_(leaf)
         return params
 
 
@@ -240,18 +246,20 @@ class DistUpdate:
 
 
 def make_distributed_update(optimizer, mesh, data_axes=("data",),
-                            comm: Optional[CommConfig] = DEFAULT_COMM):
+                            comm: Optional[CommConfig] = DEFAULT_COMM,
+                            recorder=NULL_RECORDER):
     """Build ``(init_fn, update_fn)`` realizing the paper's update over
     ``mesh``: the reduce -> apply -> broadcast pipeline of one
     :class:`UpdatePlan`.  Params and grads enter as the full trees (every
     member's gradient is the global one); the optimizer state lives as
     per-bucket strips (``init_fn``).  ``update_fn`` advances the params and
-    the state in place and returns them.
+    the state in place and returns them.  ``recorder`` takes the phases'
+    spans (:class:`UpdatePlan`), as in every constructor below.
 
     update_fn(params, grads, opt_state, lr, step=0)
         -> (params, new_opt_state)
     """
-    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm, recorder)
 
     def reduce(sched, plan, grads, opt_state):
         return up.reduce(sched, plan, grads)
@@ -265,7 +273,8 @@ def make_distributed_update(optimizer, mesh, data_axes=("data",),
 
 
 def make_overlapped_update(optimizer, mesh, data_axes=("data",),
-                           comm: Optional[CommConfig] = None):
+                           comm: Optional[CommConfig] = None,
+                           recorder=NULL_RECORDER):
     """The backprop-overlapped composition: ``(init_fn, local_update)``,
     where ``local_update(params, g_strips, opt_state, lr) -> (params,
     opt_state)`` is the apply and broadcast phases alone.  It takes the
@@ -274,7 +283,7 @@ def make_overlapped_update(optimizer, mesh, data_axes=("data",),
     advances the params and the state in place.  ``init_fn`` is the shared
     strip init, so both paths' states have one layout."""
     comm = DEFAULT_COMM if comm is None else comm
-    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm, recorder)
     sched = up.schedule()
 
     @torch.no_grad()
@@ -288,7 +297,8 @@ def make_overlapped_update(optimizer, mesh, data_axes=("data",),
 
 
 def make_stale_sync_update(optimizer, mesh, data_axes=("data",),
-                           comm: Optional[CommConfig] = None):
+                           comm: Optional[CommConfig] = None,
+                           recorder=NULL_RECORDER):
     """Bounded staleness 1 (``repro.optim.dist.make_stale_sync_update``):
     step t applies the mean-gradient strips reduced at step t - 1 and
     carries its own fresh reduce to step t + 1.  The reduce and apply
@@ -320,7 +330,7 @@ def make_stale_sync_update(optimizer, mesh, data_axes=("data",),
         -> (params, opt_state), both advanced in place
     """
     comm = DEFAULT_COMM if comm is None else comm
-    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm, recorder)
 
     @torch.no_grad()
     def init_fn(params):
@@ -360,20 +370,24 @@ def topk_ef_reduce(up: UpdatePlan, sched: Schedule, plan: BucketPlan, grads,
     carried residual plus the packed gradient, its largest-|x| entries kept
     (``topk_chunk_k`` of the bucket, at least G) and part-reduced through
     the topk-bound schedule; ``residual`` becomes ``buffer - kept`` in
-    place.  Returns each member's mean-gradient strip per bucket."""
+    place.  Returns each member's mean-gradient strip per bucket, under
+    ``up``'s ``reduce`` span."""
     flat_grads = tree_leaves(grads)
     g_strips = []
-    for b, buf in zip(plan.buckets, residual):
-        buf.add_(up.mesh.replicated(pack_bucket(flat_grads, b).float()))
-        k = topk_chunk_k(b.padded_size, up.comm.topk_ratio, floor=up.G)
-        kept = topk_mask_ref(buf, k)
-        g_strips.append(reduce_mean(sched, kept, up.comm.wire_dtype, up.G))
-        buf.sub_(kept)
+    with up.recorder.span("reduce"):
+        for b, buf in zip(plan.buckets, residual):
+            buf.add_(up.mesh.replicated(pack_bucket(flat_grads, b).float()))
+            k = topk_chunk_k(b.padded_size, up.comm.topk_ratio, floor=up.G)
+            kept = topk_mask_ref(buf, k)
+            g_strips.append(reduce_mean(sched, kept, up.comm.wire_dtype,
+                                        up.G))
+            buf.sub_(kept)
     return g_strips
 
 
 def make_topk_ef_update(optimizer, mesh, data_axes=("data",),
-                        comm: Optional[CommConfig] = None):
+                        comm: Optional[CommConfig] = None,
+                        recorder=NULL_RECORDER):
     """The ``wire_format="topk"`` composition: top-k sparsified reduce with
     local error feedback (``repro.optim.dist.make_topk_ef_update``).  Each
     step every member adds its carried residual to the packed bucket
@@ -398,7 +412,7 @@ def make_topk_ef_update(optimizer, mesh, data_axes=("data",),
         raise ValueError(
             "make_topk_ef_update requires CommConfig(wire_format='topk'); "
             f"got {comm.wire_format!r}")
-    up = UpdatePlan.build(optimizer, mesh, data_axes, comm)
+    up = UpdatePlan.build(optimizer, mesh, data_axes, comm, recorder)
 
     @torch.no_grad()
     def init_fn(params):

@@ -1,26 +1,38 @@
 """Span and event recorders (``repro.telemetry.events``).
 
-The trainer's phases (step, data_wait, first_step, ckpt_write) and the
-serving engine's (prefill, decode, preempt) each become a SPAN: a dict
-``{"kind", "ph": "span", "t0", "t1", "dur", "depth", **attrs}`` stamped
-from ``time.monotonic()`` (never the wall clock: the cluster heartbeat
-rides these events, and must survive a wall-clock jump).  Instant events
-carry ``"ph": "instant"``.  Listeners see every completed event: the JSONL
-sink (``telemetry.sinks.JsonlSink``), the cluster heartbeat writer
-(``cluster.launcher.make_heartbeat_listener``) and tests.  Span durations
-feed one histogram per kind (``hist("span/<kind>_s")``).
+The trainer's phases (step, data_wait, first_step, ckpt_write), the train
+step's (forward, backward, clip, update; ``train.train_step``), the §3.4
+update's (reduce, apply, broadcast; ``optim.dist.UpdatePlan``),
+``Run.step``'s step and the serving engine's (prefill, decode, preempt)
+each become a SPAN: a dict ``{"kind", "ph": "span", "t0", "t1", "dur",
+"depth", **attrs}`` stamped from ``time.monotonic()`` (never the wall
+clock: the cluster heartbeat rides these events, and must survive a
+wall-clock jump).  Instant events carry ``"ph": "instant"``.  Listeners
+see every completed event: the JSONL sink (``telemetry.sinks.JsonlSink``),
+the cluster heartbeat writer (``cluster.launcher.make_heartbeat_listener``)
+and tests.  A recorder that keeps its events feeds one histogram per span
+kind (``hist("span/<kind>_s")``).
+
+While a ``torch.profiler`` session is active, every span of a live
+``Recorder`` is also a profiler range named ``repro_torch.<kind>``, on the
+profiler's clock and timeline beside the device's kernels.  A span that
+nothing would see (no listener, no kept events, no profiler) is the shared
+null span, so an untraced run pays one check a span.
 
 ``NULL_RECORDER`` is the no-op default: library code threads
 ``recorder.span(...)`` / ``recorder.event(...)`` / ``recorder.count(...)``
 unconditionally and pays one attribute lookup when nothing records.  A
 caller may pass any object with the methods its consumer calls (the serving
-engine calls ``span`` and ``event``, the trainer ``span`` and ``count``).
+engine calls ``span`` and ``event``, the trainer and the train step
+``span`` and ``count``).
 """
 from __future__ import annotations
 
 import os
 import time
 from typing import Callable, Dict, List, Optional
+
+import torch.autograd.profiler as _profiler
 
 from repro_torch.telemetry.metrics import (
     NULL_HISTOGRAM,
@@ -33,6 +45,12 @@ from repro_torch.telemetry.metrics import (
 # the cluster's process-index variable (cluster.spec.ENV_PROCESS_ID), read
 # here so that telemetry does not import the cluster package
 ENV_PROCESS_ID = "REPRO_PROCESS_ID"
+RANGE_PREFIX = "repro_torch."    # the profiler ranges' names: prefix + kind
+
+try:        # a RecordFunction range without record_function's op dispatch
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:
+    from torch.autograd.profiler import record_function as _Range
 
 
 class _NullSpan:
@@ -83,21 +101,27 @@ NULL_RECORDER = NullRecorder()
 
 
 class _Span:
-    """One open span: the context manager ``Recorder.span`` hands out."""
-    __slots__ = ("rec", "kind", "attrs", "t0")
+    """One open span: the context manager ``Recorder.span`` hands out;
+    ``range``: its profiler range, or None."""
+    __slots__ = ("rec", "kind", "attrs", "t0", "range")
 
-    def __init__(self, rec: "Recorder", kind: str, attrs: dict):
+    def __init__(self, rec: "Recorder", kind: str, attrs: dict, rng=None):
         self.rec = rec
         self.kind = kind
         self.attrs = attrs
         self.t0 = 0.0
+        self.range = rng
 
     def __enter__(self) -> "_Span":
         self.t0 = self.rec._clock()
         self.rec._stack.append(self)
+        if self.range is not None:
+            self.range.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self.range is not None:
+            self.range.__exit__(*exc)
         self.rec._finish_span(self)
         return False
 
@@ -106,8 +130,10 @@ class Recorder:
     """Collects completed events, notifies listeners and aggregates
     metrics.  ``clock`` is injectable for deterministic tests.
 
-    ``keep_events=False`` bounds memory for long runs: listeners and
-    histograms still see everything, only ``events`` stays empty.  ``sync``
+    ``keep_events=False`` bounds memory for long runs: listeners still see
+    everything; ``events`` stays empty and no span feeds a histogram.  A
+    span that no listener, kept event or profiler would see is the null
+    span (module docstring).  ``sync``
     asks the trainer to wait for each step's result, trading asynchronous
     launches for honest span durations (``make_recorder`` sets it iff a
     trace is written)."""
@@ -131,8 +157,12 @@ class Recorder:
         self._closed = False
 
     # -- spans and events ----------------------------------------------
-    def span(self, kind: str, **attrs) -> _Span:
-        return _Span(self, kind, attrs)
+    def span(self, kind: str, **attrs):
+        profiled = _profiler._is_profiler_enabled
+        if self._keep or self._listeners:
+            return _Span(self, kind, attrs,
+                         _Range(RANGE_PREFIX + kind) if profiled else None)
+        return _Range(RANGE_PREFIX + kind) if profiled else _NULL_SPAN
 
     def _finish_span(self, span: _Span) -> None:
         t1 = self._clock()
@@ -144,7 +174,8 @@ class Recorder:
         ev = {"kind": span.kind, "ph": "span", "t0": span.t0, "t1": t1,
               "dur": t1 - span.t0, "depth": len(self._stack)}
         ev.update(span.attrs)
-        self.hist(f"span/{span.kind}_s").observe(ev["dur"])
+        if self._keep:
+            self.hist(f"span/{span.kind}_s").observe(ev["dur"])
         self._emit(ev)
 
     def event(self, kind: str, **attrs) -> None:

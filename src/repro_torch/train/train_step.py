@@ -26,6 +26,13 @@ is :func:`global_norm` of the tree as it is; on a process mesh the update's
 ``clip`` counts a model-sharded leaf's squares once over its model group
 and a replicated leaf once, not M times.  :func:`zero1_state_shardings` is
 the reference's metadata of the zero1-gspmd state.
+
+Every step opens the spans ``forward`` (the loss), ``backward`` (the
+gradients, and the zero fill of leaves the loss does not reach), ``clip``
+(the norm and the scale) and ``update`` on the ``recorder`` it was built
+with (``telemetry.events``; ``NULL_RECORDER`` by default).  On a process
+mesh ``update`` holds the reduce, the ``clip`` and the apply; the
+overlapped step's reduces run inside its ``backward``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.comm.schedule import group_axes
 from repro_torch.core import collectives as coll
 from repro_torch.core.params import map_tree, tree_leaves
 from repro_torch.core.sharding import ShardingRules, zero1_state_spec
+from repro_torch.telemetry.events import NULL_RECORDER
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -50,7 +58,8 @@ def global_norm(tree) -> torch.Tensor:
 
 def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
                     grad_clip: float = 1.0,
-                    dist_update: Optional[Callable] = None):
+                    dist_update: Optional[Callable] = None,
+                    recorder=NULL_RECORDER):
     """loss_fn(params, batch) -> scalar loss.  Returns
     step(params, opt_state, step_idx, batch) -> (params, opt_state, metrics),
     which advances ``params`` and ``opt_state`` in place and returns them.
@@ -61,42 +70,47 @@ def make_train_step(loss_fn: Callable, optimizer, lr_schedule,
     part-reduce, the strip optimizer and the part-broadcast.  The matching
     ``opt_state`` comes from the ``init_fn`` of the same call.  On a process
     mesh the clip moves between the update's reduce and its apply (module
-    docstring)."""
+    docstring).  ``recorder`` takes the step's spans."""
     up = getattr(dist_update, "plan", None)
     if up is not None and up.mesh.batch_shard is not None:
         return _sharded_train_step(loss_fn, lr_schedule, grad_clip,
-                                   dist_update)
+                                   dist_update, recorder)
 
     def train_step(params, opt_state, step_idx, batch):
-        loss, grads = _loss_and_grads(loss_fn, params, batch)
-        gnorm = global_norm(grads)
-        if grad_clip > 0:
-            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
-                                max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(scale)
+        loss, grads = _loss_and_grads(loss_fn, params, batch, recorder)
+        with recorder.span("clip"):
+            gnorm = global_norm(grads)
+            if grad_clip > 0:
+                scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                                    max=1.0)
+                for g in tree_leaves(grads):
+                    g.mul_(scale)
         lr = lr_schedule(step_idx)
-        if dist_update is not None:
-            params, opt_state = dist_update(params, grads, opt_state, lr,
-                                            step_idx)
-        else:
-            params, opt_state = optimizer.update(grads, opt_state, params,
-                                                 lr)
+        with recorder.span("update"):
+            if dist_update is not None:
+                params, opt_state = dist_update(params, grads, opt_state, lr,
+                                                step_idx)
+            else:
+                params, opt_state = optimizer.update(grads, opt_state, params,
+                                                     lr)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 
     return train_step
 
 
-def _loss_and_grads(loss_fn, params, batch):
-    """The loss and its gradient tree.  A leaf the loss does not reach
-    takes a zero gradient, as ``jax.grad`` gives it (musicgen's ``embed``
-    and ``lm_head``: the audio loss reads the frame embeddings and the
-    codebook heads), so that the optimizer still decays it."""
+def _loss_and_grads(loss_fn, params, batch, recorder=NULL_RECORDER):
+    """The loss and its gradient tree, under the ``forward`` and
+    ``backward`` spans.  A leaf the loss does not reach takes a zero
+    gradient, as ``jax.grad`` gives it (musicgen's ``embed`` and
+    ``lm_head``: the audio loss reads the frame embeddings and the codebook
+    heads), so that the optimizer still decays it."""
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
-    loss = loss_fn(params, batch)
-    it = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
-    return loss, map_tree(lambda _: next(it), params)
+    with recorder.span("forward"):
+        loss = loss_fn(params, batch)
+    with recorder.span("backward"):
+        it = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
+        return loss, map_tree(lambda _: next(it), params)
 
 
 def group_mean(loss: torch.Tensor, mesh, axis_arg, G: int) -> torch.Tensor:
@@ -107,25 +121,28 @@ def group_mean(loss: torch.Tensor, mesh, axis_arg, G: int) -> torch.Tensor:
                               axis_arg)) / G
 
 
-def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update):
+def _sharded_train_step(loss_fn, lr_schedule, grad_clip, dist_update,
+                        recorder):
     """The monolithic step of a process mesh (zero1, stale-sync, gossip):
     loss and gradient of this rank's batch rows, the update's reduce, the
     norm and the clip of the reduced strips, then the update's apply and
-    broadcast.  Under stale-sync the clipped strips are this step's fresh
-    reduce, which the apply carries to the next step and applies then (the
-    reference's carry holds clipped means too); the reported norm is this
-    step's."""
+    broadcast, all three under the ``update`` span.  Under stale-sync the
+    clipped strips are this step's fresh reduce, which the apply carries to
+    the next step and applies then (the reference's carry holds clipped
+    means too); the reported norm is this step's."""
     up = dist_update.plan
     clip = getattr(dist_update, "clip", None) or (
         lambda g, c: clip_strips(g, up.mesh, up.axis_arg, c))
 
     def train_step(params, opt_state, step_idx, batch):
-        loss, grads = _loss_and_grads(loss_fn, params, batch)
-        g_strips = dist_update.reduce(params, grads, opt_state, step_idx)
-        gnorm = clip(g_strips, grad_clip)
-        lr = lr_schedule(step_idx)
-        params, opt_state = dist_update.local(params, g_strips, opt_state,
-                                              lr, step_idx)
+        loss, grads = _loss_and_grads(loss_fn, params, batch, recorder)
+        with recorder.span("update"):
+            g_strips = dist_update.reduce(params, grads, opt_state, step_idx)
+            with recorder.span("clip"):
+                gnorm = clip(g_strips, grad_clip)
+            lr = lr_schedule(step_idx)
+            params, opt_state = dist_update.local(params, g_strips,
+                                                  opt_state, lr, step_idx)
         metrics = {"loss": group_mean(loss, up.mesh, up.axis_arg, up.G),
                    "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
@@ -152,7 +169,8 @@ def clip_strips(g_strips, mesh, axis_arg, grad_clip: float) -> torch.Tensor:
 
 def make_overlapped_train_step(loss_fn: Callable, lr_schedule, mesh,
                                data_axes, comm, local_update: Callable,
-                               grad_clip: float = 1.0):
+                               grad_clip: float = 1.0,
+                               recorder=NULL_RECORDER):
     """The §3.1 backprop-overlapped realization of the zero1 step
     (``repro.train.make_overlapped_train_step``).  Returns
     step(params, opt_state, step_idx, batch) -> (params, opt_state, metrics)
@@ -169,18 +187,22 @@ def make_overlapped_train_step(loss_fn: Callable, lr_schedule, mesh,
     gradient, as in the monolithic step, so with ``grad_clip=0`` the two
     steps feed the same bytes to the same kernels.  On a process mesh each
     rank computes its own batch rows and reports the group-mean loss.
+    ``recorder`` takes the step's spans, the reduces inside ``backward``.
     """
     _, axis_arg, G = group_axes(mesh, data_axes)
-    overlap_grad = make_overlap_grad(loss_fn, mesh, axis_arg, comm, G)
+    overlap_grad = make_overlap_grad(loss_fn, mesh, axis_arg, comm, G,
+                                     recorder)
     sharded = mesh.batch_shard is not None
 
     def train_step(params, opt_state, step_idx, batch):
         loss, g_strips = overlap_grad(params, batch)
         if sharded:
             loss = group_mean(loss, mesh, axis_arg, G)
-        gnorm = clip_strips(g_strips, mesh, axis_arg, grad_clip)
+        with recorder.span("clip"):
+            gnorm = clip_strips(g_strips, mesh, axis_arg, grad_clip)
         lr = lr_schedule(step_idx)
-        params, opt_state = local_update(params, g_strips, opt_state, lr)
+        with recorder.span("update"):
+            params, opt_state = local_update(params, g_strips, opt_state, lr)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 

@@ -3,7 +3,11 @@ periodic checkpoints.
 
 The data pipeline prefetches on a background thread (``data/pipeline.py``);
 the train step runs eagerly; checkpoints are written on the host
-(``checkpoint.ckpt``) under a ``ckpt_write`` span."""
+(``checkpoint.ckpt``) under a ``ckpt_write`` span.  The loop's spans are
+``step``, ``data_wait``, ``first_step`` and ``ckpt_write``; the train step
+opens its own inside ``step`` (``forward``, ``backward``, ``clip``,
+``update``, and the §3.4 update's ``reduce``, ``apply`` and ``broadcast``:
+``train.train_step``, ``optim.dist``) on the recorder it was built with."""
 from __future__ import annotations
 
 import time

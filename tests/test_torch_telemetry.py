@@ -15,11 +15,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _gloo_ranks import run_ranks  # noqa: E402
 from repro import telemetry as jtel  # noqa: E402
 from repro.train.trainer import _batch_items as j_batch_items  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.api import RunSpec, TelemetrySpec, compile_run  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    MeshSpec,
+    RunSpec,
+    TelemetrySpec,
+    compile_run,
+)
 from repro_torch.train.trainer import _batch_items  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 class _Clock:
@@ -158,6 +166,8 @@ def test_traced_run_writes_trainer_spans(tmp_path, monkeypatch):
         evs = json.load(f)["traceEvents"]
     spans = [e["name"] for e in evs if e.get("ph") == "X"]
     assert spans.count("step") == spans.count("data_wait") == 3
+    for kind in ("forward", "backward", "clip", "update"):
+        assert spans.count(kind) == 3, kind
     assert spans.count("first_step") == 1 and spans.count("ckpt_write") == 1
     metrics = tel.read_jsonl(tel.trace_path(trace, 0))[-1]
     assert metrics["kind"] == "metrics"
@@ -177,3 +187,136 @@ def test_batch_items_match_the_reference():
             == j_batch_items(b)
     assert _batch_items(
         {"tokens": torch.zeros(2, 16, dtype=torch.int32)}) == (32, "tok")
+
+
+# ---------------------------------------------------------------------------
+# the port's spans on the profiler's clock
+# ---------------------------------------------------------------------------
+def _profiled(fn):
+    """The ``repro_torch.*`` ranges of ``fn()`` under a CPU profiler, as
+    (kind, start, end) in start order."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted(((e.name[len(tel.events.RANGE_PREFIX):],
+                    e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name.startswith(tel.events.RANGE_PREFIX)),
+                  key=lambda r: (r[1], -r[2]))
+
+
+def _nesting(ranges):
+    """(kind, the kind of the innermost range around it, or None) of each
+    range, in start order."""
+    out = []
+    for i, (kind, a, b) in enumerate(ranges):
+        around = [k for k, a2, b2 in ranges[:i] if a2 <= a and b <= b2]
+        out.append((kind, around[-1] if around else None))
+    return out
+
+
+def test_a_span_that_nothing_would_see_is_the_null_span():
+    quiet = tel.Recorder(keep_events=False)
+    with quiet.span("step", step=1) as s:
+        pass
+    assert s is tel.events._NULL_SPAN
+    assert quiet.events == [] and quiet.metrics()["histograms"] == {}
+    # a listener still sees every span; with no kept events no histogram
+    # grows
+    heard = tel.Recorder(keep_events=False)
+    seen = []
+    heard.add_listener(seen.append)
+    with heard.span("step", step=1):
+        with heard.span("forward"):
+            pass
+        with heard.span("update"):
+            pass
+    assert [(e["kind"], e["depth"]) for e in seen] == [
+        ("forward", 1), ("update", 1), ("step", 0)]
+    assert heard.events == [] and heard.metrics()["histograms"] == {}
+
+    # under a profiler each span is also a range; a recorder that keeps its
+    # events keeps them and their histogram as before
+    kept = tel.Recorder()
+
+    def spans():
+        for rec in (quiet, heard, kept):
+            with rec.span("step", step=2):
+                with rec.span("backward"):
+                    pass
+    assert _nesting(_profiled(spans)) == [
+        ("step", None), ("backward", "step")] * 3
+    assert quiet.events == [] and quiet.metrics()["histograms"] == {}
+    assert [e["kind"] for e in seen[3:]] == ["backward", "step"]
+    assert [e["kind"] for e in kept.events] == ["backward", "step"]
+    assert kept.metrics()["histograms"]["span/step_s"]["count"] == 1
+
+
+ONE_STEP = {
+    "serial": [("step", None), ("forward", "step"), ("backward", "step"),
+               ("clip", "step"), ("update", "step")],
+    "zero1": [("step", None), ("forward", "step"), ("backward", "step"),
+              ("clip", "step"), ("update", "step"), ("reduce", "update"),
+              ("apply", "update"), ("broadcast", "update")],
+    # a process mesh's ranks clip the reduced strips inside the update
+    "zero1-ranks": [("step", None), ("forward", "step"),
+                    ("backward", "step"), ("update", "step"),
+                    ("reduce", "update"), ("clip", "update"),
+                    ("apply", "update"), ("broadcast", "update")],
+}
+
+
+@pytest.mark.parametrize("parallel", ["serial", "zero1"])
+def test_run_step_ranges_nest_once_a_step(parallel):
+    """Two ``Run.step``s of a CD-DNN smoke run under a CPU profiler,
+    serial and zero1 on a local mesh of two members; the run's recorder
+    keeps nothing and has no listener, so only the profiler sees them."""
+    mesh = MeshSpec(members_per_device=2) if parallel == "zero1" else None
+    run = compile_run(RunSpec(arch="cd-dnn", smoke=True, batch=8,
+                              schedule="constant", parallel=parallel,
+                              **({"mesh": mesh} if mesh else {})),
+                      device="cpu")
+    batch = next(iter(run.data))
+    run.step(batch, 0)
+    ranges = _profiled(lambda: [run.step(batch, k) for k in (1, 2)])
+    run.close()
+    assert _nesting(ranges) == ONE_STEP[parallel] * 2
+    assert run.telemetry.events == []
+
+
+SPANS_WORKER = """
+import json, sys
+import torch, torch.distributed as dist
+rank, world, init, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
+    sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=world)
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.api import RunSpec, compile_run
+from repro_torch.launch.mesh import make_process_mesh
+run = compile_run(RunSpec(arch="cd-dnn", smoke=True, batch=8,
+                          schedule="constant", parallel="zero1"),
+                  device="cpu", mesh=make_process_mesh(device="cpu"))
+batch = next(iter(run.data))
+run.step(batch, 0)
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    for k in (1, 2):
+        run.step(batch, k)
+run.close()
+json.dump([(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events() if e.name.startswith("repro_torch.")],
+          open(f"{tmp}/ranges{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+
+def test_zero1_ranks_ranges_nest_once_a_step(tmp_path):
+    """Two gloo ranks of a zero1 CD-DNN smoke run: the update holds the
+    reduce, the clip of the reduced strips, the apply and the broadcast."""
+    run_ranks(SPANS_WORKER, 2, tmp_path, SRC)
+    for r in range(2):
+        got = json.loads((tmp_path / f"ranges{r}.json").read_text())
+        ranges = sorted(((n[len(tel.events.RANGE_PREFIX):], a, b)
+                         for n, a, b in got), key=lambda x: (x[1], -x[2]))
+        assert _nesting(ranges) == ONE_STEP["zero1-ranks"] * 2, r
