@@ -860,6 +860,7 @@ def phase3(dev, card):
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "t_bytes": 0.0, "t_ops": 0.0, "ffma_ms": 0.0, "bwd_ms": 0.0}
     worst = 0.0
+    kconv.launches = kconv.launches_ws = 0
     for arch in ("vgg-a", "overfeat-fast"):
         for j, (name, H, C, Fo, K, s, p) in enumerate(
                 conv_layer_shapes(get_config(arch))):
@@ -867,8 +868,13 @@ def phase3(dev, card):
             x = torch.randn(N, H, H, C, generator=gen, device=dev)
             w = torch.randn(K, K, C, Fo, generator=gen, device=dev) \
                 / np.sqrt(K * K * C)
+            before_ws = kconv.launches_ws
             got = kconv.conv2d_nhwc(x, w, stride=s, padding=p)
             torch.cuda.synchronize()
+            took = "ws" if kconv.launches_ws > before_ws else "tiled"
+            check(took == kconv.path(C, Fo, K, s) == ("tiled" if j == 0
+                                                      else "ws"),
+                  f"{name}: took the {took} instance")
             want = kconv.conv2d_nhwc_plain(x, w, stride=s, padding=p)
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
             err = (got - want).abs().max().item()
@@ -892,8 +898,9 @@ def phase3(dev, card):
             }
             bound_ms, t_bytes, t_ops, ffma_ms = conv_bound(N, H, C, Fo, K, s,
                                                            p)
-            print(f"  {name}: {H}x{H}x{C} -> {Fo}, {K}x{K} s{s} p{p}: "
-                  f"max|kernel - plain| {err} (max|plain| {scale}); kernel "
+            print(f"  {name}: {H}x{H}x{C} -> {Fo}, {K}x{K} s{s} p{p}, "
+                  f"{took} instance: max|kernel - plain| {err} (max|plain| "
+                  f"{scale}); kernel "
                   f"{t['ms']} ms, plain {t['plain_ms']} ms, F.conv2d "
                   f"{t['library_ms']} ms (kernel / F.conv2d "
                   f"{t['ms'] / t['library_ms']}), reference backward (input "
@@ -920,6 +927,8 @@ def phase3(dev, card):
           f"{totals['ffma_ms']} ms (kernel / FFMA bound "
           f"{totals['ms'] / totals['ffma_ms']}); reference backward "
           f"{totals['bwd_ms']} ms [{card}]")
+    print(f"  launches by path: {kconv.launches_ws} warp-specialised, "
+          f"{kconv.launches - kconv.launches_ws} tiled, of {kconv.launches}")
     return {"name": "conv2d_nhwc", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/conv2d.cu",
             "replaces": "src/repro/kernels/conv2d.py:85",
@@ -962,13 +971,14 @@ def phase4(card):
     init = {k: p.detach().cpu() for k, p in run.params.items()}
 
     torch.cuda.reset_peak_memory_stats()
-    kconv.launches = 0
+    kconv.launches = kconv.launches_ws = 0
     paged_attn.launches = kflash.launches = 0
     t0 = time.perf_counter()
     hist = run.fit(log_fn=lambda line: print(f"  {line}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, paged = kconv.launches, paged_attn.launches
+    launches_ws = kconv.launches_ws
     flash = kflash.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -979,6 +989,9 @@ def phase4(card):
     check(launches == n_conv * spec.steps,
           f"conv kernel launched {launches} times in {spec.steps} steps x "
           f"{n_conv} conv layers")
+    check(launches_ws == (n_conv - 1) * spec.steps,
+          f"{launches_ws} of {launches} conv launches warp-specialised, want "
+          f"all but conv1's")
     check(paged == 0, f"training launched the paged-decode kernel {paged} "
           "times")
     check(flash == 0, f"VGG-A training launched the flash kernel {flash} "
@@ -988,7 +1001,8 @@ def phase4(card):
     later = sum(steps[1:]) + sum(waits[1:])
     n_later = spec.batch * (spec.steps - 1)
     print(f"  {spec.steps} steps in {wall} s; conv kernel launches "
-          f"{launches} = {spec.steps} x {n_conv}; paged-decode launches "
+          f"{launches} = {spec.steps} x {n_conv} ({launches_ws} "
+          f"warp-specialised); paged-decode launches "
           f"{paged}; flash launches {flash}")
     print(f"  steps 2-{spec.steps}: {n_later / later} images/s with the "
           f"data waits ({n_later / sum(steps[1:])} images/s of step time "
@@ -6439,7 +6453,7 @@ def _leaves(tree):
 def instance_name(entry):
     """A compiled kernel instance's name for the build lines, from its
     mangled entry: the flash kernels' head dim, the GEMM's input type and
-    tile, the conv's tile."""
+    tile, the conv's instance and tile."""
     import re
     if m := re.search(r"flash_tc_kernelILi(\d+)E", entry):
         return f"bf16 wgmma D {m.group(1)}"
@@ -6451,6 +6465,10 @@ def instance_name(entry):
                       r"(\d+)E", entry):
         kind = "f32 3xTF32" if m.group(1) == "f" else "bf16"
         return f"{kind} wgmma {m.group(2)} x {m.group(3)}"
+    if m := re.search(r"conv2d_nhwc_kernel_wsILi(\d+)E", entry):
+        return f"f32 3xTF32 wgmma warp-specialised 128 x {m.group(1)}"
+    if "conv2d_nhwc_kernel_split_w" in entry:
+        return "f32 weight split"
     if m := re.search(r"conv2d_nhwc_kernelILi(\d+)E", entry):
         return f"f32 3xTF32 wgmma 128 x {m.group(1)}"
     return entry

@@ -2,13 +2,16 @@
 
     python3 experiments/tf32x3_variants.py
 
-Builds variants of the blocked GEMM and the direct conv
-(``src/repro_torch/kernels/csrc/{blocked_matmul,conv2d}.cu`` on
-``gemm_tf32x3.cuh``), each with one substitution in the mainloop header, into
-``src/repro_torch/kernels/_build/variants/<name>/`` (one nvcc per source, all
+Builds variants of the blocked GEMM
+(``src/repro_torch/kernels/csrc/blocked_matmul.cu`` on ``gemm_tf32x3.cuh``),
+each with one substitution in the mainloop header, into
+``src/repro_torch/kernels/_build/variants/<name>/`` (one nvcc a variant, all
 at once), and times each through its C entry with CUDA events at the
-shapes of the training paths: CD-DNN's 8 forward products at batch 1024 and
-VGG-A's 8 convs at batch 64.  The variants:
+shapes of its training path: CD-DNN's 8 forward products at batch 1024.
+The direct conv is not among them: every conv layer but the first of
+VGG-A and OverFeat-FAST runs the conv's own warp-specialised pipeline
+(``csrc/conv2d.cu``), which this header does not carry;
+``experiments/conv_ws_variants.py`` builds its variants.  The variants:
 
 - ``shipped``: the header as it is (the promotion every 32 of the depth);
 - ``promote_64``, ``promote_128``, ``no_promotion``: the partial sum promoted
@@ -43,7 +46,6 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.blocking import solve_h100_gemm_blocking  # noqa: E402
 from repro_torch.kernels import blocked_matmul as kmm  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import conv2d as kconv  # noqa: E402
 
 PROMOTE = "constexpr int kPromoteDepth = 32;"
 VARIANTS = {
@@ -65,16 +67,15 @@ VARIANTS = {
                   "      lo[j] = x[j];")],
 }
 COMPUTES = ("shipped", "promote_64", "promote_128", "no_promotion")
-SOURCES = ("blocked_matmul", "conv2d")
+SOURCES = ("blocked_matmul",)
 
 
 def build_variant(name):
-    """The variant's two libraries, {source: ctypes.CDLL}; raises with
-    nvcc's output, or if ptxas spilled or warned."""
+    """The variant's library, {source: ctypes.CDLL}; raises with nvcc's
+    output, or if ptxas spilled or warned."""
     out = os.path.join(build.BUILD_DIR, "variants", name)
     os.makedirs(out, exist_ok=True)
-    for f in ("blocked_matmul.cu", "conv2d.cu", "gemm_tf32x3.cuh",
-              "hopper.cuh"):
+    for f in ("blocked_matmul.cu", "gemm_tf32x3.cuh", "hopper.cuh"):
         shutil.copy(build.CSRC / f, out)
     path = os.path.join(out, "gemm_tf32x3.cuh")
     with open(path) as f:
@@ -101,7 +102,6 @@ def build_variant(name):
         libs[src] = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["blocked_matmul"].blocked_matmul.argtypes = [p, p, p] + [i] * 6 + [p]
-    libs["conv2d"].conv2d_nhwc_f32.argtypes = [p, p, p] + [i] * 10 + [p]
     return name, libs
 
 
@@ -112,15 +112,13 @@ def bias(got, want):
 
 
 def run(libs, computes, dev):
-    """(GEMM ms, conv ms, worst |kernel - plain| / max|plain|, GEMM bias,
-    conv bias) of one variant; the last three None where it computes
-    nothing."""
+    """(GEMM ms, worst |kernel - plain| / max|plain|, GEMM bias) of one
+    variant; the last two None where it computes nothing."""
     stream = torch.cuda.current_stream().cuda_stream
     gemm = libs["blocked_matmul"].blocked_matmul
-    conv = libs["conv2d"].conv2d_nhwc_f32
     layers = cs.dnn_layer_shapes(get_config("cd-dnn"), cs.DNN_BATCH)
-    t_gemm = t_conv = worst = 0.0
-    g_bias, c_bias = [], []
+    t_gemm = worst = 0.0
+    g_bias = []
     for M, N, K in sorted(set(layers)):
         gen = torch.Generator(device=dev).manual_seed(K + N)
         a = torch.randn(M, K, generator=gen, device=dev)
@@ -140,37 +138,9 @@ def run(libs, computes, dev):
                                 / want.abs().max()).item())
             g_bias.append(bias(c, a.double() @ b.double()))
         t_gemm += cs.cuda_ms(call, 3, 20) * layers.count((M, N, K))
-    for j, (_, H, C, F, K, s, p) in enumerate(
-            cs.conv_layer_shapes(get_config("vgg-a"))):
-        gen = torch.Generator(device=dev).manual_seed(100 + j)
-        x = torch.randn(64, H, H, C, generator=gen, device=dev)
-        w = torch.randn(K, K, C, F, generator=gen, device=dev) \
-            / (K * K * C) ** 0.5
-        OH, OW = kconv.out_hw(H, H, K, s, p)
-        out = torch.empty(64, OH, OW, F, device=dev)
-
-        def call():
-            rc = conv(x.data_ptr(), w.data_ptr(), out.data_ptr(), 64, H, H, C,
-                      K, F, s, p, OH, OW, stream)
-            assert rc == 0, rc
-        call()
-        torch.cuda.synchronize()
-        if computes:
-            want = kconv.conv2d_nhwc_plain(x, w, stride=s, padding=p)
-            worst = max(worst, ((out - want).abs().max()
-                                / want.abs().max()).item())
-            del want
-            exact = torch.nn.functional.conv2d(
-                x[:8].double().permute(0, 3, 1, 2),
-                w.double().permute(3, 2, 0, 1), stride=s, padding=p)
-            c_bias.append(bias(out[:8], exact.permute(0, 2, 3, 1)))
-            del exact
-        t_conv += cs.cuda_ms(call, 3, 20)
-        del x, w, out
     if not computes:
-        return t_gemm, t_conv, None, None, None
-    return (t_gemm, t_conv, worst, sum(g_bias) / len(g_bias),
-            sum(c_bias) / len(c_bias))
+        return t_gemm, None, None
+    return t_gemm, worst, sum(g_bias) / len(g_bias)
 
 
 def main() -> int:
@@ -182,16 +152,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     print(card)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:   # one nvcc per source
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:   # one nvcc a variant
         built = dict(pool.map(build_variant, VARIANTS))
     for rnd in range(2):   # every variant twice, in turn
         for name, libs in built.items():
-            g, c, worst, gb, cb = run(libs, name in COMPUTES, dev)
+            g, worst, gb = run(libs, name in COMPUTES, dev)
             extra = ("" if worst is None else
                      f"; worst |kernel - plain| / max|plain| {worst}; bias "
-                     f"against f64: GEMM {gb}, conv {cb}")
-            print(f"round {rnd} {name}: CD-DNN's 8 products {g} ms, VGG-A's "
-                  f"8 convs {c} ms{extra} [{card}]", flush=True)
+                     f"against f64 {gb}")
+            print(f"round {rnd} {name}: CD-DNN's 8 products {g} ms{extra} "
+                  f"[{card}]", flush=True)
     return 0
 
 

@@ -19,4 +19,4 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels import paged_attn, ring
     ring.reset_launches()
     blocked_matmul.launches = conv2d.launches = paged_attn.launches = 0
-    flash_attention.launches = 0
+    conv2d.launches_ws = flash_attention.launches = 0

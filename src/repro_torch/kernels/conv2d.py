@@ -4,8 +4,11 @@ its autograd wrapper.
 Port of ``repro.kernels.conv2d.conv2d_nhwc``: x (N, H, W, IFM) and HWIO
 weights w (K, K, IFM, OFM), stride and symmetric zero padding, f32 in and
 out.  The CUDA source, ``csrc/conv2d.cu``, states its design and its bound:
-an implicit GEMM on the tensor cores in 3xTF32, on the mainloop it shares
-with the blocked GEMM (``csrc/gemm_tf32x3.cuh``).
+an implicit GEMM on the tensor cores in 3xTF32, in two instances chosen by
+:func:`path` from the call's shape: a warp-specialised pipeline fed by a
+split of the weights made once a call (``"ws"``: every layer whose gather
+is 16-byte vectorised), and the mainloop the kernel shares with the blocked
+GEMM (``"tiled"``, ``csrc/gemm_tf32x3.cuh``: the first layers, C = 3).
 
 :func:`conv2d_nhwc` is the wrapper: on CPU tensors it computes the plain
 version (that is how the CPU tests run it); on CUDA tensors it launches the
@@ -27,11 +30,28 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.build import launch, load
+
 _MAX_GRID_X = 2 ** 31 - 1
 _BM = 128          # kBM in csrc/conv2d.cu: output pixels per block
+_STAGE_DEPTH = 16  # ws::kBK in csrc/conv2d.cu: the depth of one stage
 
-# kernel launches since the last reset (the plain version is not counted)
+# calls that launched the kernel since the last reset, and of them those on
+# the warp-specialised path (the plain version is not counted)
 launches = 0
+launches_ws = 0
+
+
+def path(ifm: int, ofm: int, k: int, stride: int, aligned: bool = True
+         ) -> str:
+    """The instance a call takes: ``"ws"`` where the im2col gather is
+    16-byte vectorised (IFM % 4 == 0 and x 16-byte aligned) and the depth
+    K*K*IFM fills one stage, else ``"tiled"``.  OFM and the stride do not
+    choose: ``"ws"`` takes any OFM on 128-wide tiles above 64 and 64-wide
+    ones up to it, zeros past OFM, and the gather any stride."""
+    del ofm, stride
+    ws = aligned and ifm % 4 == 0 and k * k * ifm >= _STAGE_DEPTH
+    return "ws" if ws else "tiled"
 
 
 def out_hw(h: int, w: int, k: int, stride: int, padding: int
@@ -98,14 +118,20 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise ValueError(f"{N * OH * OW} output pixels exceed the kernel's "
                          "grid")
     out = torch.empty(N, OH, OW, OFM, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().conv2d_nhwc_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, K, OFM,
-            int(stride), int(padding), OH, OW, stream)
-    if rc != 0:
-        raise RuntimeError(f"conv2d_nhwc launch failed: CUDA error {rc}")
-    global launches
+    global launches, launches_ws
+    lib = _lib()
+    shape = (N, H, W, C, K, OFM, int(stride), int(padding), OH, OW)
+    if path(C, OFM, K, stride, x.data_ptr() % 16 == 0) == "ws":
+        # the split weights: made anew by every call, since the optimizer
+        # updates w in place between calls
+        wsplit = torch.empty(2 * OFM * K * K * C, dtype=torch.float32,
+                             device=x.device)
+        launch(lib.conv2d_nhwc_ws_f32, x.device, x.data_ptr(), w.data_ptr(),
+               wsplit.data_ptr(), out.data_ptr(), *shape)
+        launches_ws += 1
+    else:
+        launch(lib.conv2d_nhwc_f32, x.device, x.data_ptr(), w.data_ptr(),
+               out.data_ptr(), *shape)
     launches += 1
     return out
 
@@ -151,11 +177,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load
     lib = load("conv2d")
-    fn = lib.conv2d_nhwc_f32
-    if fn.argtypes is None:
+    if lib.conv2d_nhwc_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p] + [i] * 10 + [p]
-        fn.restype = ctypes.c_int
+        for fn, ptrs in ((lib.conv2d_nhwc_f32, 3),
+                         (lib.conv2d_nhwc_ws_f32, 4)):
+            fn.argtypes = [p] * ptrs + [i] * 10 + [p]
+            fn.restype = ctypes.c_int
     return lib

@@ -418,21 +418,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// the driver's tensor-map encoder, found at run time (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
+using hopper::EncodeTiled;
+using hopper::encode_tiled;
 
 // the compiled instance that runs head dim D: the least of 32, 64, 128 and
 // 256 that holds it (D % 8 == 0, so that a row of D bf16 is a multiple of

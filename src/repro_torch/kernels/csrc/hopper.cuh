@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// wgmma descriptors and the few wgmma shapes the port's kernels issue (bf16,
-// and tf32 with its rounding), and register hand-over between warpgroups
-// (setmaxnreg).
+// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads
+// (and the host's tensor-map encoder), wgmma descriptors and the few wgmma
+// shapes the port's kernels issue (bf16, and tf32 with its rounding), and
+// register hand-over between warpgroups (setmaxnreg).
 //
 // Shared-memory operand layouts are the ones TMA writes with a 64- or
 // 128-byte swizzle: rows of R bytes (R = 64 or 128), eight rows an atom of
@@ -76,6 +76,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the driver's tensor-map encoder, found at run time (no -lcuda); null
+// where the driver has none
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // ---- register hand-over ---------------------------------------------------

@@ -5,7 +5,8 @@ computes it for CPU tensors) is held against the reference's Pallas kernel
 in interpret mode and against its ``lax.conv`` oracle, on the same numpy
 inputs; the port's ``conv2d_ref`` against the reference's; the autograd
 ``conv2d``'s gradients against ``jax.grad`` of the reference's
-``conv2d_ref``.
+``conv2d_ref``; and which of the kernel's two instances a call's shape
+takes (``path``).
 
 Tolerance: 2e-6 of the output's max magnitude.  Both sides sum the same f32
 products (at most 11*11*16 = 1936 of them here) in different orders; the
@@ -21,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.conv2d import conv2d_nhwc as jax_conv  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import conv2d as kconv  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref  # noqa: E402
 
@@ -125,3 +127,42 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kconv.conv2d_nhwc(x[:, :2, :2].contiguous(), w)     # kernel too big
     with pytest.raises(ValueError):
         kconv.conv2d_nhwc(x.to("meta"), w.to("meta"))        # not cpu/cuda
+
+
+# (arch, conv index, model ways): every conv layer of both nets, whole and
+# as one member's half of its output channels at 2 model ways
+NET_CONVS = [(arch, i, ways)
+             for arch, n in (("vgg-a", 8), ("overfeat-fast", 5))
+             for i in range(n) for ways in (1, 2)]
+
+
+@pytest.mark.parametrize("arch,i,ways", NET_CONVS)
+def test_path_of_every_conv_of_both_nets(arch, i, ways):
+    """The first layer (C = 3: one 4-byte load a tap) stays on the tiled
+    instance; every other layer and its shards take the warp-specialised
+    one, 64-wide shards too."""
+    lyr = [lyr for lyr in get_config(arch).layers if lyr.kind == "conv"][i]
+    got = kconv.path(lyr.ifm, lyr.ofm // ways, lyr.kernel, lyr.stride)
+    assert got == ("tiled" if i == 0 else "ws")
+
+
+# (IFM, OFM, K, stride, x 16-byte aligned, path): the rule's edges
+EDGES = [
+    (4, 96, 3, 1, True, "ws"),       # the least vectorised IFM
+    (16, 16, 1, 1, True, "ws"),      # K*K*IFM exactly one stage
+    (12, 16, 1, 1, True, "tiled"),   # K*K*IFM under one stage
+    (8, 64, 1, 1, True, "tiled"),
+    (12, 27, 3, 1, True, "ws"),      # OFM odd, under a 64-wide tile
+    (16, 130, 5, 2, True, "ws"),     # OFM past one 128-wide tile, stride 2
+    (64, 96, 11, 4, True, "ws"),     # 11x11, stride 4
+    (64, 128, 3, 1, False, "tiled"),  # x off 16 bytes: one load a tap
+    (5, 70, 3, 1, True, "tiled"),    # IFM % 4 != 0
+    (130, 16, 1, 1, True, "tiled"),
+    (3, 130, 3, 2, True, "tiled"),
+    (2, 5, 2, 1, True, "tiled"),
+]
+
+
+@pytest.mark.parametrize("C,F,K,s,aligned,want", EDGES)
+def test_path_at_the_rules_edges(C, F, K, s, aligned, want):
+    assert kconv.path(C, F, K, s, aligned) == want

@@ -8,20 +8,25 @@ Run on the card with
 TF32 is off for cuDNN and matmul, so every side computes in f32.  Shapes:
 three VGG-A layers (conv1, the first 256 -> 256 layer, the last 512 -> 512
 layer) at batch 2, and OverFeat-FAST conv1 (11x11, stride 4) at batch 4;
-ragged shapes; and the edges of the tensor-core mainloop
-(``csrc/gemm_tf32x3.cuh``): C % 4 != 0 (one copy a tap), C % 4 == 0 with
-K*K*C no multiple of a 16-deep stage, K*K*C under one stage, F = 96 and
-F = 130 on the 64- and 128-wide tiles, stride 4, and x that starts off 16
-bytes.  Tolerance: 2e-5 of the layer's max |plain| — each output is an f32
-sum of up to K*K*IFM = 4608 products (the kernel's as three TF32 products
-each) taken in another order by each side; the rounding of such a sum is a
-few 1e-6 of the output's scale.
+every distinct conv shape of both nets at batch 2, and two 2-model-way
+shards, each on the instance ``path`` names (the launch counters say
+which ran); ragged shapes; and the edges of both instances: C % 4 != 0
+(one copy a tap), C % 4 == 0 with K*K*C no multiple of a 16-deep stage,
+K*K*C under one stage, F = 96, F = 130 and F = 27 on the 64- and 128-wide
+tiles, stride 4, and x that starts off 16 bytes.  The weights updated in
+place between two calls (the warp-specialised instance splits them anew
+every call), and that instance bitwise the tiled one (the same products in
+the same order).  Tolerance: 2e-5 of the layer's max |plain| — each output
+is an f32 sum of up to K*K*IFM = 9216 products (the kernel's as three TF32
+products each) taken in another order by each side; the rounding of such a
+sum is a few 1e-6 of the output's scale.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import conv2d as kconv  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref  # noqa: E402
 
@@ -35,6 +40,36 @@ LAYERS = [
     ("vgg-a conv 512->512 at 14x14", 2, 14, 512, 512, 3, 1, 1),
     ("overfeat-fast conv1", 4, 231, 3, 96, 11, 4, 0),
 ]
+
+
+
+
+def _net_shapes():
+    """(name, H, IFM, OFM, K, stride, pad) of every distinct conv shape of
+    VGG-A and OverFeat-FAST, and of two 2-model-way shards (a member's half
+    of the output channels): VGG-A conv2's 64 and OverFeat conv2's 128."""
+    out, seen = [], set()
+    for arch in ("vgg-a", "overfeat-fast"):
+        cfg = get_config(arch)
+        h, n_conv = cfg.image_size, 0
+        for i, lyr in enumerate(cfg.layers):
+            if lyr.kind == "pool":
+                h //= 2
+            if lyr.kind != "conv":
+                continue
+            n_conv += 1
+            shape = (h, lyr.ifm, lyr.ofm, lyr.kernel, lyr.stride, lyr.pad)
+            if shape not in seen:
+                seen.add(shape)
+                out.append((f"{arch} conv{n_conv}", *shape))
+            if n_conv == 2:
+                out.append((f"{arch} conv2, 2 model ways", h, lyr.ifm,
+                            lyr.ofm // 2, *shape[3:]))
+            h = lyr.out_hw
+    return out
+
+
+NET_SHAPES = _net_shapes()
 
 
 @pytest.fixture
@@ -133,3 +168,53 @@ def test_kernel_rejects_bad_inputs(cuda):
         kconv.conv2d_nhwc(x.transpose(1, 2), w)
     with pytest.raises(ValueError):
         kconv.conv2d_nhwc(x, w[:, :, :3].contiguous())
+
+
+@pytest.mark.parametrize("name,H,C,F,K,s,p", NET_SHAPES,
+                         ids=[shape[0] for shape in NET_SHAPES])
+def test_every_conv_shape_of_both_nets_on_its_path(cuda, name, H, C, F, K, s,
+                                                   p):
+    x, w = _inputs(cuda, 2, H, C, F, K, seed=H + C + F)
+    want_path = kconv.path(C, F, K, s)
+    assert want_path == ("tiled" if C == 3 else "ws"), name
+    before, before_ws = kconv.launches, kconv.launches_ws
+    got = kconv.conv2d_nhwc(x, w, stride=s, padding=p)
+    torch.cuda.synchronize()
+    assert kconv.launches == before + 1
+    assert kconv.launches_ws == before_ws + (want_path == "ws")
+    want = kconv.conv2d_nhwc_plain(x, w, stride=s, padding=p)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= REL_TOL * want.abs().max().item(), (name, err)
+
+
+def test_weights_updated_in_place_between_calls(cuda):
+    """The optimizer updates w in place: the second call computes with the
+    new weights, not a split kept from the first."""
+    x, w = _inputs(cuda, 2, 28, 64, 128, 3, seed=11)
+    assert kconv.path(64, 128, 3, 1) == "ws"
+    first = kconv.conv2d_nhwc(x, w, stride=1, padding=1)
+    w.mul_(-0.5).add_(0.01)
+    second = kconv.conv2d_nhwc(x, w, stride=1, padding=1)
+    want = kconv.conv2d_nhwc_plain(x, w, stride=1, padding=1)
+    assert (second - want).abs().max().item() \
+        <= REL_TOL * want.abs().max().item()
+    assert (second - first).abs().max().item() \
+        > 0.1 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("N,H,C,F,K,s,p", [(2, 28, 256, 256, 3, 1, 1),
+                                           (3, 23, 16, 130, 5, 2, 2)])
+def test_ws_instance_bitwise_the_tiled_one(cuda, N, H, C, F, K, s, p):
+    """Both instances issue the same three TF32 products a k8 step in the
+    same order, promoted at the same depths, on the same split operands:
+    their outputs agree to the bit where both take 128-wide tiles."""
+    x, w = _inputs(cuda, N, H, C, F, K, seed=F)
+    got = kconv.conv2d_nhwc(x, w, stride=s, padding=p)
+    OH, OW = kconv.out_hw(H, H, K, s, p)
+    tiled = torch.empty_like(got)
+    kconv.launch(kconv._lib().conv2d_nhwc_f32, x.device, x.data_ptr(),
+                 w.data_ptr(), tiled.data_ptr(), N, H, H, C, K, F, s, p, OH,
+                 OW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tiled)
